@@ -1,0 +1,108 @@
+"""Build and bind the CUDA kernels in garlic_tpu_torch/csrc.
+
+nvcc compiles every source under csrc/ into one shared library with a
+plain C interface, for sm_90a, into <repo>/build/garlic_tpu_torch/ at
+first use; the file name carries a hash of the sources and flags, so an
+edited source builds anew and an unchanged one loads the existing file.
+The library is loaded with ctypes.  Nothing here runs at import time: the
+CPU tests import the port without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "garlic_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of this process's nvcc run (None: loaded)
+
+
+class BuildError(RuntimeError):
+    pass
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise BuildError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                         "/usr/local/cuda/bin)")
+    return path
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"liblod_windows_{h.hexdigest()[:16]}.so")
+
+
+def _compile(so: str) -> None:
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cus = [s for s in _sources() if s.endswith(".cu")]
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cus
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise BuildError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
+                         f"{r.stderr}")
+    build_seconds = time.perf_counter() - t0
+    # ptxas' register / shared-memory report, kept beside the library
+    with open(so[:-3] + ".log", "w") as f:
+        f.write(r.stdout + r.stderr)
+    os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first use; raises BuildError with
+    nvcc's stderr when the build fails."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not os.path.exists(so):
+            _compile(so)
+        lib = ctypes.CDLL(so)
+        p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gt_lod_windows.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        lib.gt_lod_windows.restype = i
+        lib.gt_covered.argtypes = [i, p, p, p, p, p, p, i, i, i, i,
+                                   fl, fl, fl, p]
+        lib.gt_covered.restype = i
+        _lib = lib
+        return lib
+
+
+def ptxas_report() -> str:
+    """nvcc's -Xptxas -v output for the current library ('' before a
+    build in this checkout)."""
+    log = library_path()[:-3] + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return f.read()

@@ -1,0 +1,278 @@
+"""Phase-I LOD windows on the GPU: kernels K1 and K2, their plain
+PyTorch versions, and the device inputs they read.
+
+Counterpart of garlic_tpu/ops/pallas_lod.py.  The two Pallas TPU kernels
+on the pinned-cutoff path are hand-written CUDA in csrc/lod_windows.cu:
+
+* K1 lod_windows  <- _lod_windows_pallas_padded (pallas_lod.py:93)
+* K2 covered      <- _covered_pallas_padded     (pallas_lod.py:291)
+
+Each wrapper checks its inputs, sends a CPU tensor to the plain version
+beside it and launches the kernel for a CUDA tensor (there is no
+fallback from one to the other), and counts its launches in LAUNCHES.
+Tensors are sized exactly (nwin = L - W + 1 window starts, L SNPs): the
+JAX package's power-of-two buckets existed to bound XLA recompiles.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from garlic_tpu.core.types import MISSING
+
+from . import _build
+from .lod import window_missing_mask
+
+# kernel launches by wrapper; chip_smoke.py zeroes and reads them
+LAUNCHES = {"lod_windows": 0, "covered": 0}
+
+
+def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
+    """[I, ceil(L/4)] u8 little-endian 2-bit codes -> int8 [I, L]
+    genotypes 0/1/2, code 3 -> -9 (missing).  Counterpart of
+    pallas_lod._decode_2bit (:959) and the unpack in _packed_entry
+    (:813-815)."""
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                          device=packed.device)
+    codes = (packed.unsqueeze(-1) >> shifts) & 3
+    codes = codes.reshape(packed.shape[0], -1)[:, :nloci]
+    return torch.where(codes == 3, -9, codes.to(torch.int8)).to(torch.int8)
+
+
+def lod_table_f32(freq: torch.Tensor, error: float) -> torch.Tensor:
+    """[3, L] f32 LOD table for genotype classes 0/1/2, monomorphic sites
+    0: the f32 formula of pallas_lod._packed_entry (:816-834), op for op
+    in eager torch (src/garlic-roh.cpp:355-386)."""
+    p = freq.to(torch.float32)
+    e = torch.tensor(error, dtype=torch.float32, device=p.device)
+    one_minus = 1.0 - p
+    non0 = one_minus * one_minus
+    aut0 = (1.0 - e) * one_minus + e * non0
+    non1 = 2.0 * p * one_minus
+    aut1 = e * non1
+    non2 = p * p
+    aut2 = (1.0 - e) * p + e * non2
+    mono = (p <= 0.0) | (p >= 1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=p.device)
+    return torch.stack([torch.where(mono, zero, torch.log10(a / n))
+                        for a, n in ((aut0, non0), (aut1, non1),
+                                     (aut2, non2))])
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (CPU tensors, and the reference the card is checked against)
+# ---------------------------------------------------------------------------
+
+def _terms(packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 [I, L] per-locus LOD terms; missing genotypes add 0."""
+    g = decode_2bit(packed, table.shape[1])
+    zero = torch.zeros((), dtype=torch.float32, device=table.device)
+    return torch.where(g == 0, table[0], torch.where(
+        g == 1, table[1], torch.where(g == 2, table[2], zero)))
+
+
+def _window_sums_plain(packed, table, W: int) -> torch.Tensor:
+    """Unmasked f32 window sums [I, nwin]: W slice adds, left to right
+    from 0, the kernels' order (no conv1d: cuDNN runs f32 convolutions in
+    TF32)."""
+    a = _terms(packed, table)
+    nwin = a.shape[1] - W + 1
+    acc = torch.zeros((a.shape[0], nwin), dtype=torch.float32,
+                      device=a.device)
+    for k in range(W):
+        acc += a[:, k:k + nwin]
+    return acc
+
+
+def window_counts(above: torch.Tensor, W: int) -> torch.Tensor:
+    """int32 [I, nwin + W - 1] coverage counts: count[s] = number of set
+    flags over window starts [s - W + 1, s] (exact integer cumsum)."""
+    I, nwin = above.shape
+    pad = torch.zeros((I, nwin + 2 * (W - 1)), dtype=torch.int32,
+                      device=above.device)
+    pad[:, W - 1:W - 1 + nwin] = above
+    cs = torch.cumsum(pad, dim=1, dtype=torch.int32)
+    cs = torch.cat([torch.zeros((I, 1), dtype=torch.int32,
+                                device=above.device), cs], dim=1)
+    return cs[:, W:] - cs[:, :nwin + W - 1]
+
+
+def lod_windows_plain(packed, table, miss, winsize: int) -> torch.Tensor:
+    """Plain version of K1: f32 [I, nwin], MISSING where miss is set."""
+    win = _window_sums_plain(packed, table, winsize)
+    return torch.where(miss.bool()[None, :],
+                       torch.tensor(float(MISSING), dtype=torch.float32,
+                                    device=win.device), win)
+
+
+def covered_plain(packed, table, miss, winsize: int, cutoff: float,
+                  thr: float, delta: float):
+    """Plain version of K2: (covered u8 [I, L], susw u8 [I, nwin],
+    above u8 [I, nwin])."""
+    win = _window_sums_plain(packed, table, winsize)
+    live = ~miss.bool()[None, :]
+    c = torch.tensor(cutoff, dtype=torch.float32, device=win.device)
+    d = torch.tensor(delta, dtype=torch.float32, device=win.device)
+    t = torch.tensor(thr, dtype=torch.float32, device=win.device)
+    above = (win >= c) & live
+    susw = ((win - c).abs() < d) & live
+    cov = window_counts(above, winsize).to(torch.float32) >= t
+    return (cov.to(torch.uint8), susw.to(torch.uint8),
+            above.to(torch.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(packed, table, miss, winsize: int):
+    if packed.dtype != torch.uint8 or packed.dim() != 2:
+        raise TypeError("packed must be a 2-D uint8 tensor")
+    if table.dtype != torch.float32 or table.dim() != 2 \
+            or table.shape[0] != 3:
+        raise TypeError("table must be a [3, L] float32 tensor")
+    I, Lq = packed.shape
+    L = table.shape[1]
+    nwin = L - winsize + 1
+    if winsize < 1 or nwin < 1 or I < 1:
+        raise ValueError(f"need I >= 1 and 1 <= winsize <= L "
+                         f"(I={I}, L={L}, winsize={winsize})")
+    if Lq != (L + 3) // 4:
+        raise ValueError(f"packed has {Lq} bytes per row, expected "
+                         f"{(L + 3) // 4} for L={L}")
+    if miss.dtype != torch.uint8 or tuple(miss.shape) != (nwin,):
+        raise TypeError(f"miss must be a uint8 tensor of shape ({nwin},)")
+    for t in (packed, table, miss):
+        if t.device != packed.device:
+            raise ValueError("inputs lie on different devices")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if packed.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {packed.device}")
+    return I, L, nwin
+
+
+def _launch_args(device):
+    """(device index, PyTorch's current stream on it) for a launcher."""
+    return device.index, torch.cuda.current_stream(device).cuda_stream
+
+
+def lod_windows(packed, table, miss, winsize: int) -> torch.Tensor:
+    """K1: masked f32 window sums [I, nwin]."""
+    I, L, nwin = _check(packed, table, miss, winsize)
+    if packed.device.type == "cpu":
+        return lod_windows_plain(packed, table, miss, winsize)
+    out = torch.empty((I, nwin), dtype=torch.float32, device=packed.device)
+    index, stream = _launch_args(packed.device)
+    rc = _build.library().gt_lod_windows(
+        index, packed.data_ptr(), table.data_ptr(), miss.data_ptr(),
+        out.data_ptr(), I, L, packed.shape[1], winsize, stream)
+    if rc != 0:
+        raise RuntimeError(f"gt_lod_windows launch failed: CUDA error {rc}")
+    LAUNCHES["lod_windows"] += 1
+    return out
+
+
+def covered(packed, table, miss, winsize: int, cutoff: float, thr: float,
+            delta: float):
+    """K2: (covered u8 [I, L], susw u8 [I, nwin], above u8 [I, nwin]).
+    thr is the already-ceiled overlap threshold; delta 0 flags no
+    suspect."""
+    I, L, nwin = _check(packed, table, miss, winsize)
+    if packed.device.type == "cpu":
+        return covered_plain(packed, table, miss, winsize, cutoff, thr,
+                             delta)
+    dev = packed.device
+    cov = torch.empty((I, L), dtype=torch.uint8, device=dev)
+    susw = torch.empty((I, nwin), dtype=torch.uint8, device=dev)
+    above = torch.empty((I, nwin), dtype=torch.uint8, device=dev)
+    index, stream = _launch_args(dev)
+    rc = _build.library().gt_covered(
+        index, packed.data_ptr(), table.data_ptr(), miss.data_ptr(),
+        cov.data_ptr(), susw.data_ptr(), above.data_ptr(), I, L,
+        packed.shape[1], winsize, float(cutoff), float(thr), float(delta),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"gt_covered launch failed: CUDA error {rc}")
+    LAUNCHES["covered"] += 1
+    return cov, susw, above
+
+
+# ---------------------------------------------------------------------------
+# Device inputs
+# ---------------------------------------------------------------------------
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> tensor on `device` (plain H2D copy).  Panel-cache
+    payloads are read-only memory maps; the tensor is only read."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(device)
+
+
+def _pack_numpy(geno: np.ndarray, L4: int) -> np.ndarray:
+    """Pad to L4 loci with missing codes and pack 2-bit codes: the numpy
+    branch of pallas_lod.pack_genotypes (:863-867)."""
+    I, L = geno.shape
+    gp = np.full((I, L4), -9, dtype=np.int8)
+    gp[:, :L] = geno
+    codes = np.where(gp == -9, 3, gp).astype(np.uint8)
+    v = np.ascontiguousarray(codes).reshape(I, -1).view(np.uint32)
+    packed = ((v & 0x3) | ((v >> 6) & 0xC) | ((v >> 12) & 0x30)
+              | ((v >> 18) & 0xC0))
+    return packed.astype(np.uint8)
+
+
+def packed_host(chrom) -> np.ndarray:
+    """u8 [I, ceil(L/4)] 2-bit codes of one chromosome: the panel-cache /
+    packed-filter bytes as they are, else the int8 genotypes packed by
+    the native C++ packer."""
+    L = chrom.nloci
+    rb = (L + 3) // 4
+    if chrom.geno_is_packed_only:
+        return chrom.geno2b[:, :rb]
+    geno = np.asarray(chrom.genotypes)
+    from garlic_tpu.native import pack_2bit_padded_native
+    packed = pack_2bit_padded_native(geno, geno.shape[0], 4 * rb)
+    return packed if packed is not None else _pack_numpy(geno, 4 * rb)
+
+
+def chrom_device_inputs(chrom, centro, winsize: int, error: float,
+                        max_gap: int, device):
+    """One chromosome's kernel inputs on `device`: (packed u8
+    [I, ceil(L/4)], table f32 [3, L], window-missing mask u8 [nwin]),
+    with nwin = L - winsize + 1 >= 1.  The codes go up as they are (a
+    plain H2D copy) and the f32 table is built on the device; the input
+    stage of lod_windows_pallas_prepacked_raw (pallas_lod.py:1261) and
+    covered_pallas_prepacked_raw (:1352)."""
+    missing = window_missing_mask(chrom.positions, winsize, max_gap,
+                                  centro.start(chrom.chrom),
+                                  centro.end(chrom.chrom))
+    freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
+    return (_upload(packed_host(chrom), device), lod_table_f32(freq, error),
+            _upload(missing.astype(np.uint8), device))
+
+
+def lod_windows_packed_raw(chrom, centro, winsize: int, error: float,
+                           max_gap: int, device) -> torch.Tensor:
+    """K1 over one chromosome: masked f32 window sums [I, nwin] on
+    `device`, the 2-bit codes uploaded as they are.  Counterpart of
+    lod_windows_pallas_prepacked_raw (pallas_lod.py:1261) and
+    lod_windows_pallas_packed_raw (:885)."""
+    return lod_windows(*chrom_device_inputs(chrom, centro, winsize, error,
+                                            max_gap, device), winsize)
+
+
+def covered_packed_raw(chrom, centro, winsize: int, error: float,
+                       max_gap: int, cutoff: float, thr: float, delta: float,
+                       device):
+    """K2 over one chromosome: (covered u8 [I, L], susw u8 [I, nwin],
+    above u8 [I, nwin]) on `device`, the 2-bit codes uploaded as they
+    are.  Counterpart of covered_pallas_prepacked_raw (pallas_lod.py:1352)."""
+    return covered(*chrom_device_inputs(chrom, centro, winsize, error,
+                                        max_gap, device),
+                   winsize, cutoff, thr, delta)

@@ -1,0 +1,235 @@
+"""Device-resident Phase-I results and the Phase-III coverage transfer.
+
+Counterpart of garlic_tpu/ops/device_win.py over torch tensors.  Window
+scores stay on the device; what crosses to the host is one int64 payload
+per chromosome holding the coverage run edges and the tie-patrol suspect
+windows, from which the host rebuilds the bit-packed coverage matrix
+that the native run scan reads.
+
+Two Phase-I routes feed it:
+
+* split (--raw-lod): K1 writes the window matrix (DeviceWin); the
+  coverage program below counts it in plain torch.
+* fused (pinned cutoff): K2 computes the window sums, cutoff flags,
+  suspect flags and coverage counts in one kernel (FusedCov); the window
+  matrix never reaches device memory.
+
+The JAX edge extractor's static-shape machinery (tiered caps, the bitmap
+fallback, the cumsum/searchsorted compaction) is not carried over:
+torch.nonzero sizes its output from the data.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from garlic_tpu.core.types import MISSING
+from garlic_tpu.ops.device_win import _edges_to_packed
+
+from . import cuda_lod
+
+_warned_full_transfer = False
+
+
+@dataclass
+class DeviceWin:
+    """One chromosome's f32 window scores on the device: win [I, nwin]
+    window-start columns, MISSING where the window is masked (the
+    counterpart of device_win.py:30 in its exactly sized layout).
+    Accessors present the reference's [nind, nloci] MISSING-tailed
+    view."""
+    win: torch.Tensor
+    nind: int
+    nloci: int
+    nwin: int
+
+    @property
+    def shape(self):
+        return (self.nind, self.nloci)
+
+    def __getitem__(self, idx):
+        # row access transfers the full matrix (cached): fine for
+        # --raw-lod dumps, a perf bug anywhere hot — warn once
+        global _warned_full_transfer
+        if not hasattr(self, "_host") and not _warned_full_transfer:
+            _warned_full_transfer = True
+            print("[garlic-tpu-torch] note: DeviceWin row access transfers "
+                  "the full window matrix to host (expected for --raw-lod)",
+                  file=sys.stderr)
+        return self.to_numpy()[idx]
+
+    def to_numpy(self) -> np.ndarray:
+        if not hasattr(self, "_host"):
+            host = np.full((self.nind, self.nloci), float(MISSING))
+            host[:, :self.nwin] = self.win.cpu().numpy()
+            self._host = host
+        return self._host
+
+
+class FusedCov:
+    """Deferred fused Phase-I + coverage dispatch (pinned-cutoff fast
+    runs): covered bits, suspect flags and above flags come straight out
+    of kernel K2.
+
+    handle: a covered_dispatch result enqueued during Phase I (the pinned
+    cutoff, threshold and tie band are known there), so K2 runs on the
+    device while the host finishes Phase I."""
+
+    __slots__ = ("chrom", "centro", "winsize", "error", "max_gap",
+                 "device", "handle")
+
+    def __init__(self, chrom, centro, winsize: int, error: float,
+                 max_gap: int, device):
+        self.chrom = chrom
+        self.centro = centro
+        self.winsize = winsize
+        self.error = error
+        self.max_gap = max_gap
+        self.device = device
+        self.handle = None
+
+    @property
+    def nind(self) -> int:
+        return self.chrom.nind
+
+    @property
+    def nloci(self) -> int:
+        return self.chrom.nloci
+
+    @property
+    def shape(self):
+        return (self.nind, self.nloci)
+
+
+def lod_windows_device(chrom, centro, winsize: int, error: float,
+                       max_gap: int, device) -> DeviceWin:
+    """Split Phase I through K1 with no host transfer of the result (the
+    non-TGLS branch of device_win.py:162-233)."""
+    I, L = chrom.nind, chrom.nloci
+    nwin = max(L - winsize + 1, 0)
+    if nwin == 0:
+        win = torch.empty((I, 0), dtype=torch.float32, device=device)
+        return DeviceWin(win=win, nind=I, nloci=L, nwin=0)
+    win = cuda_lod.lod_windows_packed_raw(chrom, centro, winsize, error,
+                                          max_gap, device)
+    return DeviceWin(win=win, nind=I, nloci=L, nwin=nwin)
+
+
+def _coverage(win: torch.Tensor, cutoff: float, threshold: float,
+              delta: float, winsize: int, nloci: int):
+    """Split-path coverage program (device_win.py:346) in plain torch:
+    (covered bool [I, nloci], susw bool [I, nwin], above bool [I, nwin]).
+    MISSING slots score -9999, far from any cutoff band; delta 0 flags
+    nothing.  Counts are exact int32 sums."""
+    c = torch.tensor(cutoff, dtype=torch.float32, device=win.device)
+    d = torch.tensor(delta, dtype=torch.float32, device=win.device)
+    above = win >= c
+    susw = (win - c).abs() < d
+    I, nwin = win.shape
+    if nwin == 0:
+        cov = torch.zeros((I, nloci), dtype=torch.bool, device=win.device)
+    else:
+        cov = cuda_lod.window_counts(above, winsize)[:, :nloci] >= threshold
+    return cov, susw, above
+
+
+def _edges_payload(covered: torch.Tensor, susw: torch.Tensor,
+                   above: torch.Tensor) -> np.ndarray:
+    """The edge extractor (device_win.py:391) in plain torch: one int64
+    payload, one device-to-host copy:
+    [nedge, nsusw, last(I), sus(I), sidx(nsusw), sside(nsusw),
+     edges(nedge)].
+    edges: sorted flat indices (row-major over [I, L]) of the 0->1 / 1->0
+    coverage transitions; last: the row's final SNP is covered; sus: the
+    row holds a suspect window; sidx/sside: flat indices over [I, nwin]
+    of the suspect windows and their f32 side of the cutoff."""
+    covered = covered.bool()
+    susw = susw.bool()
+    I, L = covered.shape
+    last = covered[:, -1] if L else torch.zeros(I, dtype=torch.bool,
+                                                device=covered.device)
+    prev = torch.zeros_like(covered)
+    prev[:, 1:] = covered[:, :-1]
+    edges = torch.nonzero((covered != prev).reshape(-1)).reshape(-1)
+    sidx = torch.nonzero(susw.reshape(-1)).reshape(-1)
+    sside = above.reshape(-1)[sidx].to(torch.int64)
+    head = torch.tensor([edges.numel(), sidx.numel()], dtype=torch.int64,
+                        device=covered.device)
+    payload = torch.cat([head, last.to(torch.int64),
+                         susw.any(dim=1).to(torch.int64), sidx, sside,
+                         edges])
+    return payload.cpu().numpy()
+
+
+def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
+                     tie_delta: float = 0.0):
+    """Enqueue one chromosome's coverage on the device and return a
+    handle for covered_fetch.  A FusedCov launches K2 (or returns the
+    handle pre-enqueued during Phase I); a DeviceWin runs the plain-torch
+    coverage program over K1's window matrix.  Kernel launches are
+    asynchronous, so assemble_roh enqueues every chromosome before
+    the first blocking fetch.
+
+    tie_delta > 0 also flags windows within tie_delta of the cutoff (the
+    f32 error band); covered_fetch returns them for the tie patrol."""
+    # coverage counts are exact integers, so `count >= threshold` over
+    # f64 equals `count >= ceil(threshold)`, which is f32-exact
+    thr = float(math.ceil(threshold))
+    if isinstance(dwin, FusedCov):
+        if dwin.handle is not None:  # pre-enqueued during Phase I
+            return dwin.handle
+        return _dispatch_fused(dwin, cutoff, winsize, thr, tie_delta)
+    cov, susw, above = _coverage(dwin.win, cutoff, thr, tie_delta, winsize,
+                                 dwin.nloci)
+    return cov, susw, above, dwin.nind, dwin.nloci
+
+
+def _dispatch_fused(fc: FusedCov, cutoff: float, winsize: int,
+                    threshold: float, tie_delta: float):
+    """Run K2 for one chromosome (_dispatch_fused, device_win.py:599).
+    Exact sizing leaves no bucket-slack case; a chromosome shorter than
+    the window has no windows and so nothing covered."""
+    c = fc.chrom
+    I, L = c.nind, c.nloci
+    if L - winsize + 1 <= 0:
+        z = torch.zeros((I, 0), dtype=torch.uint8, device=fc.device)
+        return (torch.zeros((I, L), dtype=torch.uint8, device=fc.device),
+                z, z, I, L)
+    cov, susw, above = cuda_lod.covered_packed_raw(
+        c, fc.centro, winsize, fc.error, fc.max_gap, cutoff, threshold,
+        tie_delta, fc.device)
+    return cov, susw, above, I, L
+
+
+def covered_fetch(handle):
+    """(uint8 [I, ceil(L/8)] little-endian bit-packed coverage, bool [I]
+    suspect-row flags, suspect-window detail (rows, wins, f32_above))
+    for a covered_dispatch handle (covered_fetch, device_win.py:724)."""
+    cov, susw, above, I, L = handle
+    m = _edges_payload(cov, susw, above)
+    nedge, nsusw = int(m[0]), int(m[1])
+    o = 2
+    last = m[o:o + I].astype(bool)
+    sus = m[o + I:o + 2 * I].astype(bool)
+    o += 2 * I
+    sidx = m[o:o + nsusw]
+    sside = m[o + nsusw:o + 2 * nsusw].astype(bool)
+    o += 2 * nsusw
+    edges = m[o:o + nedge]
+    nwin = susw.shape[1]
+    susw_detail = (sidx // max(nwin, 1), sidx % max(nwin, 1), sside)
+    return _edges_to_packed(edges, last, I, L), sus, susw_detail
+
+
+def covered_packed(dwin, cutoff: float, winsize: int, threshold: float,
+                   tie_delta: float = 0.0):
+    """(bit-packed coverage, suspect-row flags, suspect-window detail):
+    bit w is set when at least ceil(threshold) cutoff-passing windows
+    span SNP w (src/garlic-roh.cpp:446-448)."""
+    return covered_fetch(covered_dispatch(dwin, cutoff, winsize, threshold,
+                                          tie_delta))

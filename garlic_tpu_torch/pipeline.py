@@ -1,0 +1,688 @@
+"""End-to-end ROH-calling pipeline of the port: the pinned-cutoff slice.
+
+Counterpart of garlic_tpu/pipeline.py for single-device unweighted TPED
+runs with a pinned --lod-cutoff and --size-bounds: load (with the
+--tpu-panel-cache sidecar) -> allele frequencies -> monomorphic filter ->
+Phase I -> Phase III (coverage, tie patrol, run assembly) -> BED.  The
+.log lines and their order are the JAX package's, byte for byte.
+
+Engines: `fast` runs Phase I on a CUDA device through the hand-written
+kernels (ops/cuda_lod.py: K2 fused with the coverage count on pinned
+runs, K1 for --raw-lod); `exact` is the shared f64 numpy/C++ engine.
+Every other configuration exits 1 with one stderr line pointing to
+`python -m garlic_tpu`; nothing runs silently on another path.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import List, Optional
+
+import numpy as np
+
+from garlic_tpu import cli
+from garlic_tpu.centromeres import Centromere
+from garlic_tpu.cli import CLIError, ParsedArgs
+from garlic_tpu.core.types import GarlicDataError
+from garlic_tpu.io import filters, freqfile, rawlod, tfam
+from garlic_tpu.logger import RunLog
+from garlic_tpu.version import OUTPUT_COMPAT_VERSION
+
+from .io import bed, tped
+from .ops import assembly, device_win
+from .ops import lod as lod_ops
+
+_MULTIHOST_ENV = ("GARLIC_TPU_COORD", "GARLIC_TPU_NUM_PROCS",
+                  "GARLIC_TPU_PROC_ID")
+
+
+class _NotPorted(Exception):
+    """A configuration this port does not run yet; the message names it."""
+
+
+def _not_ported_msg(what: str) -> str:
+    return (f"ERROR: {what} is not yet ported to garlic_tpu_torch; "
+            "run it with python -m garlic_tpu")
+
+
+def _unported(args: ParsedArgs) -> Optional[str]:
+    """The first requested configuration outside the slice, or None."""
+    checks = [
+        (args[cli.ARG_FREQ_ONLY], cli.ARG_FREQ_ONLY),
+        (args[cli.ARG_WEIGHTED], cli.ARG_WEIGHTED),
+        (args[cli.ARG_TGLS] != cli.DEFAULT_TGLS, cli.ARG_TGLS),
+        (args[cli.ARG_WINSIZE_MULTI][0] != cli.DEFAULT_WINSIZE_MULTI,
+         cli.ARG_WINSIZE_MULTI),
+        (args[cli.ARG_AUTO_WINSIZE], cli.ARG_AUTO_WINSIZE),
+        (cli.check_auto_cutoff(args[cli.ARG_LOD_CUTOFF]),
+         f"the automatic LOD cutoff (no {cli.ARG_LOD_CUTOFF})"),
+        (list(args[cli.ARG_BOUND_SIZE]) == [cli.DEFAULT_BOUND_SIZE],
+         f"automatic size bounds (no {cli.ARG_BOUND_SIZE})"),
+        (args[cli.ARG_MESH] not in ("none", "", "1", "1x1"), cli.ARG_MESH),
+        (args[cli.ARG_CM], cli.ARG_CM),
+        (args[cli.ARG_PHASED], cli.ARG_PHASED),
+        (args[cli.ARG_AUTO_OVERLAP_FRAC], cli.ARG_AUTO_OVERLAP_FRAC),
+        (any(os.environ.get(v) for v in _MULTIHOST_ENV),
+         "a multi-host run (" + "/".join(_MULTIHOST_ENV) + ")"),
+    ]
+    for requested, what in checks:
+        if requested:
+            return _not_ported_msg(what)
+    return None
+
+
+def _resolve_engine(name: str) -> str:
+    """auto -> fast only when a CUDA device is present (pipeline.py:81
+    picks fast only on a TPU); the choice is printed on stderr."""
+    if name == "auto":
+        import torch
+        name = "fast" if torch.cuda.is_available() else "exact"
+        print(f"[garlic-tpu-torch] {cli.ARG_ENGINE} auto -> {name}",
+              file=sys.stderr)
+        return name
+    if name not in ("exact", "fast"):
+        raise CLIError(f"ERROR: unknown engine {name}")
+    return name
+
+
+def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
+             device=None) -> int:
+    """Entry point; returns the process exit status (the reference's
+    codes, including 0 on a CLI parse failure, src/garlic-main.cpp:31-32).
+
+    device: where the fast engine runs; None means CUDA, and a fast run
+    without a CUDA device exits 1.  The CPU tests pass "cpu"."""
+    log = RunLog()
+    try:
+        args = cli.parse_command_line(argv)
+    except CLIError as e:
+        print(str(e), file=sys.stderr)
+        return 0
+    if args is None:  # --help
+        return 0
+    msg = _unported(args)
+    if msg is not None:
+        print(msg, file=sys.stderr)
+        return 1
+    try:
+        engine = _resolve_engine(args[cli.ARG_ENGINE])
+    except CLIError as e:
+        print(str(e), file=sys.stderr)
+        return -1
+    dev = None
+    if engine == "fast":
+        from .runtime import resolve_device
+        try:
+            dev = resolve_device(device)
+        except RuntimeError as e:
+            print(f"ERROR: {cli.ARG_ENGINE} fast needs a CUDA device: {e}",
+                  file=sys.stderr)
+            return 1
+    try:
+        return _run(args, argv, prog, log, engine, dev)
+    finally:
+        log.close()
+
+
+# copy of garlic_tpu/pipeline.py:121
+class _FreqWriter:
+    """Background .freq.gz writer overlapping Phase I (the reference writes
+    synchronously before Phase I, src/garlic-main.cpp:245-253; the writer
+    only reads per-locus arrays, which filtering re-slices rather than
+    mutates).  finish() is idempotent and runs on EVERY exit path so a
+    write failure surfaces as a logged error and a nonzero exit."""
+
+    def __init__(self):
+        self._thread = None
+        self._exc = []
+
+    def start(self, outfile: str, chroms, log, blob: str = None) -> None:
+        import threading
+
+        def _write():
+            try:
+                freqfile.write_freq(outfile + ".freq", chroms, log,
+                                    blob=blob)
+            except BaseException as e:  # surfaced at finish()
+                self._exc.append(e)
+
+        self._thread = threading.Thread(target=_write, daemon=False)
+        self._thread.start()
+
+    def finish(self):
+        """Join and hand back the writer's exception (once), or None."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        return self._exc.pop() if self._exc else None
+
+
+# copy of garlic_tpu/pipeline.py:154
+def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
+         engine: str, device) -> int:
+    fw = _FreqWriter()
+    try:
+        rc = _run_impl(args, argv, prog, log, fw, engine, device)
+    finally:
+        werr = fw.finish()
+    if werr is not None:
+        log.err("ERROR: Failed writing allele frequency data:", str(werr))
+        return 1 if rc == 0 else rc
+    return rc
+
+
+# garlic_tpu/pipeline.py:171-930 restricted to the slice (configurations
+# outside it were refused by _unported); the validation and .log lines are
+# kept verbatim so the .log matches the JAX package's
+def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
+              fw: _FreqWriter, engine: str, device) -> int:
+    outfile = args[cli.ARG_OUTFILE]
+    log.init(outfile)
+    log.log(" ".join([prog] + list(argv)))
+    log.log("Output file basename:", outfile)
+
+    argerr = False
+    tpedfile = args[cli.ARG_TPED]
+    tfamfile = args[cli.ARG_TFAM]
+    tglsfile = args[cli.ARG_TGLS]
+    argerr = argerr or cli.check_required_files(log, tpedfile, tfamfile)
+    if argerr:
+        return -1
+    log.log("TPED file:", tpedfile)
+
+    tped_missing = args[cli.ARG_TPED_MISSING]
+    log.log("TPED missing data code:", tped_missing)
+    log.log("TFAM file:", tfamfile)
+    log.log("TGLS file:", tglsfile)
+
+    gl_type = args[cli.ARG_GL_TYPE]
+    argerr = argerr or cli.check_gl_type(log, gl_type, tglsfile)
+    log.log("Genotype likelihood format:", gl_type)
+
+    weighted = args[cli.ARG_WEIGHTED]
+    mapfile = args[cli.ARG_MAP]
+    cm = args[cli.ARG_CM]
+    argerr = argerr or cli.check_cm(log, mapfile, cm)
+    if argerr:
+        return -1
+    log.log("Measure ROH in genetic distance units:", cm)
+    argerr = argerr or cli.check_map_file(log, mapfile, weighted or cm)
+    log.log("Weighted LOD:", weighted)
+
+    build = args[cli.ARG_BUILD]
+    argerr = argerr or cli.check_build(log, build)
+    if argerr:
+        return -1
+    log.log("Genome build:", build)
+
+    centromere_file = args[cli.ARG_CENTROMERE_FILE]
+    argerr = argerr or cli.check_build_and_centromere_file(log, build,
+                                                           centromere_file)
+    if argerr:
+        return -1
+    log.log("User defined centromere file:", centromere_file)
+
+    nresample = args[cli.ARG_RESAMPLE]
+    freqfile_arg = args[cli.ARG_FREQ_FILE]
+    freq_only_flag = args[cli.ARG_FREQ_ONLY]
+    err_flag, auto_freq = cli.check_auto_freq(log, freqfile_arg,
+                                              freq_only_flag)
+    argerr = argerr or err_flag
+    if argerr:
+        return -1
+    log.log("Calculate allele frequencies only:", freq_only_flag)
+    log.log("Calculate allele frequencies from data:", auto_freq)
+    if not auto_freq:
+        log.log("Allele frequencies file:", freqfile_arg)
+    else:
+        if nresample <= 0:
+            log.log("Allele frequencies resampled: FALSE")
+        else:
+            log.log("Allele frequencies resampled:", nresample)
+
+    multi_winsizes = args[cli.ARG_WINSIZE_MULTI]
+    err_flag, winsize_explore = cli.check_multi_winsizes(log, multi_winsizes)
+    argerr = argerr or err_flag
+    if argerr:
+        return -1
+    log.log("Explore window sizes:", winsize_explore)
+
+    auto_winsize = args[cli.ARG_AUTO_WINSIZE]
+    log.log("Automatic window size:", auto_winsize)
+
+    auto_winsize_step = args[cli.ARG_AUTO_WINSIZE_STEP]
+    argerr = argerr or cli.check_auto_winsize_step(log, auto_winsize_step)
+    if argerr:
+        return -1
+    log.log("Automatic window step size:", auto_winsize_step)
+
+    winsize = args[cli.ARG_WINSIZE]
+    argerr = argerr or cli.check_winsize(log, winsize, winsize_explore,
+                                         auto_winsize, weighted)
+    if argerr:
+        return -1
+    log.log("User defined window size:", winsize)
+
+    lod_cutoff = args[cli.ARG_LOD_CUTOFF]
+    log.log("Choose LOD score cutoff automatically:", False)
+    log.log("User defined LOD score cutoff:", lod_cutoff)
+
+    bound_sizes = list(args[cli.ARG_BOUND_SIZE])
+    err_flag, _ = cli.check_bound_sizes(log, bound_sizes)
+    argerr = argerr or err_flag
+    if argerr:
+        return -1
+    log.log("Choose ROH class thresholds automatically:", False)
+    log.logv("User defined ROH class thresholds:", bound_sizes)
+
+    num_threads = args[cli.ARG_THREADS]
+    argerr = argerr or cli.check_threads(log, num_threads)
+    log.log("Threads:", num_threads)
+    from garlic_tpu.native import set_native_threads
+    set_native_threads(num_threads)  # caps OpenMP in the host kernels
+
+    error = args[cli.ARG_ERROR]
+    argerr = argerr or cli.check_error(log, error, tglsfile)
+    if argerr:
+        return -1
+    log.log("Genotyping error:", error)
+
+    max_gap = args[cli.ARG_MAX_GAP]
+    argerr = argerr or cli.check_max_gap(log, max_gap)
+    if argerr:
+        return -1
+    log.log("Max gap:", max_gap)
+
+    overlap_frac = args[cli.ARG_OVERLAP_FRAC]
+    argerr = argerr or cli.check_overlap_frac(log, overlap_frac)
+    if argerr:
+        return -1
+    if overlap_frac != 0:
+        log.log("Overlap fraction:", overlap_frac)
+    else:
+        log.log("Overlap fraction: 1/winsize")
+
+    mu = args[cli.ARG_MU]
+    argerr = argerr or cli.check_mu(log, mu)
+    if argerr:
+        return -1
+    log.log("mu:", mu)
+
+    M = args[cli.ARG_M]
+    argerr = argerr or cli.check_m(log, M)
+    if argerr:
+        return -1
+    log.log("M:", M)
+
+    nclust = args[cli.ARG_NCLUST]
+    argerr = argerr or cli.check_nclust(log, nclust)
+    if argerr:
+        return -1
+    log.log("# GMM clusters:", nclust)
+
+    kde_subsample = args[cli.ARG_KDE_SUBSAMPLE]
+    if kde_subsample <= 0:
+        log.log("# of rand individuals for KDE: ALL")
+    else:
+        log.log("# of rand individuals for KDE:", kde_subsample)
+
+    ld_subsample = args[cli.ARG_LD_SUBSAMPLE]
+    if ld_subsample <= 0:
+        log.log("# of rand individuals for LD: ALL")
+    else:
+        log.log("# of rand individuals for LD:", ld_subsample)
+
+    raw_lod = args[cli.ARG_RAW_LOD]
+    log.log("Output raw LOD scores:", raw_lod)
+
+    log.log("Use r2 for weighting phased data:", args[cli.ARG_PHASED])
+
+    thin = not args[cli.ARG_KDE_THINNING]
+    log.log("Use thinning for KDE estimation:", thin)
+
+    seed = args[cli.ARG_SEED]
+    rng = np.random.default_rng(None if seed < 0 else seed)
+    from .runtime import PhaseProfiler
+    prof = PhaseProfiler(args[cli.ARG_PROFILE], device)
+
+    # ---------------- Datafile reading ----------------
+    centro = Centromere(build, centromere_file, cli.DEFAULT_CENTROMERE_FILE,
+                        log)
+    try:
+        # 2-bit codes on both engines (io/tped.py): the fast engine
+        # uploads them as they are
+        ds, num_loci = tped.load_tped(
+            tpedfile, tped_missing, nresample, auto_freq, log, rng,
+            panel_cache=args[cli.ARG_PANEL_CACHE])
+        log.log("Total loci:", num_loci)
+        ds.ind_ids, ds.pop = tfam.read_tfam(tfamfile, log)
+        num_ind = ds.nind
+        log.log("Population:", ds.pop)
+        log.log("Total diploid individuals:", num_ind)
+        for c in ds.chroms:
+            if c.nind_global != num_ind:
+                log.err("ERROR: TPED and TFAM disagree on individual count.")
+                return 1
+    except (GarlicDataError, FileNotFoundError):
+        # expected load failure: ERROR text already in .error (the
+        # reference's catch(...) { return 1; }, src/garlic-main.cpp:210-242)
+        return 1
+    except Exception as e:
+        log.err("ERROR: Internal failure while loading data:", repr(e))
+        return 1
+    prof.mark("load", num_loci * ds.nind, "genotypes")
+
+    # ---------------- Allele frequencies ----------------
+    if auto_freq:
+        # computed-from-data, non-resampled freqs are a pure function of
+        # the panel-cache sidecar: cache the finished gz blob next to it
+        blob = (ds.panel_cache_file + ".freq.gz"
+                if ds.panel_cache_file is not None and nresample == 0
+                else None)
+        fw.start(outfile, list(ds.chroms), log, blob=blob)
+    else:
+        print(f"Loading user provided allele frequencies from {freqfile_arg}")
+        try:
+            freqfile.read_freq(freqfile_arg, ds.chroms, log)
+        except (GarlicDataError, FileNotFoundError):
+            return -1
+        except Exception as e:
+            log.err("ERROR: Internal failure while reading allele "
+                    "frequencies:", repr(e))
+            return -1
+    prof.mark("freq", num_loci, "loci")
+
+    # ---------------- Filtering ----------------
+    ds.chroms, new_loci = filters.filter_monomorphic(ds.chroms)
+    log.log("Monomorphic loci filtered:", num_loci - new_loci)
+    log.log("Total loci used for analysis:", new_loci)
+    num_loci = new_loci
+    prof.mark("filter", num_loci, "loci")
+
+    print(f"Window size: {winsize}")
+
+    # ---------------- Phase I ----------------
+    # Pinned-cutoff fast runs fuse Phase I INTO the coverage kernel (K2):
+    # the [I, nwin] f32 window matrix never reaches device memory.
+    # --raw-lod needs the window scores and takes the split path (K1).
+    fused = engine == "fast" and not raw_lod
+    fused_args = None
+    if fused:
+        # pre-resolve the tie band + threshold so each chromosome's K2
+        # launch is enqueued during Phase I
+        fused_args = (lod_cutoff,
+                      assembly.overlap_threshold(overlap_frac, winsize),
+                      _tie_band(ds.chroms, winsize, error))
+    try:
+        win_by_chr = _calc_lod_windows(engine, device, ds, centro, winsize,
+                                       error, max_gap, fused, fused_args)
+    except _NotPorted as e:
+        print(_not_ported_msg(str(e)), file=sys.stderr)
+        return 1
+    # the freq writer keeps running through Phase III; _run's finally
+    # joins it and reports a failure with exit 1
+    prof.mark("phase1-lod",
+              sum(max(c.nloci - winsize + 1, 0) for c in ds.chroms)
+              * ds.nind, "windows")
+
+    if raw_lod:
+        try:
+            rawlod.write_win_data(win_by_chr,
+                                  [c.chrom for c in ds.chroms], ds.pop,
+                                  outfile)
+        except Exception as e:
+            log.err("ERROR: Failed to write raw LOD windows:", repr(e))
+            return -1
+
+    # ---------------- Phase II: cutoff (pinned) ----------------
+    print(f"User defined LOD score cutoff: {lod_cutoff}")
+    prof.mark("phase2-cutoff")
+
+    # ---------------- Phase III: assembly ----------------
+    print("Assembling ROH windows")
+    # Tie patrol (fast engine): windows inside the f32 error band around
+    # the cutoff are re-derived in f64 on the host and flipped rows get
+    # their coverage recomputed with the exact engine, so the fast BED is
+    # the exact engine's by construction (pipeline.py:800-835).
+    tie_delta, exact_cover, exact_window = 0.0, None, None
+    if engine == "fast":
+        tie_delta = _tie_band(ds.chroms, winsize, error)
+
+        def exact_cover(ci, rows):
+            thr = assembly.overlap_threshold(overlap_frac, winsize)
+            rows = np.asarray(rows, dtype=np.int64)
+            out = []
+            # row blocks bound the [k, L] f64/int64 temporaries
+            for s in range(0, rows.size, 64):
+                sub = _subset_chrom_rows(ds.chroms[ci], rows[s:s + 64])
+                w = lod_ops.calc_lod_windows(sub, centro, winsize, error,
+                                             max_gap)
+                out.append(assembly.coverage_counts_batch(
+                    w >= lod_cutoff, winsize) >= thr)
+            return np.concatenate(out, axis=0) if out else \
+                np.zeros((0, ds.chroms[ci].nloci), dtype=bool)
+
+        def exact_window(ci, rows, wins, sides):
+            return _exact_window_flips(ds.chroms[ci], rows, wins, sides,
+                                       winsize, error, lod_cutoff)
+
+    roh_by_ind, lengths = assembly.assemble_roh(
+        win_by_chr, ds.chroms, ds.ind_ids, centro, lod_cutoff, winsize,
+        max_gap, overlap_frac, cm, tie_delta=tie_delta,
+        exact_cover=exact_cover, exact_window=exact_window)
+    prof.mark("phase3-assembly", float(lengths.size), "ROH")
+
+    # ---------------- Phase IV: size classes (pinned) ----------------
+    log.logv("User provided ROH size boundaries = (", bound_sizes, nl=False)
+    log.log(" )")
+    prof.mark("phase4-gmm")
+    print("Writing ROH tracts.")
+    bed.write_roh(bed.make_roh_filename(outfile), roh_by_ind,
+                  [c.chrom for c in ds.chroms], bound_sizes, ds.pop,
+                  OUTPUT_COMPAT_VERSION, cm, log)
+    prof.mark("write-bed")
+    prof.report()
+    print("Finished.")
+    return 0
+
+
+# garlic_tpu/pipeline.py:936 for the slice's engines
+def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
+                      error: float, max_gap: int, fused: bool,
+                      fused_args=None):
+    """calcLODWindows (src/garlic-roh.cpp:279-309).
+
+    fused: FusedCov entries for assembly (K2); fused_args = (cutoff,
+    threshold, tie_delta) launches each chromosome's K2 immediately.
+    The split fast path (K1) keeps every window matrix on the device;
+    when they would exceed half the device-memory budget the JAX package
+    streams them, which this port does not do yet.  The fused path holds
+    no window matrix, so no estimate applies to it."""
+    from garlic_tpu.core.pbar import Bar
+    print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
+    if engine == "fast" and not fused:
+        from .runtime import hbm_budget
+        budget = 0.5 * hbm_budget(device)
+        est = sum(4.0 * c.nind * max(c.nloci - winsize + 1, 1)
+                  for c in ds.chroms)
+        if est > budget:
+            raise _NotPorted(
+                f"streaming Phase I (window matrices ~{est / 1e9:.1f} GB "
+                f"exceed half the {budget * 2 / 1e9:.1f} GB device budget)")
+    out = []
+    for c in ds.chroms:
+        print(f"{c.chrom}    ", file=sys.stderr, end="")
+        # reference quirk: the unweighted bar's total is NLOCI but it
+        # advances once per INDIVIDUAL (src/garlic-roh.cpp:40,48)
+        bar = Bar(total=c.nloci)
+        if engine == "fast" and fused:
+            fc = device_win.FusedCov(c, centro, winsize, error, max_gap,
+                                     device)
+            if fused_args is not None:
+                fc.handle = device_win.covered_dispatch(
+                    fc, fused_args[0], winsize, fused_args[1],
+                    fused_args[2])
+            out.append(fc)
+            bar.advance(c.nind)
+        elif engine == "fast":
+            out.append(device_win.lod_windows_device(
+                c, centro, winsize, error, max_gap, device))
+            bar.advance(c.nind)
+        else:
+            out.append(lod_ops.calc_lod_windows(c, centro, winsize, error,
+                                                max_gap, bar=bar))
+        bar.finalize()
+    return out
+
+
+# copy of garlic_tpu/pipeline.py:1030 (TGLS branch left out)
+def _tie_band(chroms, winsize: int, error: float) -> float:
+    """Suspect half-width for the fast engine's tie patrol: a bound on
+    |win_f32 - win_f64| for one window sum, 256 * eps32 * W * tmax
+    (tmax = the largest |per-locus LOD term|).  The factor was calibrated
+    on the TPU kernels; chip_smoke.py measures this port's ratio on the
+    card against it.
+
+    tmax comes from corner evaluation (O(L) min/max instead of a full
+    f64 table build): every term is monotone in p and the heterozygote
+    term is exactly log10(e), so the extremes sit at min/max freq."""
+    eps = 2.0 ** -23
+    tmax = 1.0
+    for c in chroms:
+        tmax = max(tmax, _corner_tmax(c, error))
+    return 256.0 * eps * winsize * tmax
+
+
+_corner_tmax_cache = {}
+
+
+# copy of garlic_tpu/pipeline.py:1057 (TGLS branch left out)
+def _corner_tmax(c, error: float) -> float:
+    """max |per-locus LOD term| bound for one chromosome by corner
+    evaluation, memoized per freq array."""
+    key = (id(c.freq), float(error))
+    hit = _corner_tmax_cache.get(key)
+    if hit is not None and hit[0] is c.freq:
+        return hit[1]
+    tmax = _corner_tmax_compute(c, error)
+    if len(_corner_tmax_cache) >= 8:
+        _corner_tmax_cache.pop(next(iter(_corner_tmax_cache)))
+    _corner_tmax_cache[key] = (c.freq, tmax)
+    return tmax
+
+
+# copy of garlic_tpu/pipeline.py:1075 (TGLS branch left out)
+def _corner_tmax_compute(c, error: float) -> float:
+    tmax = 1.0
+    f = np.asarray(c.freq, dtype=np.float64)
+    live = (f > 0) & (f < 1)
+    if not live.any():
+        return tmax
+    e = float(error)
+    for p in (float(f[live].min()), float(f[live].max())):
+        for v in ((1.0 - e) / (1.0 - p) + e, e, (1.0 - e) / p + e):
+            tmax = max(tmax, abs(float(np.log10(v))))
+    return tmax
+
+
+# copy of garlic_tpu/pipeline.py:1198 (TGLS branch left out)
+def _exact_window_flips(c, rows, wins, sides, winsize: int, error: float,
+                        cutoff: float) -> np.ndarray:
+    """Per suspect (row, window): does the f64 'window >= cutoff'
+    decision FLIP versus the device's f32 one (`sides`)?  The tie
+    patrol's cheap verification stage — ~winsize-term fresh f64 sums.
+
+    The oracle accumulates most windows by the ROLLING subtract/add
+    recurrence, whose value can differ from a fresh left-to-right sum by
+    up to ~n_updates rounding errors; a suspect whose fresh sum lands
+    within that drift bound of the cutoff is reported as flipped, which
+    routes its row to the full exact rolling recomputation."""
+    nwin = max(c.positions.shape[0] - winsize + 1, 1)
+    tmax = _corner_tmax(c, error)
+    esc = max(1e-9, 4.0 * nwin * 2.0 ** -52 * (winsize + 1) * tmax)
+    rows = np.asarray(rows, dtype=np.int64)
+    wins = np.asarray(wins, dtype=np.int64)
+    W = winsize
+    # one batched gather for ALL suspects; per-row cumsum == the
+    # sequential left-to-right f64 sum
+    gv = _geno_windows_batch(c, rows, wins, W)
+    cols = wins[:, None] + np.arange(W)
+    fv = c.freq[cols]
+    terms = lod_ops.lod_terms(gv, fv, error)
+    s = np.cumsum(terms, axis=1, dtype=np.float64)[:, -1]
+    unsure = np.abs(s - cutoff) < esc
+    return unsure | ((s >= cutoff) != np.asarray(sides).astype(bool))
+
+
+# copy of garlic_tpu/pipeline.py:1244
+def _geno_windows_batch(c, rows: np.ndarray, wins: np.ndarray,
+                        W: int) -> np.ndarray:
+    """int8 genotype codes [k, W] for suspect (row, window-start) pairs —
+    decoded straight from the 2-bit packed bytes when the chromosome is
+    packed-only (gathers only the ~W/4 bytes each suspect needs)."""
+    if not c.geno_is_packed_only:
+        cols = wins[:, None] + np.arange(W)
+        return np.asarray(c.genotypes)[rows[:, None], cols]
+    if c._geno2b is None and c.geno2b_parent is not None:
+        # compaction still deferred: decode per-element from the
+        # UNFILTERED parent payload via the kept-column index map
+        pb, idx = c.geno2b_parent
+        pidx = idx[wins[:, None] + np.arange(W)]       # parent columns
+        byts = pb[rows[:, None], pidx >> 2]
+        g = (byts >> ((pidx & 3) * 2)) & 3
+        return np.where(g == 3, -9, g).astype(np.int8)
+    rb = c.geno2b.shape[1]
+    nbytes = W // 4 + 2  # covers any w%4 alignment
+    bidx = np.minimum(wins[:, None] // 4 + np.arange(nbytes), rb - 1)
+    byts = c.geno2b[rows[:, None], bidx]                   # [k, nbytes]
+    k = rows.shape[0]
+    codes = np.stack([(byts >> s) & 3 for s in (0, 2, 4, 6)],
+                     axis=-1).reshape(k, 4 * nbytes)
+    cols = (wins % 4)[:, None] + np.arange(W)
+    g = np.take_along_axis(codes, cols, axis=1)
+    return np.where(g == 3, -9, g).astype(np.int8)
+
+
+# copy of garlic_tpu/pipeline.py:1343
+def _subset_chrom_rows(c, idx):
+    """_subset_chrom for a FEW rows without firing the whole-matrix
+    packed-column compaction: decode the selected rows from the
+    UNFILTERED parent payload and column-gather the kept loci."""
+    from garlic_tpu.core.types import ChromData
+    if not (c.geno_is_packed_only and c._geno2b is None
+            and c.geno2b_parent is not None):
+        return _subset_chrom(c, idx)
+    pb, kidx = c.geno2b_parent
+    rows_b = np.asarray(pb[np.asarray(idx, dtype=np.int64)])
+    k = rows_b.shape[0]
+    codes = np.stack([(rows_b >> s) & 3 for s in (0, 2, 4, 6)],
+                     axis=-1).reshape(k, -1)
+    g = codes[:, kidx]
+    g = np.where(g == 3, -9, g).astype(np.int8)
+    return ChromData(chrom=c.chrom, positions=c.positions, gpos=c.gpos,
+                     locus_names=c.locus_names, alleles=c.alleles,
+                     genotypes=g, freq=c.freq,
+                     first_copy=None if c.first_copy is None
+                     else c.first_copy[idx],
+                     gl=None if c._gl is None else c._gl[idx],
+                     gl_codes=None if c.gl_codes is None
+                     else c.gl_codes[idx],
+                     gl_lut=c.gl_lut)
+
+
+# copy of garlic_tpu/pipeline.py:1371
+def _subset_chrom(c, idx):
+    from garlic_tpu.core.types import ChromData
+    packed = c.geno_is_packed_only
+    return ChromData(chrom=c.chrom, positions=c.positions, gpos=c.gpos,
+                     locus_names=c.locus_names, alleles=c.alleles,
+                     genotypes=None if packed else c.genotypes[idx],
+                     freq=c.freq,
+                     first_copy=None if c.first_copy is None
+                     else c.first_copy[idx],
+                     gl=None if c._gl is None else c._gl[idx],
+                     gl_codes=None if c.gl_codes is None
+                     else c.gl_codes[idx],
+                     gl_lut=c.gl_lut,
+                     geno2b=c.geno2b[idx] if packed else None)

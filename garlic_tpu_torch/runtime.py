@@ -1,0 +1,81 @@
+"""Device runtime helpers for the port's fast engine."""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+DEFAULT_HBM_BUDGET = 8 * 1024 ** 3  # bytes; CPU runs have no device memory
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the fast engine runs on.  None means CUDA and raises
+    when no CUDA device is present: the fast engine never drops silently
+    to the CPU (the CPU tests ask for it explicitly with "cpu")."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available")
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"unsupported device {dev}")
+    return dev
+
+
+class PhaseProfiler:
+    """Per-phase wall-clock + throughput counters (--tpu-profile).
+
+    mark() closes the current phase; on a CUDA device it synchronizes
+    first, so queued kernels are charged to the phase that enqueued them.
+    report() prints a summary to stderr."""
+
+    def __init__(self, enabled: bool, device=None):
+        self.enabled = enabled
+        self.device = None if device is None else torch.device(device)
+        self.phases = []
+        self._t0 = time.perf_counter()
+
+    def _sync(self) -> None:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def mark(self, name: str, items: float = 0.0, unit: str = ""):
+        if not self.enabled:
+            return
+        self._sync()
+        now = time.perf_counter()
+        self.phases.append((name, now - self._t0, items, unit))
+        self._t0 = now
+
+    def report(self):
+        if not self.enabled:
+            return
+        total = sum(p[1] for p in self.phases)
+        print("[profile] phase breakdown:", file=sys.stderr)
+        for name, dt, items, unit in self.phases:
+            rate = f"  ({items / dt:,.0f} {unit}/s)" if items and dt > 0 \
+                else ""
+            print(f"[profile]   {name:<18} {dt:8.3f}s{rate}",
+                  file=sys.stderr)
+        print(f"[profile]   {'TOTAL':<18} {total:8.3f}s", file=sys.stderr)
+
+
+def hbm_budget(device) -> float:
+    """Usable device-memory bytes for window planes.
+
+    `GARLIC_TPU_HBM_BUDGET` (raw bytes, as in the JAX package) overrides;
+    else 90% of the CUDA device's total memory (torch.cuda.mem_get_info);
+    else 8 GiB (CPU runs)."""
+    v = os.environ.get("GARLIC_TPU_HBM_BUDGET")
+    if v:
+        return float(v)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _, total = torch.cuda.mem_get_info(dev)
+        return 0.9 * float(total)
+    return float(DEFAULT_HBM_BUDGET)

@@ -1,0 +1,273 @@
+"""End-to-end parity of the port (garlic_tpu_torch) with garlic_tpu on the
+pinned-cutoff slice, the port's JAX independence, and its refusals.
+
+The port runs on the CPU here (device="cpu": the kernels' plain
+versions); garlic_tpu runs its fast engine through the Pallas kernels in
+interpret mode (GARLIC_TPU_FUSED_INTERPRET, as tests/test_device_win.py
+does) and its exact engine.  .roh.bed is byte-identical, .log identical
+after its first line, .freq.gz content-identical."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(__file__))
+from util import diff_logs, make_panel, read_text, write_tped  # noqa: E402
+
+from garlic_tpu_torch.ops import cuda_lod  # noqa: E402
+from garlic_tpu_torch.pipeline import run_main as port_main  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PINNED = ["--winsize", "40", "--error", "0.001", "--kde-subsample", "0",
+          "--lod-cutoff", "1.3", "--size-bounds", "300000", "800000"]
+
+
+@pytest.fixture(scope="module")
+def panel_dir(tmp_path_factory):
+    """The panel of test_device_win.py:193 plus a centromere file that
+    cuts both chromosomes."""
+    wd = tmp_path_factory.mktemp("port_panel")
+    panel = make_panel(nind=35, nloci_per_chr=(5000, 4000), seed=17,
+                       big_gap_every=700)
+    write_tped(panel, str(wd / "p.tped.gz"), str(wd / "p.tfam"))
+    p1, p2 = panel.positions
+    with open(wd / "centro.txt", "w") as f:
+        f.write(f"1 {int(p1[2000])} {int(p1[2100])}\n"
+                f"2 {int(p2[3000])} {int(p2[3050])}\n")
+    return str(wd)
+
+
+def jax_main(argv, prog):
+    # imported here: the gpu tests collect where JAX is absent
+    from garlic_tpu.pipeline import run_main
+    return run_main(argv, prog=prog)
+
+
+def _run(main, wd, args, **kw):
+    old = os.getcwd()
+    os.chdir(wd)
+    try:
+        return main(args, prog="garlic", **kw)
+    finally:
+        os.chdir(old)
+
+
+def _base(wd):
+    return ["--tped", f"{wd}/p.tped.gz", "--tfam", f"{wd}/p.tfam",
+            "--centromere", f"{wd}/centro.txt"] + PINNED
+
+
+def _same_outputs(wd, out, ref):
+    assert read_text(f"{wd}/{out}.roh.bed") == read_text(f"{wd}/{ref}.roh.bed")
+    assert read_text(f"{wd}/{out}.freq.gz") == read_text(f"{wd}/{ref}.freq.gz")
+    assert diff_logs(read_text(f"{wd}/{ref}.log"),
+                     read_text(f"{wd}/{out}.log"), ref, out) == []
+
+
+def test_pinned_run_matches_garlic_tpu(panel_dir, monkeypatch):
+    wd, base = panel_dir, _base(panel_dir)
+    assert _run(jax_main, wd, base + ["--tpu-engine", "exact",
+                                      "--out", "jx"]) == 0
+    monkeypatch.setenv("GARLIC_TPU_FUSED_INTERPRET", "1")
+    assert _run(jax_main, wd, base + ["--tpu-engine", "fast",
+                                      "--out", "jf"]) == 0
+    before = dict(cuda_lod.LAUNCHES)
+    assert _run(port_main, wd, base + ["--tpu-engine", "fast",
+                                       "--out", "pf"], device="cpu") == 0
+    assert cuda_lod.LAUNCHES == before  # CPU tensors: plain versions
+    assert _run(port_main, wd, base + ["--tpu-engine", "exact",
+                                       "--out", "px"]) == 0
+    bed = read_text(f"{wd}/jx.roh.bed")
+    assert bed.count("\nchr") >= 5  # the panel has ROH to call
+    for out in ("pf", "px"):
+        _same_outputs(wd, out, "jx")
+        _same_outputs(wd, out, "jf")
+
+
+def test_panel_cache_cold_and_warm_match(panel_dir):
+    """The port writes the sidecar itself (io/panelcache.py) and reads
+    garlic_tpu's format: cold, warm, and garlic_tpu on the port's
+    sidecar all give the same BED."""
+    wd = panel_dir
+    src = f"{wd}/p.tped.gz"
+    pc = f"{wd}/pc.tped.gz"
+    with open(src, "rb") as f, open(pc, "wb") as g:
+        g.write(f.read())
+    base = ["--tped", pc, "--tfam", f"{wd}/p.tfam", "--centromere",
+            f"{wd}/centro.txt", "--tpu-panel-cache"] + PINNED
+    assert _run(port_main, wd, base + ["--tpu-engine", "fast",
+                                       "--out", "cold"], device="cpu") == 0
+    assert os.path.exists(pc + ".gtpc")
+    assert _run(port_main, wd, base + ["--tpu-engine", "fast",
+                                       "--out", "warm"], device="cpu") == 0
+    assert _run(jax_main, wd, base + ["--tpu-engine", "exact",
+                                      "--out", "jwarm"]) == 0
+    for out in ("cold", "warm"):
+        _same_outputs(wd, out, "jwarm")
+
+
+def test_user_freq_file_and_resample_match_garlic_tpu(panel_dir):
+    """--freq-file (frequencies from a file) and --resample (seeded)
+    take the same load path as garlic_tpu's."""
+    wd = panel_dir
+    base = _base(wd)
+    assert _run(jax_main, wd, base + ["--tpu-engine", "exact",
+                                      "--out", "fsrc"]) == 0
+    for extra, tag in ((["--freq-file", f"{wd}/fsrc.freq.gz"], "ff"),
+                       (["--resample", "40", "--tpu-seed", "3"], "rs")):
+        assert _run(jax_main, wd, base + extra + [
+            "--tpu-engine", "exact", "--out", f"j{tag}"]) == 0
+        assert _run(port_main, wd, base + extra + [
+            "--tpu-engine", "fast", "--out", f"p{tag}"], device="cpu") == 0
+        assert read_text(f"{wd}/p{tag}.roh.bed") == \
+            read_text(f"{wd}/j{tag}.roh.bed")
+        assert diff_logs(read_text(f"{wd}/j{tag}.log"),
+                         read_text(f"{wd}/p{tag}.log"), f"j{tag}",
+                         f"p{tag}") == []
+
+
+def _raw(wd, out):
+    vals = []
+    for c in ("chr1", "chr2"):
+        text = read_text(f"{wd}/{out}.POP1.{c}.raw.lod.windows.gz")
+        vals.append(np.array(text.replace("NA", "nan").split(), dtype=float))
+    return np.concatenate(vals)
+
+
+def test_raw_lod_matches_garlic_tpu(panel_dir):
+    """--raw-lod takes the split path (K1 + the torch coverage program).
+    Raw values: f32 against f64 (and XLA's f32), printed with %g's six
+    significant digits, hence atol 1e-4 plus rtol 1e-5."""
+    wd, base = panel_dir, _base(panel_dir) + ["--raw-lod"]
+    assert _run(jax_main, wd, base + ["--tpu-engine", "exact",
+                                      "--out", "rjx"]) == 0
+    assert _run(jax_main, wd, base + ["--tpu-engine", "fast",
+                                      "--out", "rjf"]) == 0
+    assert _run(port_main, wd, base + ["--tpu-engine", "fast",
+                                       "--out", "rpf"], device="cpu") == 0
+    got = _raw(wd, "rpf")
+    for ref in ("rjx", "rjf"):
+        assert read_text(f"{wd}/rpf.roh.bed") == \
+            read_text(f"{wd}/{ref}.roh.bed")
+        want = _raw(wd, ref)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        live = ~np.isnan(want)
+        np.testing.assert_allclose(got[live], want[live], atol=1e-4,
+                                   rtol=1e-5)
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    """The port imports and runs with every `jax` import refused."""
+    panel = make_panel(nind=12, nloci_per_chr=(900, 700), seed=5)
+    write_tped(panel, str(tmp_path / "t.tped.gz"), str(tmp_path / "t.tfam"))
+    script = (
+        "import sys\n"
+        "class B:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
+        "            raise ImportError('blocked ' + name)\n"
+        "sys.meta_path.insert(0, B())\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from garlic_tpu_torch.pipeline import run_main\n"
+        "base = ['--tped', 't.tped.gz', '--tfam', 't.tfam', '--build',\n"
+        "        'hg18', '--winsize', '30', '--error', '0.001',\n"
+        "        '--lod-cutoff', '1.0', '--size-bounds', '100000',\n"
+        "        '--tpu-panel-cache']\n"
+        "for eng in ('fast', 'exact'):\n"
+        "    rc = run_main(base + ['--tpu-engine', eng, '--out', eng],\n"
+        "                  device='cpu')\n"
+        "    assert rc == 0, (eng, rc)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
+    r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
+    assert (tmp_path / "fast.roh.bed").read_text() == \
+        (tmp_path / "exact.roh.bed").read_text()
+
+
+def test_fast_engine_without_cuda_exits_nonzero(panel_dir, monkeypatch,
+                                                capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = _run(port_main, panel_dir, _base(panel_dir) + [
+        "--tpu-engine", "fast", "--out", "nocuda"])
+    assert rc == 1
+    assert "--tpu-engine fast needs a CUDA device" in capsys.readouterr().err
+    assert not os.path.exists(f"{panel_dir}/nocuda.log")
+
+
+def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
+                                             capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert _run(port_main, panel_dir, _base(panel_dir) + [
+        "--out", "auto"]) == 0
+    assert "--tpu-engine auto -> exact" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,drop,names", [
+    (["--weighted", "--map", "m.gz"], [], "--weighted"),
+    (["--tgls", "x.tgls"], [], "--tgls"),
+    (["--freq-only"], [], "--freq-only"),
+    (["--auto-winsize"], [], "--auto-winsize"),
+    (["--winsize-multi", "30", "40"], [], "--winsize-multi"),
+    (["--tpu-mesh", "2x1"], [], "--tpu-mesh"),
+    (["--cm", "--map", "m.gz"], [], "--cm"),
+    (["--phased"], [], "--phased"),
+    (["--auto-overlap-frac"], [], "--auto-overlap-frac"),
+    ([], ["--lod-cutoff"], "automatic LOD cutoff"),
+    ([], ["--size-bounds"], "automatic size bounds"),
+])
+def test_unported_configuration_exits_1(panel_dir, capsys, extra, drop,
+                                        names):
+    args = _base(panel_dir)
+    for flag in drop:
+        i = args.index(flag)
+        del args[i:i + (3 if flag == "--size-bounds" else 2)]
+    rc = _run(port_main, panel_dir, args + extra + ["--out", "refused"],
+              device="cpu")
+    err = capsys.readouterr().err.strip().splitlines()
+    assert rc == 1
+    assert len(err) == 1 and names in err[0]
+    assert "not yet ported" in err[0] and "python -m garlic_tpu" in err[0]
+    assert not os.path.exists(f"{panel_dir}/refused.log")
+
+
+def test_multihost_env_and_streaming_are_refused(panel_dir, monkeypatch,
+                                                 capsys):
+    monkeypatch.setenv("GARLIC_TPU_NUM_PROCS", "2")
+    assert _run(port_main, panel_dir, _base(panel_dir) + [
+        "--out", "mh"], device="cpu") == 1
+    assert "multi-host" in capsys.readouterr().err
+    monkeypatch.delenv("GARLIC_TPU_NUM_PROCS")
+    # split-path window matrices above half the device budget: the JAX
+    # package streams them, the port refuses
+    monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", "1000")
+    assert _run(port_main, panel_dir, _base(panel_dir) + [
+        "--raw-lod", "--tpu-engine", "fast", "--out", "st"],
+        device="cpu") == 1
+    assert "streaming" in capsys.readouterr().err
+    # the fused path holds no window matrix: the same budget runs it
+    assert _run(port_main, panel_dir, _base(panel_dir) + [
+        "--tpu-engine", "fast", "--out", "st2"], device="cpu") == 0
+
+
+@pytest.mark.gpu
+def test_pinned_run_on_card_matches_exact(panel_dir):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    wd, base = panel_dir, _base(panel_dir)
+    before = cuda_lod.LAUNCHES["covered"]
+    assert _run(port_main, wd, base + ["--tpu-engine", "fast",
+                                       "--out", "gpu"]) == 0
+    assert cuda_lod.LAUNCHES["covered"] == before + 2
+    assert _run(port_main, wd, base + ["--tpu-engine", "exact",
+                                       "--out", "gpux"]) == 0
+    _same_outputs(wd, "gpu", "gpux")
