@@ -9,27 +9,42 @@ Phases (any failure raises and exits non-zero, printing no result):
 
 1. environment: the card (nvidia-smi), torch/CUDA/nvcc versions, and the
    build of the port's CUDA kernels from csrc/ (nvcc, sm_90a);
-2. kernels: K1 (lod_windows) and K2 (covered) against their plain PyTorch
-   versions on the card, on the same inputs: K1's f32 sums bit for bit,
-   K2's three u8 planes exactly; shapes are the bench chromosome
-   (200 x 500,000, W=60), W=120 and ragged small cases; median times over
-   21 launches with CUDA events;
+2. kernels: K1 (lod_windows), K2 (covered), K3 (window_sums) and K4
+   (covered_terms) against their plain PyTorch versions on the card, on
+   the same inputs: K1's and K3's f32 sums bit for bit, K2's and K4's
+   three u8 planes exactly; K3/K4 read the TGLS term plane of a GQ-like
+   error lut (40 values, 10^-2 .. 10^-5.9).  K3 over the plane of K1's
+   own terms must equal K1 bit for bit, and K4 over it K2 (the shared
+   kernel body).  Shapes are the bench chromosome (200 x 500,000, W=60),
+   W=120 and ragged small cases; median times over 21 launches with
+   CUDA events at the bench shape, W=60;
 3. tie band: max |win_f32 - win_f64| / (2^-23 * W * tmax) on the bench
-   chromosome at W=60 and W=120, f64 from the exact engine; it must stay
-   within the 256 the tie patrol's band assumes;
-4. main path: bench.py's panel (200 x (500k, 500k), seed 42) and pinned
-   flags through `python -m garlic_tpu_torch` (run in-process), fast
-   engine cold then warm with --tpu-panel-cache, then the exact engine;
-   the .roh.bed files must be byte-identical and .freq.gz equal; then
-   --raw-lod on a 50 x (100k, 100k) panel, fast against exact.  The
-   kernel launch counters are zeroed just before this phase and read
-   after it: K2 must run for every chromosome of every fast pinned run,
-   K1 in the --raw-lod run.
+   chromosome at W=60 and W=120, with the scalar --error (K1) and with
+   the GQ error plane (K3, tmax with the TGLS corners), f64 from the
+   exact engine over all 200 rows; each must stay within the 256 the tie
+   patrol's band assumes;
+4. main path, through `python -m garlic_tpu_torch` (run in-process, with
+   --tpu-profile), each run with the kernel launch counters zeroed just
+   before it and read just after it:
+   - bench.py's panel (200 x (500k, 500k), seed 42) and pinned flags,
+     fast engine cold then warm with --tpu-panel-cache, then the exact
+     engine: .roh.bed byte-identical, .freq.gz equal, K2 run for every
+     chromosome of each fast run;
+   - --raw-lod on a 50 x (100k, 100k) panel, fast against exact: BED
+     identical, raw values within atol 1e-4 + rtol 1e-5, K1 run;
+   - the bench panel with a GQ TGLS file (integers 20-59: the native
+     reader's dictionary form), cold then warm (the .gtlc sidecar
+     written, then read), then exact: BED byte-identical, .freq.gz
+     equal, K4 run for every chromosome of each fast run;
+   - on the small panel, a GL TGLS file (1,000 distinct values: the f64
+     matrix form), pinned, fast against exact: BED identical, K3 run;
+     and the GQ file with --raw-lod: BED identical, raw values as above,
+     K3 run.
 
-The line before the last is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}.  The script imports no JAX (an import
-hook refuses it) and writes only under build/chip_smoke/, removed at
-the end.
+The line before the last is {"kernels": [...]} (launches summed over the
+main path's runs), the last line {"ok": true, "device": {...}}.  The
+script imports no JAX (an import hook refuses it) and writes only under
+build/chip_smoke/, removed at the end.
 """
 
 from __future__ import annotations
@@ -49,18 +64,28 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
-# bench.py's panel and pinned flags; the smaller --raw-lod panel
+# bench.py's panel and pinned flags; the smaller --raw-lod / GL panel
 BENCH_PANEL = dict(nind=200, nloci_per_chr=(500_000, 500_000), seed=42,
                    spacing_mean=4000)
 RAWLOD_PANEL = dict(nind=50, nloci_per_chr=(100_000, 100_000), seed=7,
                     spacing_mean=4000)
 FLAGS = ["--build", "hg18", "--winsize", "60", "--error", "0.001",
          "--lod-cutoff", "1.5", "--size-bounds", "500000", "1000000",
-         "--kde-subsample", "0"]
+         "--kde-subsample", "0", "--tpu-profile"]
 ERROR, MAX_GAP, OVERLAP_FRAC = 0.001, 200000, 0.25  # the flags' values
 HG18_CHR1_CENTROMERE = (121236957, 123476957)
 TIE_BAND_FACTOR = 256.0
 SOURCE = "garlic_tpu_torch/csrc/lod_windows.cu"
+KERNELS = {"lod_windows": "garlic_tpu/ops/pallas_lod.py:93",
+           "covered": "garlic_tpu/ops/pallas_lod.py:291",
+           "window_sums": "garlic_tpu/ops/pallas_lod.py:175",
+           "covered_terms": "garlic_tpu/ops/pallas_lod.py:402"}
+# TGLS tokens, each led by its separator: GQ integers 20-59 (the spread of
+# tests/util.write_tgls; 40 distinct tokens, so the native reader keeps
+# the dictionary form) and 1,000 GL values in [-0.01, -0.00001] (more
+# than 255 distinct tokens: the f64 matrix form)
+GQ_TOKENS = [f" {v}".encode() for v in range(20, 60)]
+GL_TOKENS = [f" {-k / 1e5:.5f}".encode() for k in range(1, 1001)]
 
 
 def say(*a):
@@ -78,9 +103,11 @@ class _NoJax:
 
 class _Chrom:
     """The fields of a loaded chromosome that the port's kernel inputs,
-    exact engine and tie band read, over a synthetic panel's arrays."""
+    exact engine and tie band read, over a synthetic panel's arrays,
+    with a dictionary-form TGLS error plane (gl_codes into gl_lut)."""
 
-    def __init__(self, name, positions, genotypes):
+    def __init__(self, name, positions, genotypes, seed):
+        from garlic_tpu.io.tgls import convert_gl
         self.chrom = name
         self.positions = positions
         self.genotypes = genotypes
@@ -89,6 +116,16 @@ class _Chrom:
         obs = genotypes >= 0
         self.freq = (np.where(obs, genotypes, 0).sum(0)
                      / np.maximum(2 * obs.sum(0), 1)).astype(np.float64)
+        self.gl_lut = convert_gl(np.arange(20, 60), "GQ")
+        self.gl_codes = np.random.default_rng(seed).integers(
+            0, self.gl_lut.size, genotypes.shape, dtype=np.uint8)
+        self._gl = None
+
+    @property
+    def gl(self):
+        if self._gl is None:
+            self._gl = self.gl_lut[self.gl_codes]
+        return self._gl
 
 
 class _Centro:
@@ -137,22 +174,34 @@ def phase_environment():
         f"nvcc {_build.build_seconds}s, ready in "
         f"{time.perf_counter() - t0:.3f}s")
     for line in _build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             say("  ptxas:", line.strip())
 
 
-def _random_case(I, L, W, seed, dev):
-    from garlic_tpu_torch.ops import cuda_lod
+def _random_chrom(I, L, W, seed):
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 3, (I, L)).astype(np.int8)
     g[rng.random((I, L)) < 0.01] = -9
     pos = np.cumsum(rng.integers(100, 4000, L)).astype(np.int64)
-    chrom = _Chrom("chr1", pos, g)
+    chrom = _Chrom("chr1", pos, g, seed)
     chrom.freq[::97] = 0.0  # monomorphic sites score 0
     # a centromere masks some windows, where that leaves others live
     c0 = L // 3 if L >= 4 * W else L - 1
-    centro = _Centro(int(pos[c0]) + 1, int(pos[min(c0 + 2, L - 1)]) + 1)
-    return cuda_lod.chrom_device_inputs(chrom, centro, W, ERROR, 20000, dev)
+    return chrom, _Centro(int(pos[c0]) + 1, int(pos[min(c0 + 2, L - 1)]) + 1)
+
+
+def _bitwise(a, b):
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _equal(planes, others):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(planes, others))
+
+
+def _live_median(win):
+    return float(win[win != -9999].median())
 
 
 def phase_kernels(chrom, centro):
@@ -161,55 +210,82 @@ def phase_kernels(chrom, centro):
     from garlic_tpu_torch.ops import cuda_lod
     say("== phase 2: kernels against their plain versions on the card")
     dev = torch.device("cuda")
-    cases = []
+    cases = []  # name, chrom, centro, W, max gap, threshold, bench?
     for W in (60, 120):
-        inp = cuda_lod.chrom_device_inputs(chrom, centro, W, ERROR, MAX_GAP,
-                                           dev)
-        cases.append((f"bench chr1 {chrom.nind}x{chrom.nloci} W={W}", inp, W,
-                      1.5, float(math.ceil(OVERLAP_FRAC * W)),
-                      pipeline._tie_band([chrom], W, ERROR)))
+        cases.append((f"bench chr1 {chrom.nind}x{chrom.nloci} W={W}", chrom,
+                      centro, W, MAX_GAP, float(math.ceil(OVERLAP_FRAC * W)),
+                      True))
     for name, (I, L, W) in (("ragged 37x1001 W=60", (37, 1001, 60)),
                             ("nwin=1 5x64 W=64", (5, 64, 64)),
                             ("W=1 3x10", (3, 10, 1)),
                             ("ragged 9x3001 W=120", (9, 3001, 120))):
-        inp = _random_case(I, L, W, seed=L, dev=dev)
-        plain = cuda_lod.lod_windows_plain(*inp, W)
-        live = plain[plain != -9999]
-        cases.append((name, inp, W, float(live.median()),
-                      float(max(1, W // 4)), 0.05))
-    err = {"lod_windows": 0.0, "covered": 0.0}
-    for name, (pk, tb, ms), W, cut, thr, delta in cases:
-        a = cuda_lod.lod_windows(pk, tb, ms, W)
-        b = cuda_lod.lod_windows_plain(pk, tb, ms, W)
-        c = cuda_lod.covered(pk, tb, ms, W, cut, thr, delta)
-        d = cuda_lod.covered_plain(pk, tb, ms, W, cut, thr, delta)
+        c, cen = _random_chrom(I, L, W, seed=L)
+        cases.append((name, c, cen, W, 20000, float(max(1, W // 4)), False))
+    err = dict.fromkeys(KERNELS, 0.0)
+    timed = None
+    for name, c, cen, W, gap, thr, bench in cases:
+        pk, tb, ms = cuda_lod.chrom_device_inputs(c, cen, W, ERROR, gap, dev)
+        terms, _ = cuda_lod.chrom_gl_inputs(c, cen, W, gap, dev)
+        k1 = cuda_lod.lod_windows(pk, tb, ms, W)
+        p1 = cuda_lod.lod_windows_plain(pk, tb, ms, W)
+        k3 = cuda_lod.window_sums(terms, ms, W)
+        p3 = cuda_lod.window_sums_plain(terms, ms, W)
+        if bench:
+            cut1 = cut3 = 1.5
+            d1 = pipeline._tie_band([c], W, ERROR, False)
+            d3 = pipeline._tie_band([c], W, ERROR, True)
+        else:
+            cut1, cut3, d1, d3 = _live_median(p1), _live_median(p3), 0.05, 0.05
+        a2 = (cut1, thr, d1)
+        a4 = (cut3, thr, d3)
+        k2 = cuda_lod.covered(pk, tb, ms, W, *a2)
+        p2 = cuda_lod.covered_plain(pk, tb, ms, W, *a2)
+        k4 = cuda_lod.covered_terms(terms, ms, W, *a4)
+        p4 = cuda_lod.covered_terms_plain(terms, ms, W, *a4)
+        # one kernel body: K3/K4 over the plane of K1's terms are K1/K2
+        own = cuda_lod.table_terms(pk, tb)
+        s3 = cuda_lod.window_sums(own, ms, W)
+        s4 = cuda_lod.covered_terms(own, ms, W, *a2)
         torch.cuda.synchronize()
-        k1 = torch.equal(a.view(torch.int32), b.view(torch.int32))
-        k2 = all(torch.equal(x, y) for x, y in zip(c, d))
-        e1 = float((a - b).abs().max())
-        e2 = max(int((x.int() - y.int()).abs().max()) for x, y in zip(c, d))
-        err["lod_windows"] = max(err["lod_windows"], e1)
-        err["covered"] = max(err["covered"], float(e2))
-        say(f"  {name}: K1 bitwise {k1} (max |diff| {e1}); K2 planes equal "
-            f"{k2} (covered {int(c[0].sum())}, suspects {int(c[1].sum())}, "
-            f"above {int(c[2].sum())})")
-        if not (k1 and k2):
-            raise AssertionError(f"kernel differs from its plain version: "
-                                 f"{name}")
-    (pk, tb, ms), W, cut, thr, delta = cases[0][1:6]
-    times = {
-        "lod_windows": (_median_ms(lambda: cuda_lod.lod_windows(pk, tb, ms,
-                                                                W)),
-                        _median_ms(lambda: cuda_lod.lod_windows_plain(
-                            pk, tb, ms, W))),
-        "covered": (_median_ms(lambda: cuda_lod.covered(pk, tb, ms, W, cut,
-                                                        thr, delta)),
-                    _median_ms(lambda: cuda_lod.covered_plain(
-                        pk, tb, ms, W, cut, thr, delta))),
+        checks = {"K1 bitwise": _bitwise(k1, p1), "K2 equal": _equal(k2, p2),
+                  "K3 bitwise": _bitwise(k3, p3), "K4 equal": _equal(k4, p4),
+                  "K3=K1": _bitwise(s3, k1), "K4=K2": _equal(s4, k2)}
+        e = {"lod_windows": float((k1 - p1).abs().max()),
+             "window_sums": float((k3 - p3).abs().max()),
+             "covered": max(float((x.int() - y.int()).abs().max())
+                            for x, y in zip(k2, p2)),
+             "covered_terms": max(float((x.int() - y.int()).abs().max())
+                                  for x, y in zip(k4, p4))}
+        for k in err:
+            err[k] = max(err[k], e[k])
+        say(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in checks.items())
+            + f"; max |diff| {e}; K2 covered {int(k2[0].sum())} suspects "
+            f"{int(k2[1].sum())}; K4 covered {int(k4[0].sum())} suspects "
+            f"{int(k4[1].sum())} above {int(k4[2].sum())}")
+        if not all(checks.values()):
+            raise AssertionError(f"kernel differs from its plain version or "
+                                 f"its twin: {name} {checks}")
+        if bench and W == 60:
+            timed = (pk, tb, ms, terms, W, a2, a4)
+        del pk, tb, ms, terms, k1, p1, k2, p2, k3, p3, k4, p4, own, s3, s4
+        torch.cuda.empty_cache()
+    pk, tb, ms, terms, W, a2, a4 = timed
+    runs = {
+        "lod_windows": (lambda: cuda_lod.lod_windows(pk, tb, ms, W),
+                        lambda: cuda_lod.lod_windows_plain(pk, tb, ms, W)),
+        "covered": (lambda: cuda_lod.covered(pk, tb, ms, W, *a2),
+                    lambda: cuda_lod.covered_plain(pk, tb, ms, W, *a2)),
+        "window_sums": (lambda: cuda_lod.window_sums(terms, ms, W),
+                        lambda: cuda_lod.window_sums_plain(terms, ms, W)),
+        "covered_terms": (
+            lambda: cuda_lod.covered_terms(terms, ms, W, *a4),
+            lambda: cuda_lod.covered_terms_plain(terms, ms, W, *a4)),
     }
-    for k, (t, tp) in times.items():
-        say(f"  {k} at the bench shape: kernel {t:.4f} ms, plain "
-            f"{tp:.4f} ms (median of 21, CUDA events)")
+    times = {}
+    for k, (kern, plain) in runs.items():
+        times[k] = (_median_ms(kern), _median_ms(plain))
+        say(f"  {k} at the bench shape, W={W}: kernel {times[k][0]:.4f} ms, "
+            f"plain {times[k][1]:.4f} ms (median of 21, CUDA events)")
     say(f"  launch counters after the comparisons: {cuda_lod.LAUNCHES}")
     return err, times
 
@@ -220,23 +296,34 @@ def phase_tie_band(chrom, centro):
     from garlic_tpu_torch.ops import cuda_lod
     from garlic_tpu_torch.ops import lod as lod_ops
     say("== phase 3: tie band")
-    tmax = pipeline._corner_tmax(chrom, ERROR)
     ratios = {}
-    for W in (60, 120):
-        pk, tb, ms = cuda_lod.chrom_device_inputs(chrom, centro, W, ERROR,
-                                                  MAX_GAP, "cuda")
-        w32 = cuda_lod.lod_windows(pk, tb, ms, W).cpu().numpy()
-        nwin = w32.shape[1]
-        w64 = lod_ops.calc_lod_windows(chrom, centro, W, ERROR,
-                                       MAX_GAP)[:, :nwin]
-        live = ms.cpu().numpy() == 0
-        dev = np.abs(w32[:, live].astype(np.float64) - w64[:, live]).max()
-        ratios[W] = float(dev / (2.0 ** -23 * W * tmax))
-        say(f"  W={W}: max |f32 - f64| = {dev:.6g} over {chrom.nind} rows x "
-            f"{int(live.sum())} windows; ratio {ratios[W]:.3f} "
-            f"(band {TIE_BAND_FACTOR:g}, tmax {tmax:.4f})")
-        del pk, tb, ms
-        torch.cuda.empty_cache()
+    for use_gl in (False, True):
+        tmax = pipeline._corner_tmax(chrom, ERROR, use_gl)
+        for W in (60, 120):
+            if use_gl:
+                terms, ms = cuda_lod.chrom_gl_inputs(chrom, centro, W,
+                                                     MAX_GAP, "cuda")
+                w32 = cuda_lod.window_sums(terms, ms, W)
+                del terms
+            else:
+                pk, tb, ms = cuda_lod.chrom_device_inputs(
+                    chrom, centro, W, ERROR, MAX_GAP, "cuda")
+                w32 = cuda_lod.lod_windows(pk, tb, ms, W)
+                del pk, tb
+            w32 = w32.cpu().numpy()
+            nwin = w32.shape[1]
+            w64 = lod_ops.calc_lod_windows(chrom, centro, W, ERROR, MAX_GAP,
+                                           use_gl)[:, :nwin]
+            live = ms.cpu().numpy() == 0
+            dev = np.abs(w32[:, live].astype(np.float64) - w64[:, live]).max()
+            key = f"{'tgls' if use_gl else 'plain'} W={W}"
+            ratios[key] = float(dev / (2.0 ** -23 * W * tmax))
+            say(f"  {key}: max |f32 - f64| = {dev:.6g} over {chrom.nind} "
+                f"rows x {int(live.sum())} windows; ratio "
+                f"{ratios[key]:.3f} (band {TIE_BAND_FACTOR:g}, tmax "
+                f"{tmax:.4f})")
+            del w32, w64, ms
+            torch.cuda.empty_cache()
     if max(ratios.values()) > TIE_BAND_FACTOR:
         raise AssertionError(f"tie band exceeded: {ratios}")
     return ratios
@@ -279,76 +366,150 @@ def _raw_values(out, chroms):
     return np.concatenate(vals)
 
 
+def write_tgls(panel, path, tokens, seed):
+    """A TGLS file aligned with tests/util.write_tped's rows (4 leading
+    columns, then one value per individual), each value drawn uniformly
+    from `tokens`; vectorized like write_tped, plain text."""
+    rng = np.random.default_rng(seed)
+    lut = np.array(tokens)
+    width = lut.dtype.itemsize
+    if any(len(t) != width for t in tokens):
+        raise ValueError("tokens must share one width")
+    nind = len(panel.ind_ids)
+    with open(path, "wb") as f:
+        for ci, chrom in enumerate(panel.chrom_names):
+            pos = panel.positions[ci]
+            L = len(pos)
+            cells = lut[rng.integers(0, lut.size, (L, nind), dtype=np.uint16)]
+            rows = cells.view("S1").reshape(L, -1).view(f"S{width * nind}")
+            rows = rows[:, 0]
+            for start in range(0, L, 65536):
+                stop = min(start + 65536, L)
+                f.write(b"".join(f"{chrom} rs{ci}_{l} 0 {int(pos[l])}"
+                                 .encode() + rows[l] + b"\n"
+                                 for l in range(start, stop)))
+
+
+class _MainPath:
+    """Drives the port's runs; each run's kernel launch counters are
+    zeroed just before it and read just after it, and summed."""
+
+    def __init__(self):
+        self.walls = {}
+        self.launches = dict.fromkeys(KERNELS, 0)
+
+    def run(self, argv, label, kernel=None, at_least=0):
+        from garlic_tpu_torch.ops import cuda_lod
+        for k in cuda_lod.LAUNCHES:
+            cuda_lod.LAUNCHES[k] = 0
+        self.walls[label] = _run_port(argv + ["--out", self.out(label)],
+                                      label)
+        got = dict(cuda_lod.LAUNCHES)
+        say(f"    launches: {got}")
+        for k in self.launches:
+            self.launches[k] += got[k]
+        if kernel is not None and got[kernel] < at_least:
+            raise AssertionError(f"{label}: {kernel} ran {got[kernel]} "
+                                 f"times, expected >= {at_least}")
+
+    @staticmethod
+    def out(label):
+        return os.path.join(WORK, label)
+
+    def same(self, labels, ref):
+        """.roh.bed byte-identical and .freq.gz equal to ref's."""
+        bed = _read(self.out(ref) + ".roh.bed")
+        for k in labels:
+            if _read(self.out(k) + ".roh.bed") != bed:
+                raise AssertionError(f"{k}.roh.bed differs from {ref}'s")
+            if _read(self.out(k) + ".freq.gz") != \
+                    _read(self.out(ref) + ".freq.gz"):
+                raise AssertionError(f"{k}.freq.gz differs from {ref}'s")
+        say(f"  .roh.bed byte-identical across {', '.join(labels)} and {ref}"
+            f" ({bed.count(b'track')} individuals, "
+            f"{len(bed.splitlines()) - bed.count(b'track')} ROH); "
+            ".freq.gz equal")
+
+    def raw_close(self, fast, exact, chroms):
+        vf = _raw_values(self.out(fast), chroms)
+        vx = _raw_values(self.out(exact), chroms)
+        if not np.array_equal(np.isnan(vf), np.isnan(vx)):
+            raise AssertionError(f"{fast}: NA positions differ")
+        m = ~np.isnan(vx)
+        # %g keeps six significant digits, hence the relative term
+        if not np.allclose(vf[m], vx[m], rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"{fast}: window values differ")
+        say(f"  {fast}: {m.sum()} raw values within atol 1e-4 + rtol 1e-5 "
+            f"of {exact}'s (max |diff| {np.abs(vf[m] - vx[m]).max():.3g})")
+
+
 def phase_main_path(panel):
-    from garlic_tpu_torch.ops import cuda_lod
     from tests.util import make_panel, write_tped
     say("== phase 4: main path (python -m garlic_tpu_torch)")
+    mp = _MainPath()
     tped = os.path.join(WORK, "bench.tped.gz")
     tfam = os.path.join(WORK, "bench.tfam")
     t0 = time.perf_counter()
     write_tped(panel, tped, tfam)
     say(f"  wrote the bench panel in {time.perf_counter() - t0:.1f}s")
-    base = ["--tped", tped, "--tfam", tfam] + FLAGS + ["--tpu-panel-cache",
-                                                       "--tpu-profile"]
     nchrom = len(panel.chrom_names)
-    for k in cuda_lod.LAUNCHES:
-        cuda_lod.LAUNCHES[k] = 0
-    walls = {}
+    base = ["--tped", tped, "--tfam", tfam, "--tpu-panel-cache"] + FLAGS
     for label, engine in (("fast_cold", "fast"), ("fast_warm", "fast"),
                           ("exact", "exact")):
-        before = dict(cuda_lod.LAUNCHES)
-        walls[label] = _run_port(base + ["--tpu-engine", engine, "--out",
-                                         os.path.join(WORK, label)], label)
-        k2 = cuda_lod.LAUNCHES["covered"] - before["covered"]
-        if engine == "fast" and k2 < nchrom:
-            raise AssertionError(f"{label}: K2 ran {k2} times for {nchrom} "
-                                 "chromosomes")
-    out = {k: os.path.join(WORK, k) for k in walls}
-    bed_x = _read(out["exact"] + ".roh.bed")
-    freq_x = _read(out["exact"] + ".freq.gz")
-    for k in ("fast_cold", "fast_warm"):
-        if _read(out[k] + ".roh.bed") != bed_x:
-            raise AssertionError(f"{k}.roh.bed differs from the exact "
-                                 "engine's")
-        if _read(out[k] + ".freq.gz") != freq_x:
-            raise AssertionError(f"{k}.freq.gz differs from the exact "
-                                 "engine's")
-    say(f"  .roh.bed byte-identical across fast cold, fast warm and exact "
-        f"({bed_x.count(b'track')} individuals, "
-        f"{len(bed_x.splitlines()) - bed_x.count(b'track')} ROH); "
-        ".freq.gz equal")
+        mp.run(base + ["--tpu-engine", engine], label, "covered",
+               nchrom if engine == "fast" else 0)
+    mp.same(("fast_cold", "fast_warm"), "exact")
 
     small = make_panel(**RAWLOD_PANEL)
     stped = os.path.join(WORK, "small.tped.gz")
     stfam = os.path.join(WORK, "small.tfam")
     write_tped(small, stped, stfam)
-    sbase = ["--tped", stped, "--tfam", stfam, "--raw-lod"] + FLAGS
-    before = cuda_lod.LAUNCHES["lod_windows"]
+    sbase = ["--tped", stped, "--tfam", stfam] + FLAGS
+    snames = [f"chr{c}" for c in small.chrom_names]
     for label, engine in (("rawlod_fast", "fast"), ("rawlod_exact",
                                                     "exact")):
-        walls[label] = _run_port(sbase + ["--tpu-engine", engine, "--out",
-                                          os.path.join(WORK, label)], label)
-    k1 = cuda_lod.LAUNCHES["lod_windows"] - before
-    if k1 < len(small.chrom_names):
-        raise AssertionError(f"--raw-lod: K1 ran {k1} times")
-    rf, rx = (os.path.join(WORK, k) for k in ("rawlod_fast",
-                                               "rawlod_exact"))
-    if _read(rf + ".roh.bed") != _read(rx + ".roh.bed"):
-        raise AssertionError("--raw-lod: fast .roh.bed differs from exact")
-    names = [f"chr{c}" for c in small.chrom_names]
-    vf, vx = _raw_values(rf, names), _raw_values(rx, names)
-    if not np.array_equal(np.isnan(vf), np.isnan(vx)):
-        raise AssertionError("--raw-lod: NA positions differ")
-    m = ~np.isnan(vx)
-    # %g keeps six significant digits, hence the relative term
-    if not np.allclose(vf[m], vx[m], rtol=1e-5, atol=1e-4):
-        raise AssertionError("--raw-lod: window values differ")
-    say(f"  --raw-lod: BED identical, {m.sum()} raw values within "
-        f"atol 1e-4 + rtol 1e-5 (max |diff| "
-        f"{np.abs(vf[m] - vx[m]).max():.3g})")
-    launches = dict(cuda_lod.LAUNCHES)
-    say(f"  launches in this phase: {launches}")
-    return walls, launches
+        mp.run(sbase + ["--raw-lod", "--tpu-engine", engine], label,
+               "lod_windows", nchrom if engine == "fast" else 0)
+    mp.same(("rawlod_fast",), "rawlod_exact")
+    mp.raw_close("rawlod_fast", "rawlod_exact", snames)
+
+    # TGLS: a fresh TPED name, so the cold run writes both sidecars
+    gtped = os.path.join(WORK, "bench_gl.tped.gz")
+    shutil.copy(tped, gtped)
+    gq = os.path.join(WORK, "bench.gq.tgls")
+    t0 = time.perf_counter()
+    write_tgls(panel, gq, GQ_TOKENS, seed=5)
+    say(f"  wrote the bench GQ TGLS file ({os.path.getsize(gq) / 1e6:.0f} MB)"
+        f" in {time.perf_counter() - t0:.1f}s")
+    gbase = ["--tped", gtped, "--tfam", tfam, "--tgls", gq, "--gl-type",
+             "GQ", "--tpu-panel-cache"] + FLAGS
+    for label, engine in (("tgls_fast_cold", "fast"),
+                          ("tgls_fast_warm", "fast"),
+                          ("tgls_exact", "exact")):
+        mp.run(gbase + ["--tpu-engine", engine], label, "covered_terms",
+               nchrom if engine == "fast" else 0)
+        if label == "tgls_fast_cold" and not os.path.exists(gq + ".gtlc"):
+            raise AssertionError("the cold TGLS run wrote no .gtlc sidecar")
+    mp.same(("tgls_fast_cold", "tgls_fast_warm"), "tgls_exact")
+
+    sgl = os.path.join(WORK, "small.gl.tgls")
+    sgq = os.path.join(WORK, "small.gq.tgls")
+    write_tgls(small, sgl, GL_TOKENS, seed=6)
+    write_tgls(small, sgq, GQ_TOKENS, seed=7)
+    for label, engine in (("gl_fast", "fast"), ("gl_exact", "exact")):
+        mp.run(sbase + ["--tgls", sgl, "--gl-type", "GL", "--tpu-engine",
+                        engine], label, "window_sums",
+               nchrom if engine == "fast" else 0)
+    mp.same(("gl_fast",), "gl_exact")
+    for label, engine in (("tgls_rawlod_fast", "fast"),
+                          ("tgls_rawlod_exact", "exact")):
+        mp.run(sbase + ["--tgls", sgq, "--gl-type", "GQ", "--raw-lod",
+                        "--tpu-engine", engine], label, "window_sums",
+               nchrom if engine == "fast" else 0)
+    mp.same(("tgls_rawlod_fast",), "tgls_rawlod_exact")
+    mp.raw_close("tgls_rawlod_fast", "tgls_rawlod_exact", snames)
+    say(f"  launches over the main path's runs: {mp.launches}")
+    return mp.walls, mp.launches
 
 
 def main() -> int:
@@ -368,7 +529,8 @@ def main() -> int:
         say(f"bench panel {BENCH_PANEL['nind']} x "
             f"{BENCH_PANEL['nloci_per_chr']} made in "
             f"{time.perf_counter() - t0:.1f}s")
-        chrom = _Chrom("chr1", panel.positions[0], panel.genotypes[0])
+        chrom = _Chrom("chr1", panel.positions[0], panel.genotypes[0],
+                       seed=11)
         centro = _Centro(*HG18_CHR1_CENTROMERE)
         err, times = phase_kernels(chrom, centro)
         phase_tie_band(chrom, centro)
@@ -378,12 +540,10 @@ def main() -> int:
                                          for k, v in walls.items()))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    replaces = {"lod_windows": "garlic_tpu/ops/pallas_lod.py:93",
-                "covered": "garlic_tpu/ops/pallas_lod.py:291"}
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": replaces[k], "launches": launches[k],
+                "replaces": KERNELS[k], "launches": launches[k],
                 "max_abs_err": err[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in ("lod_windows", "covered")]
+                "plain_ms": times[k][1]} for k in KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,6 +94,11 @@ def library() -> ctypes.CDLL:
         lib.gt_covered.argtypes = [i, p, p, p, p, p, p, i, i, i, i,
                                    fl, fl, fl, p]
         lib.gt_covered.restype = i
+        lib.gt_window_sums.argtypes = [i, p, p, p, i, i, i, p]
+        lib.gt_window_sums.restype = i
+        lib.gt_covered_terms.argtypes = [i, p, p, p, p, p, i, i, i,
+                                         fl, fl, fl, p]
+        lib.gt_covered_terms.restype = i
         _lib = lib
         return lib
 

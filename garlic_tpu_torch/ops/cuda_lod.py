@@ -1,17 +1,22 @@
-"""Phase-I LOD windows on the GPU: kernels K1 and K2, their plain
-PyTorch versions, and the device inputs they read.
+"""Phase-I LOD windows on the GPU: kernels K1-K4, their plain PyTorch
+versions, and the device inputs they read.
 
-Counterpart of garlic_tpu/ops/pallas_lod.py.  The two Pallas TPU kernels
-on the pinned-cutoff path are hand-written CUDA in csrc/lod_windows.cu:
+Counterpart of garlic_tpu/ops/pallas_lod.py.  The four Pallas TPU
+kernels are hand-written CUDA in csrc/lod_windows.cu:
 
-* K1 lod_windows  <- _lod_windows_pallas_padded (pallas_lod.py:93)
-* K2 covered      <- _covered_pallas_padded     (pallas_lod.py:291)
+* K1 lod_windows    <- _lod_windows_pallas_padded   (pallas_lod.py:93)
+* K2 covered        <- _covered_pallas_padded       (pallas_lod.py:291)
+* K3 window_sums    <- _window_sums_pallas_padded   (pallas_lod.py:175)
+* K4 covered_terms  <- _covered_terms_pallas_padded (pallas_lod.py:402)
 
-Each wrapper checks its inputs, sends a CPU tensor to the plain version
-beside it and launches the kernel for a CUDA tensor (there is no
-fallback from one to the other), and counts its launches in LAUNCHES.
-Tensors are sized exactly (nwin = L - W + 1 window starts, L SNPs): the
-JAX package's power-of-two buckets existed to bound XLA recompiles.
+K1/K2 read 2-bit genotype codes and an f32 [3, L] LOD table; K3/K4 (the
+TGLS path, per-genotype error) read an f32 [I, L] term plane that
+gl_terms_f32 builds.  Each wrapper checks its inputs, sends a CPU tensor
+to the plain version beside it and launches the kernel for a CUDA tensor
+(there is no fallback from one to the other), and counts its launches in
+LAUNCHES.  Tensors are sized exactly (nwin = L - W + 1 window starts, L
+SNPs): the JAX package's power-of-two buckets and its _pad_codes_dev
+existed to bound XLA recompiles.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from . import _build
 from .lod import window_missing_mask
 
 # kernel launches by wrapper; chip_smoke.py zeroes and reads them
-LAUNCHES = {"lod_windows": 0, "covered": 0}
+LAUNCHES = {"lod_windows": 0, "covered": 0, "window_sums": 0,
+            "covered_terms": 0}
 
 
 def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
@@ -42,12 +48,10 @@ def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
     return torch.where(codes == 3, -9, codes.to(torch.int8)).to(torch.int8)
 
 
-def lod_table_f32(freq: torch.Tensor, error: float) -> torch.Tensor:
-    """[3, L] f32 LOD table for genotype classes 0/1/2, monomorphic sites
-    0: the f32 formula of pallas_lod._packed_entry (:816-834), op for op
-    in eager torch (src/garlic-roh.cpp:355-386)."""
-    p = freq.to(torch.float32)
-    e = torch.tensor(error, dtype=torch.float32, device=p.device)
+def _ratios(p: torch.Tensor, e):
+    """(aut, non) pairs of genotype classes 0/1/2, in f32: the reference's
+    formula (src/garlic-roh.cpp:355-386) in the JAX kernels' op order
+    (pallas_lod.py:819-825, :619-625)."""
     one_minus = 1.0 - p
     non0 = one_minus * one_minus
     aut0 = (1.0 - e) * one_minus + e * non0
@@ -55,30 +59,54 @@ def lod_table_f32(freq: torch.Tensor, error: float) -> torch.Tensor:
     aut1 = e * non1
     non2 = p * p
     aut2 = (1.0 - e) * p + e * non2
+    return (aut0, non0), (aut1, non1), (aut2, non2)
+
+
+def lod_table_f32(freq: torch.Tensor, error: float) -> torch.Tensor:
+    """[3, L] f32 LOD table for genotype classes 0/1/2, monomorphic sites
+    0: the f32 formula of pallas_lod._packed_entry (:816-834), op for op
+    in eager torch."""
+    p = freq.to(torch.float32)
+    e = torch.tensor(error, dtype=torch.float32, device=p.device)
     mono = (p <= 0.0) | (p >= 1.0)
     zero = torch.zeros((), dtype=torch.float32, device=p.device)
     return torch.stack([torch.where(mono, zero, torch.log10(a / n))
-                        for a, n in ((aut0, non0), (aut1, non1),
-                                     (aut2, non2))])
+                        for a, n in _ratios(p, e)])
+
+
+def gl_terms_f32(geno: torch.Tensor, freq: torch.Tensor,
+                 err: torch.Tensor) -> torch.Tensor:
+    """f32 [I, L] LOD terms with a per-genotype error plane (TGLS, the
+    value replaces epsilon, src/garlic-roh.cpp:68,91-95): the counterpart
+    of pallas_lod._gl_terms (:611), op for op in eager torch, with its
+    (p <= 0) | (p >= 1) monomorphic test.  geno int8 [I, L] (values other
+    than 0/1/2 add 0), freq [L], err f32 [I, L]."""
+    p = freq.to(torch.float32)[None, :]
+    r0, r1, r2 = (torch.log10(a / n) for a, n in _ratios(p, err))
+    zero = torch.zeros((), dtype=torch.float32, device=p.device)
+    a = torch.where(geno == 0, r0, torch.where(
+        geno == 1, r1, torch.where(geno == 2, r2, zero)))
+    mono = (p <= 0.0) | (p >= 1.0)
+    return torch.where(mono, zero, a)
 
 
 # ---------------------------------------------------------------------------
 # Plain versions (CPU tensors, and the reference the card is checked against)
 # ---------------------------------------------------------------------------
 
-def _terms(packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """f32 [I, L] per-locus LOD terms; missing genotypes add 0."""
+def table_terms(packed: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """f32 [I, L] per-locus LOD terms of K1/K2's inputs; missing
+    genotypes add 0."""
     g = decode_2bit(packed, table.shape[1])
     zero = torch.zeros((), dtype=torch.float32, device=table.device)
     return torch.where(g == 0, table[0], torch.where(
         g == 1, table[1], torch.where(g == 2, table[2], zero)))
 
 
-def _window_sums_plain(packed, table, W: int) -> torch.Tensor:
-    """Unmasked f32 window sums [I, nwin]: W slice adds, left to right
-    from 0, the kernels' order (no conv1d: cuDNN runs f32 convolutions in
-    TF32)."""
-    a = _terms(packed, table)
+def _window_sums(a: torch.Tensor, W: int) -> torch.Tensor:
+    """Unmasked f32 window sums [I, nwin] of a term plane: W slice adds,
+    left to right from 0, the kernels' order (no conv1d: cuDNN runs f32
+    convolutions in TF32)."""
     nwin = a.shape[1] - W + 1
     acc = torch.zeros((a.shape[0], nwin), dtype=torch.float32,
                       device=a.device)
@@ -100,19 +128,19 @@ def window_counts(above: torch.Tensor, W: int) -> torch.Tensor:
     return cs[:, W:] - cs[:, :nwin + W - 1]
 
 
-def lod_windows_plain(packed, table, miss, winsize: int) -> torch.Tensor:
-    """Plain version of K1: f32 [I, nwin], MISSING where miss is set."""
-    win = _window_sums_plain(packed, table, winsize)
+def window_sums_plain(terms, miss, winsize: int) -> torch.Tensor:
+    """Plain version of K3: f32 [I, nwin], MISSING where miss is set."""
+    win = _window_sums(terms, winsize)
     return torch.where(miss.bool()[None, :],
                        torch.tensor(float(MISSING), dtype=torch.float32,
                                     device=win.device), win)
 
 
-def covered_plain(packed, table, miss, winsize: int, cutoff: float,
-                  thr: float, delta: float):
-    """Plain version of K2: (covered u8 [I, L], susw u8 [I, nwin],
+def covered_terms_plain(terms, miss, winsize: int, cutoff: float,
+                        thr: float, delta: float):
+    """Plain version of K4: (covered u8 [I, L], susw u8 [I, nwin],
     above u8 [I, nwin])."""
-    win = _window_sums_plain(packed, table, winsize)
+    win = _window_sums(terms, winsize)
     live = ~miss.bool()[None, :]
     c = torch.tensor(cutoff, dtype=torch.float32, device=win.device)
     d = torch.tensor(delta, dtype=torch.float32, device=win.device)
@@ -124,9 +152,40 @@ def covered_plain(packed, table, miss, winsize: int, cutoff: float,
             above.to(torch.uint8))
 
 
+def lod_windows_plain(packed, table, miss, winsize: int) -> torch.Tensor:
+    """Plain version of K1: K3's over the table's terms."""
+    return window_sums_plain(table_terms(packed, table), miss, winsize)
+
+
+def covered_plain(packed, table, miss, winsize: int, cutoff: float,
+                  thr: float, delta: float):
+    """Plain version of K2: K4's over the table's terms."""
+    return covered_terms_plain(table_terms(packed, table), miss, winsize,
+                               cutoff, thr, delta)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
+
+def _check_miss(tensors, miss, I: int, L: int, winsize: int) -> int:
+    """Shared checks of every wrapper; returns nwin."""
+    nwin = L - winsize + 1
+    if winsize < 1 or nwin < 1 or I < 1:
+        raise ValueError(f"need I >= 1 and 1 <= winsize <= L "
+                         f"(I={I}, L={L}, winsize={winsize})")
+    if miss.dtype != torch.uint8 or tuple(miss.shape) != (nwin,):
+        raise TypeError(f"miss must be a uint8 tensor of shape ({nwin},)")
+    dev = tensors[0].device
+    for t in tuple(tensors) + (miss,):
+        if t.device != dev:
+            raise ValueError("inputs lie on different devices")
+        if not t.is_contiguous():
+            raise ValueError("inputs must be contiguous")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return nwin
+
 
 def _check(packed, table, miss, winsize: int):
     if packed.dtype != torch.uint8 or packed.dim() != 2:
@@ -136,28 +195,28 @@ def _check(packed, table, miss, winsize: int):
         raise TypeError("table must be a [3, L] float32 tensor")
     I, Lq = packed.shape
     L = table.shape[1]
-    nwin = L - winsize + 1
-    if winsize < 1 or nwin < 1 or I < 1:
-        raise ValueError(f"need I >= 1 and 1 <= winsize <= L "
-                         f"(I={I}, L={L}, winsize={winsize})")
+    nwin = _check_miss((packed, table), miss, I, L, winsize)
     if Lq != (L + 3) // 4:
         raise ValueError(f"packed has {Lq} bytes per row, expected "
                          f"{(L + 3) // 4} for L={L}")
-    if miss.dtype != torch.uint8 or tuple(miss.shape) != (nwin,):
-        raise TypeError(f"miss must be a uint8 tensor of shape ({nwin},)")
-    for t in (packed, table, miss):
-        if t.device != packed.device:
-            raise ValueError("inputs lie on different devices")
-        if not t.is_contiguous():
-            raise ValueError("inputs must be contiguous")
-    if packed.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {packed.device}")
     return I, L, nwin
 
 
-def _launch_args(device):
-    """(device index, PyTorch's current stream on it) for a launcher."""
-    return device.index, torch.cuda.current_stream(device).cuda_stream
+def _check_terms(terms, miss, winsize: int):
+    if terms.dtype != torch.float32 or terms.dim() != 2:
+        raise TypeError("terms must be a 2-D float32 tensor")
+    I, L = terms.shape
+    return I, L, _check_miss((terms,), miss, I, L, winsize)
+
+
+def _launch(fn: str, key: str, device, *args) -> None:
+    """Enqueue one kernel through the library's C launcher `fn` on
+    PyTorch's current stream of `device`; raises on a launch error."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(_build.library(), fn)(device.index, *args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+    LAUNCHES[key] += 1
 
 
 def lod_windows(packed, table, miss, winsize: int) -> torch.Tensor:
@@ -166,14 +225,18 @@ def lod_windows(packed, table, miss, winsize: int) -> torch.Tensor:
     if packed.device.type == "cpu":
         return lod_windows_plain(packed, table, miss, winsize)
     out = torch.empty((I, nwin), dtype=torch.float32, device=packed.device)
-    index, stream = _launch_args(packed.device)
-    rc = _build.library().gt_lod_windows(
-        index, packed.data_ptr(), table.data_ptr(), miss.data_ptr(),
-        out.data_ptr(), I, L, packed.shape[1], winsize, stream)
-    if rc != 0:
-        raise RuntimeError(f"gt_lod_windows launch failed: CUDA error {rc}")
-    LAUNCHES["lod_windows"] += 1
+    _launch("gt_lod_windows", "lod_windows", packed.device,
+            packed.data_ptr(), table.data_ptr(), miss.data_ptr(),
+            out.data_ptr(), I, L, packed.shape[1], winsize)
     return out
+
+
+def _planes(dev, I: int, L: int, nwin: int):
+    """Uninitialised (covered [I, L], susw [I, nwin], above [I, nwin])
+    u8 outputs of K2/K4."""
+    return (torch.empty((I, L), dtype=torch.uint8, device=dev),
+            torch.empty((I, nwin), dtype=torch.uint8, device=dev),
+            torch.empty((I, nwin), dtype=torch.uint8, device=dev))
 
 
 def covered(packed, table, miss, winsize: int, cutoff: float, thr: float,
@@ -185,20 +248,36 @@ def covered(packed, table, miss, winsize: int, cutoff: float, thr: float,
     if packed.device.type == "cpu":
         return covered_plain(packed, table, miss, winsize, cutoff, thr,
                              delta)
-    dev = packed.device
-    cov = torch.empty((I, L), dtype=torch.uint8, device=dev)
-    susw = torch.empty((I, nwin), dtype=torch.uint8, device=dev)
-    above = torch.empty((I, nwin), dtype=torch.uint8, device=dev)
-    index, stream = _launch_args(dev)
-    rc = _build.library().gt_covered(
-        index, packed.data_ptr(), table.data_ptr(), miss.data_ptr(),
-        cov.data_ptr(), susw.data_ptr(), above.data_ptr(), I, L,
-        packed.shape[1], winsize, float(cutoff), float(thr), float(delta),
-        stream)
-    if rc != 0:
-        raise RuntimeError(f"gt_covered launch failed: CUDA error {rc}")
-    LAUNCHES["covered"] += 1
-    return cov, susw, above
+    out = _planes(packed.device, I, L, nwin)
+    _launch("gt_covered", "covered", packed.device, packed.data_ptr(),
+            table.data_ptr(), miss.data_ptr(),
+            *(t.data_ptr() for t in out), I, L, packed.shape[1], winsize,
+            float(cutoff), float(thr), float(delta))
+    return out
+
+
+def window_sums(terms, miss, winsize: int) -> torch.Tensor:
+    """K3: masked f32 window sums [I, nwin] of an f32 term plane."""
+    I, L, nwin = _check_terms(terms, miss, winsize)
+    if terms.device.type == "cpu":
+        return window_sums_plain(terms, miss, winsize)
+    out = torch.empty((I, nwin), dtype=torch.float32, device=terms.device)
+    _launch("gt_window_sums", "window_sums", terms.device, terms.data_ptr(),
+            miss.data_ptr(), out.data_ptr(), I, L, winsize)
+    return out
+
+
+def covered_terms(terms, miss, winsize: int, cutoff: float, thr: float,
+                  delta: float):
+    """K4: K2's three u8 planes over an f32 term plane."""
+    I, L, nwin = _check_terms(terms, miss, winsize)
+    if terms.device.type == "cpu":
+        return covered_terms_plain(terms, miss, winsize, cutoff, thr, delta)
+    out = _planes(terms.device, I, L, nwin)
+    _launch("gt_covered_terms", "covered_terms", terms.device,
+            terms.data_ptr(), miss.data_ptr(), *(t.data_ptr() for t in out),
+            I, L, winsize, float(cutoff), float(thr), float(delta))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -241,20 +320,44 @@ def packed_host(chrom) -> np.ndarray:
     return packed if packed is not None else _pack_numpy(geno, 4 * rb)
 
 
+def _missing_mask(chrom, centro, winsize: int, max_gap: int, device):
+    return _upload(window_missing_mask(
+        chrom.positions, winsize, max_gap, centro.start(chrom.chrom),
+        centro.end(chrom.chrom)).astype(np.uint8), device)
+
+
 def chrom_device_inputs(chrom, centro, winsize: int, error: float,
                         max_gap: int, device):
-    """One chromosome's kernel inputs on `device`: (packed u8
+    """One chromosome's K1/K2 inputs on `device`: (packed u8
     [I, ceil(L/4)], table f32 [3, L], window-missing mask u8 [nwin]),
     with nwin = L - winsize + 1 >= 1.  The codes go up as they are (a
     plain H2D copy) and the f32 table is built on the device; the input
     stage of lod_windows_pallas_prepacked_raw (pallas_lod.py:1261) and
     covered_pallas_prepacked_raw (:1352)."""
-    missing = window_missing_mask(chrom.positions, winsize, max_gap,
-                                  centro.start(chrom.chrom),
-                                  centro.end(chrom.chrom))
     freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
     return (_upload(packed_host(chrom), device), lod_table_f32(freq, error),
-            _upload(missing.astype(np.uint8), device))
+            _missing_mask(chrom, centro, winsize, max_gap, device))
+
+
+def chrom_gl_inputs(chrom, centro, winsize: int, max_gap: int, device):
+    """One TGLS chromosome's K3/K4 inputs on `device`: (terms f32 [I, L],
+    window-missing mask u8 [nwin]).  The 2-bit genotype codes go up as
+    they are; the error plane goes up in the native reader's dictionary
+    form (u8 codes [I, L] + f32 lut, gathered on the device: the K-way
+    select of pallas_lod.py:686-688) or as the f32 cast of chrom.gl
+    (:773); the plane is decoded on the device (_gl_codes_masked_entry,
+    :668, and _gl_entry, :638, without their padding)."""
+    geno = decode_2bit(_upload(packed_host(chrom), device), chrom.nloci)
+    freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
+    if chrom.gl_codes is not None:
+        codes = _upload(chrom.gl_codes, device)
+        lut = _upload(np.asarray(chrom.gl_lut, dtype=np.float32), device)
+        err = torch.index_select(lut, 0, codes.reshape(-1).to(torch.int32))
+        err = err.reshape(codes.shape)
+    else:
+        err = _upload(np.asarray(chrom.gl, dtype=np.float32), device)
+    return (gl_terms_f32(geno, freq, err),
+            _missing_mask(chrom, centro, winsize, max_gap, device))
 
 
 def lod_windows_packed_raw(chrom, centro, winsize: int, error: float,
@@ -276,3 +379,22 @@ def covered_packed_raw(chrom, centro, winsize: int, error: float,
     return covered(*chrom_device_inputs(chrom, centro, winsize, error,
                                         max_gap, device),
                    winsize, cutoff, thr, delta)
+
+
+def window_sums_gl_raw(chrom, centro, winsize: int, max_gap: int,
+                       device) -> torch.Tensor:
+    """K3 over one TGLS chromosome: masked f32 window sums [I, nwin] on
+    `device`.  Counterpart of lod_windows_pallas_gl_codes_raw
+    (pallas_lod.py:695, dictionary form) and lod_windows_pallas_gl_raw
+    (:751, float form)."""
+    return window_sums(*chrom_gl_inputs(chrom, centro, winsize, max_gap,
+                                        device), winsize)
+
+
+def covered_gl_raw(chrom, centro, winsize: int, max_gap: int,
+                   cutoff: float, thr: float, delta: float, device):
+    """K4 over one TGLS chromosome: K2's three u8 planes on `device`.
+    Counterpart of covered_pallas_gl_codes_raw (pallas_lod.py:509)."""
+    return covered_terms(*chrom_gl_inputs(chrom, centro, winsize, max_gap,
+                                          device),
+                         winsize, cutoff, thr, delta)

@@ -8,11 +8,12 @@ that the native run scan reads.
 
 Two Phase-I routes feed it:
 
-* split (--raw-lod): K1 writes the window matrix (DeviceWin); the
+* split (--raw-lod, and pinned runs with a float-matrix TGLS error
+  plane): K1 (K3 for TGLS) writes the window matrix (DeviceWin); the
   coverage program below counts it in plain torch.
-* fused (pinned cutoff): K2 computes the window sums, cutoff flags,
-  suspect flags and coverage counts in one kernel (FusedCov); the window
-  matrix never reaches device memory.
+* fused (pinned cutoff): K2 (K4 for dictionary-form TGLS) computes the
+  window sums, cutoff flags, suspect flags and coverage counts in one
+  kernel (FusedCov); the window matrix never reaches device memory.
 
 The JAX edge extractor's static-shape machinery (tiered caps, the bitmap
 fallback, the cumsum/searchsorted compaction) is not carried over:
@@ -74,17 +75,19 @@ class DeviceWin:
 class FusedCov:
     """Deferred fused Phase-I + coverage dispatch (pinned-cutoff fast
     runs): covered bits, suspect flags and above flags come straight out
-    of kernel K2.
+    of kernel K2, or K4 on a dictionary-form TGLS chromosome (use_gl).
+    make() builds the split path's DeviceWin where the fused kernel does
+    not apply (float-matrix TGLS).
 
     handle: a covered_dispatch result enqueued during Phase I (the pinned
-    cutoff, threshold and tie band are known there), so K2 runs on the
-    device while the host finishes Phase I."""
+    cutoff, threshold and tie band are known there), so the kernel runs
+    on the device while the host finishes Phase I."""
 
     __slots__ = ("chrom", "centro", "winsize", "error", "max_gap",
-                 "device", "handle")
+                 "device", "handle", "use_gl")
 
     def __init__(self, chrom, centro, winsize: int, error: float,
-                 max_gap: int, device):
+                 max_gap: int, device, use_gl: bool = False):
         self.chrom = chrom
         self.centro = centro
         self.winsize = winsize
@@ -92,6 +95,7 @@ class FusedCov:
         self.max_gap = max_gap
         self.device = device
         self.handle = None
+        self.use_gl = use_gl
 
     @property
     def nind(self) -> int:
@@ -105,18 +109,29 @@ class FusedCov:
     def shape(self):
         return (self.nind, self.nloci)
 
+    def make(self) -> DeviceWin:
+        return lod_windows_device(self.chrom, self.centro, self.winsize,
+                                  self.error, self.max_gap, self.device,
+                                  self.use_gl)
+
 
 def lod_windows_device(chrom, centro, winsize: int, error: float,
-                       max_gap: int, device) -> DeviceWin:
-    """Split Phase I through K1 with no host transfer of the result (the
-    non-TGLS branch of device_win.py:162-233)."""
+                       max_gap: int, device, use_gl: bool = False
+                       ) -> DeviceWin:
+    """Split Phase I with no host transfer of the result
+    (device_win.py:162-233): K3 over the TGLS term plane (use_gl, both
+    error-plane forms, :180-195), else K1."""
     I, L = chrom.nind, chrom.nloci
     nwin = max(L - winsize + 1, 0)
     if nwin == 0:
         win = torch.empty((I, 0), dtype=torch.float32, device=device)
         return DeviceWin(win=win, nind=I, nloci=L, nwin=0)
-    win = cuda_lod.lod_windows_packed_raw(chrom, centro, winsize, error,
-                                          max_gap, device)
+    if use_gl:
+        win = cuda_lod.window_sums_gl_raw(chrom, centro, winsize, max_gap,
+                                          device)
+    else:
+        win = cuda_lod.lod_windows_packed_raw(chrom, centro, winsize, error,
+                                              max_gap, device)
     return DeviceWin(win=win, nind=I, nloci=L, nwin=nwin)
 
 
@@ -169,9 +184,10 @@ def _edges_payload(covered: torch.Tensor, susw: torch.Tensor,
 def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
                      tie_delta: float = 0.0):
     """Enqueue one chromosome's coverage on the device and return a
-    handle for covered_fetch.  A FusedCov launches K2 (or returns the
-    handle pre-enqueued during Phase I); a DeviceWin runs the plain-torch
-    coverage program over K1's window matrix.  Kernel launches are
+    handle for covered_fetch.  A FusedCov launches K2 or K4 (or returns
+    the handle pre-enqueued during Phase I, or takes the split path where
+    _dispatch_fused declines); a DeviceWin runs the plain-torch coverage
+    program over K1's or K3's window matrix.  Kernel launches are
     asynchronous, so assemble_roh enqueues every chromosome before
     the first blocking fetch.
 
@@ -183,7 +199,10 @@ def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
     if isinstance(dwin, FusedCov):
         if dwin.handle is not None:  # pre-enqueued during Phase I
             return dwin.handle
-        return _dispatch_fused(dwin, cutoff, winsize, thr, tie_delta)
+        h = _dispatch_fused(dwin, cutoff, winsize, thr, tie_delta)
+        if h is not None:
+            return h
+        dwin = dwin.make()
     cov, susw, above = _coverage(dwin.win, cutoff, thr, tie_delta, winsize,
                                  dwin.nloci)
     return cov, susw, above, dwin.nind, dwin.nloci
@@ -191,18 +210,27 @@ def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
 
 def _dispatch_fused(fc: FusedCov, cutoff: float, winsize: int,
                     threshold: float, tie_delta: float):
-    """Run K2 for one chromosome (_dispatch_fused, device_win.py:599).
-    Exact sizing leaves no bucket-slack case; a chromosome shorter than
-    the window has no windows and so nothing covered."""
+    """Run K2, or K4 for dictionary-form TGLS, for one chromosome
+    (_dispatch_fused, device_win.py:599).  None -> the caller takes the
+    split path: float-matrix TGLS, as device_win.py:634-637 does.  Exact
+    sizing leaves no bucket-slack case; a chromosome shorter than the
+    window has no windows and so nothing covered."""
     c = fc.chrom
     I, L = c.nind, c.nloci
     if L - winsize + 1 <= 0:
         z = torch.zeros((I, 0), dtype=torch.uint8, device=fc.device)
         return (torch.zeros((I, L), dtype=torch.uint8, device=fc.device),
                 z, z, I, L)
-    cov, susw, above = cuda_lod.covered_packed_raw(
-        c, fc.centro, winsize, fc.error, fc.max_gap, cutoff, threshold,
-        tie_delta, fc.device)
+    if fc.use_gl:
+        if c.gl_codes is None:
+            return None
+        cov, susw, above = cuda_lod.covered_gl_raw(
+            c, fc.centro, winsize, fc.max_gap, cutoff, threshold, tie_delta,
+            fc.device)
+    else:
+        cov, susw, above = cuda_lod.covered_packed_raw(
+            c, fc.centro, winsize, fc.error, fc.max_gap, cutoff, threshold,
+            tie_delta, fc.device)
     return cov, susw, above, I, L
 
 

@@ -179,46 +179,50 @@ def _lod_windows_exact_numpy(terms: np.ndarray, missing: np.ndarray,
 # copy of the exact branch of garlic_tpu/ops/lod.py:310 (calc_lod_windows);
 # the fast engine is ops/device_win.lod_windows_device
 def calc_lod_windows(chrom, centro, winsize: int, error: float,
-                     max_gap: int, bar=None) -> np.ndarray:
+                     max_gap: int, use_gl: bool = False,
+                     bar=None) -> np.ndarray:
     """Exact f64 Phase-I window matrix [I, L] for one chromosome.
 
     Mirrors calcLOD/calcLODWindows (src/garlic-roh.cpp:18-132,279-309).
+    use_gl: per-genotype TGLS errors (chrom.gl) replace `error`.
     bar: optional core.pbar.Bar advanced as individuals complete (the
     reference ticks once per individual, src/garlic-roh.cpp:48)."""
     cstart = centro.start(chrom.chrom)
     cend = centro.end(chrom.chrom)
     missing = window_missing_mask(chrom.positions, winsize, max_gap,
                                   cstart, cend)
-    # table-driven native kernel: same per-(genotype, locus) f64 values,
-    # no [I, L] terms materialization
-    try:
-        from garlic_tpu.native import lod_windows_exact_tbl_native
-        table = lod_table(chrom.freq, error)
-        I = chrom.genotypes.shape[0]
-        if bar is None or I <= 1:
-            win = lod_windows_exact_tbl_native(chrom.genotypes, table,
-                                               missing, winsize)
-            if win is not None:
-                return win
-        else:
-            # tick as individuals complete: chunk the kernel over
-            # individual blocks (rows are independent; OpenMP still fans
-            # out within each block)
-            step = max(1, -(-I // 8))
-            outs = []
-            for s in range(0, I, step):
-                w = lod_windows_exact_tbl_native(
-                    chrom.genotypes[s:s + step], table, missing, winsize)
-                if w is None:
-                    outs = None
-                    break
-                outs.append(w)
-                bar.advance(min(step, I - s))
-            if outs is not None:
-                return np.concatenate(outs, axis=0)
-    except ImportError:
-        pass
-    terms = lod_terms(chrom.genotypes, chrom.freq, error)
+    if not use_gl:
+        # table-driven native kernel: same per-(genotype, locus) f64
+        # values, no [I, L] terms materialization
+        try:
+            from garlic_tpu.native import lod_windows_exact_tbl_native
+            table = lod_table(chrom.freq, error)
+            I = chrom.genotypes.shape[0]
+            if bar is None or I <= 1:
+                win = lod_windows_exact_tbl_native(chrom.genotypes, table,
+                                                   missing, winsize)
+                if win is not None:
+                    return win
+            else:
+                # tick as individuals complete: chunk the kernel over
+                # individual blocks (rows are independent; OpenMP still
+                # fans out within each block)
+                step = max(1, -(-I // 8))
+                outs = []
+                for s in range(0, I, step):
+                    w = lod_windows_exact_tbl_native(
+                        chrom.genotypes[s:s + step], table, missing, winsize)
+                    if w is None:
+                        outs = None
+                        break
+                    outs.append(w)
+                    bar.advance(min(step, I - s))
+                if outs is not None:
+                    return np.concatenate(outs, axis=0)
+        except ImportError:
+            pass
+    err = chrom.gl if use_gl else error
+    terms = lod_terms(chrom.genotypes, chrom.freq, err)
     win = lod_windows_exact(terms, missing, winsize)
     if bar is not None:
         bar.advance(chrom.genotypes.shape[0])

@@ -1,14 +1,16 @@
 """End-to-end ROH-calling pipeline of the port: the pinned-cutoff slice.
 
 Counterpart of garlic_tpu/pipeline.py for single-device unweighted TPED
-runs with a pinned --lod-cutoff and --size-bounds: load (with the
---tpu-panel-cache sidecar) -> allele frequencies -> monomorphic filter ->
-Phase I -> Phase III (coverage, tie patrol, run assembly) -> BED.  The
-.log lines and their order are the JAX package's, byte for byte.
+runs with a pinned --lod-cutoff and --size-bounds, with or without a
+--tgls per-genotype error file: load (with the --tpu-panel-cache
+sidecars) -> allele frequencies -> monomorphic filter -> Phase I ->
+Phase III (coverage, tie patrol, run assembly) -> BED.  The .log lines
+and their order are the JAX package's, byte for byte.
 
 Engines: `fast` runs Phase I on a CUDA device through the hand-written
 kernels (ops/cuda_lod.py: K2 fused with the coverage count on pinned
-runs, K1 for --raw-lod); `exact` is the shared f64 numpy/C++ engine.
+runs, K1 for --raw-lod; with --tgls, K4 fused for dictionary-form error
+planes and K3 otherwise); `exact` is the shared f64 numpy/C++ engine.
 Every other configuration exits 1 with one stderr line pointing to
 `python -m garlic_tpu`; nothing runs silently on another path.
 """
@@ -25,7 +27,7 @@ from garlic_tpu import cli
 from garlic_tpu.centromeres import Centromere
 from garlic_tpu.cli import CLIError, ParsedArgs
 from garlic_tpu.core.types import GarlicDataError
-from garlic_tpu.io import filters, freqfile, rawlod, tfam
+from garlic_tpu.io import filters, freqfile, rawlod, tfam, tgls
 from garlic_tpu.logger import RunLog
 from garlic_tpu.version import OUTPUT_COMPAT_VERSION
 
@@ -51,7 +53,6 @@ def _unported(args: ParsedArgs) -> Optional[str]:
     checks = [
         (args[cli.ARG_FREQ_ONLY], cli.ARG_FREQ_ONLY),
         (args[cli.ARG_WEIGHTED], cli.ARG_WEIGHTED),
-        (args[cli.ARG_TGLS] != cli.DEFAULT_TGLS, cli.ARG_TGLS),
         (args[cli.ARG_WINSIZE_MULTI][0] != cli.DEFAULT_WINSIZE_MULTI,
          cli.ARG_WINSIZE_MULTI),
         (args[cli.ARG_AUTO_WINSIZE], cli.ARG_AUTO_WINSIZE),
@@ -341,6 +342,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     thin = not args[cli.ARG_KDE_THINNING]
     log.log("Use thinning for KDE estimation:", thin)
 
+    use_gl = False
     seed = args[cli.ARG_SEED]
     rng = np.random.default_rng(None if seed < 0 else seed)
     from .runtime import PhaseProfiler
@@ -364,6 +366,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             if c.nind_global != num_ind:
                 log.err("ERROR: TPED and TFAM disagree on individual count.")
                 return 1
+
+        if tglsfile != cli.DEFAULT_TGLS:
+            tgls.read_tgls(tglsfile, ds.chroms, num_ind, gl_type, log,
+                           panel_cache=bool(args[cli.ARG_PANEL_CACHE]))
+            use_gl = True
     except (GarlicDataError, FileNotFoundError):
         # expected load failure: ERROR text already in .error (the
         # reference's catch(...) { return 1; }, src/garlic-main.cpp:210-242)
@@ -413,10 +420,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         # launch is enqueued during Phase I
         fused_args = (lod_cutoff,
                       assembly.overlap_threshold(overlap_frac, winsize),
-                      _tie_band(ds.chroms, winsize, error))
+                      _tie_band(ds.chroms, winsize, error, use_gl))
     try:
         win_by_chr = _calc_lod_windows(engine, device, ds, centro, winsize,
-                                       error, max_gap, fused, fused_args)
+                                       error, max_gap, use_gl, fused,
+                                       fused_args)
     except _NotPorted as e:
         print(_not_ported_msg(str(e)), file=sys.stderr)
         return 1
@@ -447,7 +455,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     # the exact engine's by construction (pipeline.py:800-835).
     tie_delta, exact_cover, exact_window = 0.0, None, None
     if engine == "fast":
-        tie_delta = _tie_band(ds.chroms, winsize, error)
+        tie_delta = _tie_band(ds.chroms, winsize, error, use_gl)
 
         def exact_cover(ci, rows):
             thr = assembly.overlap_threshold(overlap_frac, winsize)
@@ -457,7 +465,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             for s in range(0, rows.size, 64):
                 sub = _subset_chrom_rows(ds.chroms[ci], rows[s:s + 64])
                 w = lod_ops.calc_lod_windows(sub, centro, winsize, error,
-                                             max_gap)
+                                             max_gap, use_gl)
                 out.append(assembly.coverage_counts_batch(
                     w >= lod_cutoff, winsize) >= thr)
             return np.concatenate(out, axis=0) if out else \
@@ -465,7 +473,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
         def exact_window(ci, rows, wins, sides):
             return _exact_window_flips(ds.chroms[ci], rows, wins, sides,
-                                       winsize, error, lod_cutoff)
+                                       winsize, error, use_gl, lod_cutoff)
 
     roh_by_ind, lengths = assembly.assemble_roh(
         win_by_chr, ds.chroms, ds.ind_ids, centro, lod_cutoff, winsize,
@@ -489,13 +497,14 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
 # garlic_tpu/pipeline.py:936 for the slice's engines
 def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
-                      error: float, max_gap: int, fused: bool,
+                      error: float, max_gap: int, use_gl: bool, fused: bool,
                       fused_args=None):
     """calcLODWindows (src/garlic-roh.cpp:279-309).
 
-    fused: FusedCov entries for assembly (K2); fused_args = (cutoff,
-    threshold, tie_delta) launches each chromosome's K2 immediately.
-    The split fast path (K1) keeps every window matrix on the device;
+    fused: FusedCov entries for assembly (K2, or K4 for dictionary-form
+    TGLS); fused_args = (cutoff, threshold, tie_delta) enqueues each
+    chromosome's kernel immediately.  The split fast path (K1, or K3 for
+    TGLS) keeps every window matrix on the device;
     when they would exceed half the device-memory budget the JAX package
     streams them, which this port does not do yet.  The fused path holds
     no window matrix, so no estimate applies to it."""
@@ -518,7 +527,7 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
         bar = Bar(total=c.nloci)
         if engine == "fast" and fused:
             fc = device_win.FusedCov(c, centro, winsize, error, max_gap,
-                                     device)
+                                     device, use_gl)
             if fused_args is not None:
                 fc.handle = device_win.covered_dispatch(
                     fc, fused_args[0], winsize, fused_args[1],
@@ -527,68 +536,75 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
             bar.advance(c.nind)
         elif engine == "fast":
             out.append(device_win.lod_windows_device(
-                c, centro, winsize, error, max_gap, device))
+                c, centro, winsize, error, max_gap, device, use_gl))
             bar.advance(c.nind)
         else:
             out.append(lod_ops.calc_lod_windows(c, centro, winsize, error,
-                                                max_gap, bar=bar))
+                                                max_gap, use_gl, bar=bar))
         bar.finalize()
     return out
 
 
-# copy of garlic_tpu/pipeline.py:1030 (TGLS branch left out)
-def _tie_band(chroms, winsize: int, error: float) -> float:
+# copy of garlic_tpu/pipeline.py:1030
+def _tie_band(chroms, winsize: int, error: float, use_gl: bool) -> float:
     """Suspect half-width for the fast engine's tie patrol: a bound on
     |win_f32 - win_f64| for one window sum, 256 * eps32 * W * tmax
     (tmax = the largest |per-locus LOD term|).  The factor was calibrated
     on the TPU kernels; chip_smoke.py measures this port's ratio on the
-    card against it.
+    card against it, with and without TGLS errors.
 
     tmax comes from corner evaluation (O(L) min/max instead of a full
     f64 table build): every term is monotone in p and the heterozygote
-    term is exactly log10(e), so the extremes sit at min/max freq."""
+    term is exactly log10(e), so the extremes sit at (min/max freq) x
+    (min/max error)."""
     eps = 2.0 ** -23
     tmax = 1.0
     for c in chroms:
-        tmax = max(tmax, _corner_tmax(c, error))
+        tmax = max(tmax, _corner_tmax(c, error, use_gl))
     return 256.0 * eps * winsize * tmax
 
 
 _corner_tmax_cache = {}
 
 
-# copy of garlic_tpu/pipeline.py:1057 (TGLS branch left out)
-def _corner_tmax(c, error: float) -> float:
+# copy of garlic_tpu/pipeline.py:1057
+def _corner_tmax(c, error: float, use_gl: bool) -> float:
     """max |per-locus LOD term| bound for one chromosome by corner
     evaluation, memoized per freq array."""
-    key = (id(c.freq), float(error))
+    key = (id(c.freq), float(error), bool(use_gl))
     hit = _corner_tmax_cache.get(key)
     if hit is not None and hit[0] is c.freq:
         return hit[1]
-    tmax = _corner_tmax_compute(c, error)
+    tmax = _corner_tmax_compute(c, error, use_gl)
     if len(_corner_tmax_cache) >= 8:
         _corner_tmax_cache.pop(next(iter(_corner_tmax_cache)))
     _corner_tmax_cache[key] = (c.freq, tmax)
     return tmax
 
 
-# copy of garlic_tpu/pipeline.py:1075 (TGLS branch left out)
-def _corner_tmax_compute(c, error: float) -> float:
+# copy of garlic_tpu/pipeline.py:1075
+def _corner_tmax_compute(c, error: float, use_gl: bool) -> float:
     tmax = 1.0
     f = np.asarray(c.freq, dtype=np.float64)
     live = (f > 0) & (f < 1)
     if not live.any():
         return tmax
-    e = float(error)
+    if not use_gl:
+        es = (float(error),)
+    elif c.gl_codes is not None:
+        es = (float(np.min(c.gl_lut)), float(np.max(c.gl_lut)))
+    else:
+        es = (float(np.min(c.gl)), float(np.max(c.gl)))
     for p in (float(f[live].min()), float(f[live].max())):
-        for v in ((1.0 - e) / (1.0 - p) + e, e, (1.0 - e) / p + e):
-            tmax = max(tmax, abs(float(np.log10(v))))
+        for e in es:
+            for v in ((1.0 - e) / (1.0 - p) + e, e, (1.0 - e) / p + e):
+                tmax = max(tmax, abs(float(np.log10(v))))
     return tmax
 
 
-# copy of garlic_tpu/pipeline.py:1198 (TGLS branch left out)
+# copy of garlic_tpu/pipeline.py:1198
 def _exact_window_flips(c, rows, wins, sides, winsize: int, error: float,
-                        cutoff: float) -> np.ndarray:
+                        use_gl: bool, cutoff: float) -> np.ndarray:
     """Per suspect (row, window): does the f64 'window >= cutoff'
     decision FLIP versus the device's f32 one (`sides`)?  The tie
     patrol's cheap verification stage — ~winsize-term fresh f64 sums.
@@ -599,7 +615,7 @@ def _exact_window_flips(c, rows, wins, sides, winsize: int, error: float,
     within that drift bound of the cutoff is reported as flipped, which
     routes its row to the full exact rolling recomputation."""
     nwin = max(c.positions.shape[0] - winsize + 1, 1)
-    tmax = _corner_tmax(c, error)
+    tmax = _corner_tmax(c, error, use_gl)
     esc = max(1e-9, 4.0 * nwin * 2.0 ** -52 * (winsize + 1) * tmax)
     rows = np.asarray(rows, dtype=np.int64)
     wins = np.asarray(wins, dtype=np.int64)
@@ -608,8 +624,14 @@ def _exact_window_flips(c, rows, wins, sides, winsize: int, error: float,
     # sequential left-to-right f64 sum
     gv = _geno_windows_batch(c, rows, wins, W)
     cols = wins[:, None] + np.arange(W)
+    if use_gl and c.gl_codes is not None:
+        e = c.gl_lut[c.gl_codes[rows[:, None], cols]]
+    elif use_gl:
+        e = np.asarray(c.gl, dtype=np.float64)[rows[:, None], cols]
+    else:
+        e = error
     fv = c.freq[cols]
-    terms = lod_ops.lod_terms(gv, fv, error)
+    terms = lod_ops.lod_terms(gv, fv, e)
     s = np.cumsum(terms, axis=1, dtype=np.float64)[:, -1]
     unsure = np.abs(s - cutoff) < esc
     return unsure | ((s >= cutoff) != np.asarray(sides).astype(bool))

@@ -18,7 +18,8 @@ import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from util import diff_logs, make_panel, read_text, write_tped  # noqa: E402
+from util import (diff_logs, make_panel, read_text, write_tgls,  # noqa: E402
+                  write_tped)
 
 from garlic_tpu_torch.ops import cuda_lod  # noqa: E402
 from garlic_tpu_torch.pipeline import run_main as port_main  # noqa: E402
@@ -163,9 +164,12 @@ def test_raw_lod_matches_garlic_tpu(panel_dir):
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """The port imports and runs with every `jax` import refused."""
+    """The port imports and runs with every `jax` import refused, with
+    and without a --tgls error file (whose reader and .gtlc sidecar come
+    from garlic_tpu)."""
     panel = make_panel(nind=12, nloci_per_chr=(900, 700), seed=5)
     write_tped(panel, str(tmp_path / "t.tped.gz"), str(tmp_path / "t.tfam"))
+    write_tgls(panel, str(tmp_path / "t.tgls.gz"), gl_type="GQ")
     script = (
         "import sys\n"
         "class B:\n"
@@ -179,10 +183,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "        'hg18', '--winsize', '30', '--error', '0.001',\n"
         "        '--lod-cutoff', '1.0', '--size-bounds', '100000',\n"
         "        '--tpu-panel-cache']\n"
+        "tgls = ['--tgls', 't.tgls.gz', '--gl-type', 'GQ']\n"
         "for eng in ('fast', 'exact'):\n"
-        "    rc = run_main(base + ['--tpu-engine', eng, '--out', eng],\n"
-        "                  device='cpu')\n"
-        "    assert rc == 0, (eng, rc)\n"
+        "    for extra, out in (([], eng), (tgls, 'gl_' + eng)):\n"
+        "        rc = run_main(base + extra + ['--tpu-engine', eng,\n"
+        "                                      '--out', out], device='cpu')\n"
+        "        assert rc == 0, (out, rc)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
@@ -192,6 +198,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert r.stdout.strip().endswith("ok")
     assert (tmp_path / "fast.roh.bed").read_text() == \
         (tmp_path / "exact.roh.bed").read_text()
+    assert (tmp_path / "gl_fast.roh.bed").read_text() == \
+        (tmp_path / "gl_exact.roh.bed").read_text()
+    assert (tmp_path / "t.tgls.gz.gtlc").exists()
 
 
 def test_fast_engine_without_cuda_exits_nonzero(panel_dir, monkeypatch,
@@ -214,7 +223,7 @@ def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
 
 @pytest.mark.parametrize("extra,drop,names", [
     (["--weighted", "--map", "m.gz"], [], "--weighted"),
-    (["--tgls", "x.tgls"], [], "--tgls"),
+    (["--tgls", "x.tgls", "--weighted", "--map", "m.gz"], [], "--weighted"),
     (["--freq-only"], [], "--freq-only"),
     (["--auto-winsize"], [], "--auto-winsize"),
     (["--winsize-multi", "30", "40"], [], "--winsize-multi"),
