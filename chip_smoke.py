@@ -39,7 +39,26 @@ Phases (any failure raises and exits non-zero, printing no result):
    - on the small panel, a GL TGLS file (1,000 distinct values: the f64
      matrix form), pinned, fast against exact: BED identical, K3 run;
      and the GQ file with --raw-lod: BED identical, raw values as above,
-     K3 run.
+     K3 run;
+5. auto path: the reference's default run, no --lod-cutoff and no
+   --size-bounds (the cutoff from the KDE, the bounds from the GMM):
+   - bench.py's panel (a fresh TPED name), fast engine cold (the exact
+     Phase-II pool computed and stored next to the sidecar), warm (the
+     pool read back: the sampler is not called) and the exact engine:
+     .roh.bed byte-identical, .freq.gz equal, .log equal after line 1,
+     the .kde x column byte-identical and y within 1e-5 * max y of the
+     exact engine's; K1 run for every chromosome of each fast run (the
+     split path), K2 never;
+   - the device EM against the host EM (the same iterations and %g
+     lines) on the run's ROH lengths, or on a synthetic >= 4096 mixture
+     when the run calls fewer;
+   - medians on the card: the pool's upload, the device Gauss transform
+     against the host f64 one, fit_gmm_device against fit_gmm;
+   - on the 50 x (100k, 100k) panel, fast against exact: --auto-winsize
+     from 40 by 20 (the same window size, BED identical, every .kde's x
+     column identical) and --winsize-multi 40 60 80 (the same .kde
+     files, x identical).
+Every run prints its --tpu-profile phase split.
 
 The line before the last is {"kernels": [...]} (launches summed over the
 main path's runs), the last line {"ok": true, "device": {...}}.  The
@@ -49,10 +68,12 @@ build/chip_smoke/, removed at the end.
 
 from __future__ import annotations
 
+import glob
 import gzip
 import json
 import math
 import os
+import re
 import runpy
 import shutil
 import statistics
@@ -75,6 +96,13 @@ FLAGS = ["--build", "hg18", "--winsize", "60", "--error", "0.001",
 ERROR, MAX_GAP, OVERLAP_FRAC = 0.001, 200000, 0.25  # the flags' values
 HG18_CHR1_CENTROMERE = (121236957, 123476957)
 TIE_BAND_FACTOR = 256.0
+# the automatic run: no --lod-cutoff, no --size-bounds
+AUTO_FLAGS = ["--build", "hg18", "--winsize", "60", "--error", "0.001",
+              "--kde-subsample", "0", "--tpu-panel-cache", "--tpu-profile"]
+SEARCH_FLAGS = ["--build", "hg18", "--error", "0.001", "--kde-subsample",
+                "0", "--tpu-profile"]
+Y_TOL = 1e-5  # max |dy| / max y of the .kde, fast engine against exact
+GMM_GATE = 4096  # the device EM's size gate (ops/gmm.py)
 SOURCE = "garlic_tpu_torch/csrc/lod_windows.cu"
 KERNELS = {"lod_windows": "garlic_tpu/ops/pallas_lod.py:93",
            "covered": "garlic_tpu/ops/pallas_lod.py:291",
@@ -137,6 +165,18 @@ class _Centro:
 
     def end(self, chrom):
         return self._e
+
+
+def _median_wall_ms(fn, n):
+    """Median host-clock time of fn() (which returns host data, so it has
+    synchronized), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def _median_ms(fn, n=21):
@@ -329,11 +369,32 @@ def phase_tie_band(chrom, centro):
     return ratios
 
 
+class _Tee:
+    """sys.stderr during a run: written through, and kept so the
+    --tpu-profile lines can be read back."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+    def profile(self):
+        return re.findall(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s",
+                          "".join(self.parts), flags=re.M)
+
+
 def _run_port(argv, label):
-    """One `python -m garlic_tpu_torch` run, in this process."""
+    """One `python -m garlic_tpu_torch` run, in this process; prints its
+    --tpu-profile phase split."""
     import torch
-    saved = sys.argv
+    saved, saved_err = sys.argv, sys.stderr
     sys.argv = ["garlic_tpu_torch"] + argv
+    tee = sys.stderr = _Tee(saved_err)
     t0 = time.perf_counter()
     rc = 0
     try:
@@ -342,10 +403,13 @@ def _run_port(argv, label):
     except SystemExit as e:
         rc = e.code
     finally:
-        sys.argv = saved
+        sys.argv, sys.stderr = saved, saved_err
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     say(f"  {label}: exit {rc}, wall {wall:.3f}s")
+    split = tee.profile()
+    if split:
+        say("    profile (s): " + ", ".join(f"{k} {v}" for k, v in split))
     if rc != 0:
         raise AssertionError(f"{label} exited {rc}")
     return wall
@@ -398,7 +462,7 @@ class _MainPath:
         self.walls = {}
         self.launches = dict.fromkeys(KERNELS, 0)
 
-    def run(self, argv, label, kernel=None, at_least=0):
+    def run(self, argv, label, kernel=None, at_least=0, absent=None):
         from garlic_tpu_torch.ops import cuda_lod
         for k in cuda_lod.LAUNCHES:
             cuda_lod.LAUNCHES[k] = 0
@@ -411,6 +475,9 @@ class _MainPath:
         if kernel is not None and got[kernel] < at_least:
             raise AssertionError(f"{label}: {kernel} ran {got[kernel]} "
                                  f"times, expected >= {at_least}")
+        if absent is not None and got[absent]:
+            raise AssertionError(f"{label}: {absent} ran {got[absent]} "
+                                 "times, expected none")
 
     @staticmethod
     def out(label):
@@ -430,6 +497,55 @@ class _MainPath:
             f"{len(bed.splitlines()) - bed.count(b'track')} ROH); "
             ".freq.gz equal")
 
+    def log_lines(self, label):
+        """.log after its first line, the output basename normalized."""
+        text = _read(self.out(label) + ".log").decode()
+        return [line.replace(label, "BASE")
+                for line in text.splitlines()[1:]]
+
+    def same_log(self, labels, ref):
+        want = self.log_lines(ref)
+        for k in labels:
+            if self.log_lines(k) != want:
+                raise AssertionError(f"{k}.log differs from {ref}'s")
+        say(f"  .log equal after line 1 across {', '.join(labels)} and "
+            f"{ref}")
+
+    def kde_files(self, label):
+        base = self.out(label)
+        return sorted(p[len(base):] for p in glob.glob(base + ".*SNPs.kde"))
+
+    def same_kde(self, labels, ref, y_tol=None):
+        """Every .kde: x byte-identical; y within y_tol * max y."""
+        sfx = self.kde_files(ref)
+        if not sfx:
+            raise AssertionError(f"{ref} wrote no .kde")
+        for k in labels:
+            if self.kde_files(k) != sfx:
+                raise AssertionError(f"{k}: .kde files {self.kde_files(k)}"
+                                     f" against {sfx}")
+            for s in sfx:
+                a = [r.split() for r in
+                     _read(self.out(ref) + s).decode().splitlines()]
+                b = [r.split() for r in
+                     _read(self.out(k) + s).decode().splitlines()]
+                if [r[0] for r in a] != [r[0] for r in b]:
+                    raise AssertionError(f"{k}{s}: x column differs")
+                ya = np.array([float(r[1]) for r in a])
+                yb = np.array([float(r[1]) for r in b])
+                rel = float(np.abs(ya - yb).max() / ya.max())
+                say(f"  {k}{s}: x byte-identical to {ref}'s, max |dy| = "
+                    f"{rel:.3g} * max y")
+                if y_tol is not None and rel > y_tol:
+                    raise AssertionError(f"{k}{s}: y differs by {rel:.3g}"
+                                         f" * max y > {y_tol:g}")
+
+    def logged(self, label, pattern):
+        m = re.search(pattern, _read(self.out(label) + ".log").decode())
+        if m is None:
+            raise AssertionError(f"{label}.log has no {pattern!r}")
+        return m.group(1)
+
     def raw_close(self, fast, exact, chroms):
         vf = _raw_values(self.out(fast), chroms)
         vx = _raw_values(self.out(exact), chroms)
@@ -443,10 +559,9 @@ class _MainPath:
             f"of {exact}'s (max |diff| {np.abs(vf[m] - vx[m]).max():.3g})")
 
 
-def phase_main_path(panel):
+def phase_main_path(panel, mp):
     from tests.util import make_panel, write_tped
     say("== phase 4: main path (python -m garlic_tpu_torch)")
-    mp = _MainPath()
     tped = os.path.join(WORK, "bench.tped.gz")
     tfam = os.path.join(WORK, "bench.tfam")
     t0 = time.perf_counter()
@@ -508,8 +623,145 @@ def phase_main_path(panel):
                nchrom if engine == "fast" else 0)
     mp.same(("tgls_rawlod_fast",), "tgls_rawlod_exact")
     mp.raw_close("tgls_rawlod_fast", "tgls_rawlod_exact", snames)
-    say(f"  launches over the main path's runs: {mp.launches}")
-    return mp.walls, mp.launches
+    return (tped, tfam), (stped, stfam)
+
+
+def _gmm_init(x, k=3):
+    """selectSizeClasses' initial parameters (ops/gmm.py)."""
+    var, mean = float(np.var(x, ddof=1)), float(np.mean(x))
+    return (np.full(k, 1.0 / k),
+            np.array([mean * (n + 1) / (k + 1) for n in range(k)]),
+            np.array([var * (n + 1) / k for n in range(k)]))
+
+
+def _check_em(x, what):
+    """fit_gmm_device on the card against the host EM: the same
+    iterations and the same %g-printed parameters."""
+    from garlic_tpu.core.fmt import g
+    from garlic_tpu.ops import gmm as gt_gmm
+    from garlic_tpu_torch.ops import gmm
+    init = _gmm_init(x)
+    dev = gmm.fit_gmm_device(x, 3, *init, "cuda")
+    host = gt_gmm.fit_gmm(x, 3, *init)
+    fmt = [[g(float(v)) for v in r.weights] + [g(float(v)) for v in r.means]
+           + [g(float(v)) for v in r.variances] for r in (dev, host)]
+    say(f"  device EM on {what} ({x.size} lengths): {dev.iterations} "
+        f"iterations (host {host.iterations}); %g parameters "
+        f"{'equal' if fmt[0] == fmt[1] else 'DIFFER'}")
+    if dev.iterations != host.iterations or fmt[0] != fmt[1]:
+        raise AssertionError(f"device EM differs from the host EM on {what}")
+
+
+def phase_auto_path(mp, bench_files, small_files, nchrom):
+    import torch
+    from garlic_tpu.ops import gmm as gt_gmm
+    from garlic_tpu.ops import kde as gt_kde
+    from garlic_tpu_torch import pipeline
+    from garlic_tpu_torch.ops import gmm, kde
+    say("== phase 5: auto path (no --lod-cutoff, no --size-bounds)")
+    tped, tfam = bench_files
+    atped = os.path.join(WORK, "auto.tped.gz")
+    shutil.copy(tped, atped)  # a fresh name: the cold run parses
+    base = ["--tped", atped, "--tfam", tfam] + AUTO_FLAGS
+    pools, fits = [], []
+    sampler = pipeline._exact_thinned_samples
+    select = gmm.select_size_classes
+
+    def counting_sampler(*a, **k):
+        pools.append(sampler(*a, **k))
+        return pools[-1]
+
+    def recording_select(lengths, nclust, log=None, device=None):
+        fits.append((np.array(lengths, dtype=np.float64), device))
+        return select(lengths, nclust, log, device=device)
+
+    pipeline._exact_thinned_samples = counting_sampler
+    gmm.select_size_classes = recording_select
+    try:
+        for label, engine, calls in (("auto_fast_cold", "fast", 1),
+                                     ("auto_fast_warm", "fast", 0),
+                                     ("auto_exact", "exact", 0)):
+            n0 = len(pools)
+            mp.run(base + ["--tpu-engine", engine], label, "lod_windows",
+                   nchrom if engine == "fast" else 0, absent="covered")
+            say(f"    exact sampler calls: {len(pools) - n0}")
+            if len(pools) - n0 != calls:
+                raise AssertionError(f"{label}: the exact sampler ran "
+                                     f"{len(pools) - n0} times, expected "
+                                     f"{calls}")
+    finally:
+        pipeline._exact_thinned_samples = sampler
+        gmm.select_size_classes = select
+    fast = ("auto_fast_cold", "auto_fast_warm")
+    mp.same(fast, "auto_exact")
+    mp.same_log(fast, "auto_exact")
+    mp.same_kde(fast, "auto_exact", Y_TOL)
+    lengths = fits[0][0]
+    cutoff = mp.logged("auto_exact", r"Selected LOD score cutoff: (.*)")
+    bounds = mp.logged("auto_exact", r"boundaries = \((.*)\)")
+    say(f"  selected LOD score cutoff {cutoff}, size bounds ({bounds}), "
+        f"{lengths.size} ROH; GMM devices per run "
+        f"{[str(d) for _, d in fits]}")
+    if lengths.size >= GMM_GATE:
+        _check_em(lengths, "the run's ROH lengths")
+    else:
+        rng = np.random.default_rng(404)  # tests/test_phase24.py:243-247
+        _check_em(np.concatenate([
+            rng.normal(2.2e5, 5e4, 2500), rng.normal(8.5e5, 1.8e5, 1800),
+            rng.normal(2.6e6, 6e5, 900)]).clip(1e4, None),
+            f"a synthetic mixture (the run's {lengths.size} ROH are below "
+            f"the {GMM_GATE} gate)")
+
+    pool = pools[0]
+    h, targets, _ = gt_kde._kde_grid(pool)
+    f32 = pool.astype(np.float32)
+    y_dev = kde.gauss_transform(pool, targets, h, "cuda")
+    y_host = gt_kde.gauss_transform(pool, targets, h, device=False)
+    init = _gmm_init(lengths)
+    times = {
+        "pool H2D (f32)": _median_ms(
+            lambda: torch.from_numpy(f32).to("cuda"), n=11),
+        "device Gauss transform": _median_wall_ms(
+            lambda: kde.gauss_transform(pool, targets, h, "cuda"), n=7),
+        "host f64 Gauss transform": _median_wall_ms(
+            lambda: gt_kde.gauss_transform(pool, targets, h, device=False),
+            n=3),
+        "fit_gmm_device": _median_wall_ms(
+            lambda: gmm.fit_gmm_device(lengths, 3, *init, "cuda"), n=7),
+        "fit_gmm (host)": _median_wall_ms(
+            lambda: gt_gmm.fit_gmm(lengths, 3, *init), n=7),
+    }
+    say(f"  pool: {pool.size} samples, {pool.nbytes / 1e6:.1f} MB f64; "
+        f"device transform against host: max |dy| = "
+        f"{np.abs(y_dev - y_host).max() / y_host.max():.3g} * max y")
+    for k, v in times.items():
+        say(f"  {k}: {v:.3f} ms (median)")
+
+    stped, stfam = small_files
+    sbase = ["--tped", stped, "--tfam", stfam] + SEARCH_FLAGS
+    search = ["--winsize", "40", "--auto-winsize", "--auto-winsize-step",
+              "20"]
+    for label, engine in (("search_fast", "fast"), ("search_exact",
+                                                    "exact")):
+        mp.run(sbase + search + ["--tpu-engine", engine], label,
+               "lod_windows", nchrom if engine == "fast" else 0,
+               absent="covered")
+    ws = [mp.logged(k, r"Selected window size: (\d+)")
+          for k in ("search_fast", "search_exact")]
+    say(f"  selected window size: fast {ws[0]}, exact {ws[1]}")
+    if ws[0] != ws[1]:
+        raise AssertionError(f"the window size searches differ: {ws}")
+    mp.same(("search_fast",), "search_exact")
+    mp.same_kde(("search_fast",), "search_exact")
+    for label, engine in (("explore_fast", "fast"), ("explore_exact",
+                                                     "exact")):
+        mp.run(sbase + ["--winsize-multi", "40", "60", "80", "--tpu-engine",
+                        engine], label)
+    if len(mp.kde_files("explore_exact")) != 3:
+        raise AssertionError("--winsize-multi 40 60 80 wrote "
+                             f"{mp.kde_files('explore_exact')}")
+    mp.same_kde(("explore_fast",), "explore_exact")
+    return times
 
 
 def main() -> int:
@@ -535,9 +787,14 @@ def main() -> int:
         err, times = phase_kernels(chrom, centro)
         phase_tie_band(chrom, centro)
         del chrom
-        walls, launches = phase_main_path(panel)
+        mp = _MainPath()
+        bench_files, small_files = phase_main_path(panel, mp)
+        phase_auto_path(mp, bench_files, small_files,
+                        len(panel.chrom_names))
+        say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
-                                         for k, v in walls.items()))
+                                         for k, v in mp.walls.items()))
+        launches = mp.launches
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,

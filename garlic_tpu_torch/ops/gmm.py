@@ -1,0 +1,131 @@
+"""Phase IV: the size classes from a Gaussian mixture fitted by EM.
+
+Counterpart of garlic_tpu/ops/gmm.py.  The host EM (fit_gmm), GMMResult,
+the %g guard (_g_format_stable) and the boundary root finder are
+garlic_tpu's own JAX-free code; what moves to the device is the EM loop
+that garlic_tpu runs as an f64 lax.while_loop on a 1x1 mesh
+(fit_gmm_sharded, parallel/engine.py:309-443), here an f64 torch loop.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+
+import numpy as np
+import torch
+
+from garlic_tpu.ops.gmm import GMMResult, _g_format_stable, fit_gmm
+
+_LOG2PI_C = -0.5 * math.log(2.0 * math.pi)
+
+
+def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
+              var: torch.Tensor) -> torch.Tensor:
+    """One E-step, packed [s0 (K), s1 (K), s2 (K), loglik]: GMM::update's
+    math (src/gmm.cpp:276-331) in the op order of
+    garlic_tpu.ops.gmm.gmm_sufficient_stats.  All four are sums over the
+    points, so a caller holding a shard of x sums the packed vector over
+    its shards (one all-reduce) and gets the whole panel's statistics."""
+    lw = torch.log(w)[None, :]
+    lv = torch.log(var)[None, :]
+    d = x[:, None] - mu[None, :]
+    logp = lw + (_LOG2PI_C - 0.5 * lv - (d * d) / (2.0 * var[None, :]))
+    lmax = logp.max(dim=1, keepdim=True).values
+    tmp = lmax[:, 0] + torch.log(torch.exp(logp - lmax).sum(dim=1))
+    resp = torch.exp(logp - tmp[:, None])
+    r = resp / resp.sum(dim=1, keepdim=True)
+    return torch.cat([r.sum(dim=0), (x[:, None] * r).sum(dim=0),
+                      ((x * x)[:, None] * r).sum(dim=0), tmp.sum()[None]])
+
+
+def fit_gmm_device(x: np.ndarray, k: int, w0: np.ndarray, mu0: np.ndarray,
+                   var0: np.ndarray, device, max_iter: int = 1000,
+                   precision: float = 1e-5) -> GMMResult:
+    """GMM-EM in f64 on `device`: the single-device body of
+    fit_gmm_sharded (parallel/engine.py:344-443).
+
+    Each iteration is one fused E+M pass and one host read (the
+    log-likelihood and a finiteness flag of the new parameters); the
+    loop stops on |ll - last_ll| <= precision (conv), on non-finite
+    parameters (bad, raised below) or at max_iter, and last_ll keeps its
+    value on the iteration that stops, as the while_loop's carry does.
+    Agrees with fit_gmm up to the order of the f64 sums."""
+    dev = torch.device(device)
+    xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64)).to(dev)
+    n = xd.shape[0]
+    w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(dev)
+                  for a in (w0, mu0, var0))
+    last_ll = ll = -np.finfo(np.float64).max
+    it, done = 0, False
+    while not done and it < max_iter:
+        s = _em_stats(xd, w, mu, var)
+        s0, s1, s2 = s[:k], s[k:2 * k], s[2 * k:3 * k]
+        w, mu = s0 / float(n), s1 / s0
+        var = s2 / s0 - mu * mu
+        finite = torch.isfinite(mu).all() & torch.isfinite(var).all()
+        ll, ok = torch.stack([s[3 * k], finite.to(torch.float64)]).tolist()
+        conv = abs(ll - last_ll) <= precision
+        done = conv or not ok
+        if not done:
+            last_ll = ll
+        it += 1
+    w, mu, var = (a.cpu().numpy() for a in (w, mu, var))
+    if not (np.all(np.isfinite(mu)) and np.all(np.isfinite(var))):
+        raise FloatingPointError(
+            "GMM component collapsed (non-finite parameters)")
+    bic = -2.0 * ll + (3.0 * k - 1) * np.log(n)
+    return GMMResult(weights=w, means=mu, variances=var, loglikelihood=ll,
+                     bic=float(bic), converged=done, iterations=it)
+
+
+# copy of garlic_tpu/ops/gmm.py:127 with the device EM of fit_gmm_device
+def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
+                        device=None):
+    """selectSizeClasses (src/garlic-roh.cpp:935-1003): fit the GMM, sort
+    the components by mean, log their parameters, then root-find the K-1
+    pairwise Gaussian intersections as the size-class boundaries.
+
+    device: the fast engine's torch device; at >= 4096 ROH the EM runs
+    there (fit_gmm_device), and a fit with a logged parameter near a %g
+    rounding boundary is rerun on the host (_g_format_stable), so the
+    .log lines equal the host fit's.  None, or fewer ROH: the host EM."""
+    from garlic_tpu.ops.brent import find_boundary
+    lengths = np.asarray(lengths, dtype=np.float64)
+    var = float(np.var(lengths, ddof=1))
+    mean = float(np.mean(lengths))
+    k = nclust
+    w0 = np.full(k, 1.0 / k)
+    mu0 = np.array([mean * (n + 1) / (k + 1) for n in range(k)])
+    var0 = np.array([var * (n + 1) / k for n in range(k)])
+    if device is not None and lengths.shape[0] >= 4096:
+        print(f"Begin GMM estimation with k = {k} Gaussians...",
+              file=sys.stderr)
+        res = fit_gmm_device(lengths, k, w0, mu0, var0, device,
+                             max_iter=1000, precision=1e-5)
+        if not _g_format_stable(res):
+            res = fit_gmm(lengths, k, w0, mu0, var0, max_iter=1000,
+                          precision=1e-5, verbose=False)
+    else:
+        res = fit_gmm(lengths, k, w0, mu0, var0, max_iter=1000,
+                      precision=1e-5, verbose=True)
+    order = np.argsort(res.means, kind="stable")
+    size_class = "A"
+    for i in range(k):
+        j = order[i]
+        if log is not None:
+            log.log("Gaussian class", size_class, nl=False)
+            log.log(" ( mixture, mean, std ) = (", float(res.weights[j]),
+                    nl=False)
+            log.log(",", float(res.means[j]), nl=False)
+            log.log(",", float(res.variances[j]), nl=False)
+            log.log(" )")
+        size_class = chr(ord(size_class) + 1)
+    bounds = []
+    for i in range(1, k):
+        a, b = order[i - 1], order[i]
+        bounds.append(find_boundary(
+            res.means[a], res.variances[a], res.weights[a],
+            res.means[b], res.variances[b], res.weights[b],
+            max_iter=1000, epsabs=1e-4))
+    return bounds, res

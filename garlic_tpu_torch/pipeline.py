@@ -1,24 +1,32 @@
-"""End-to-end ROH-calling pipeline of the port: the pinned-cutoff slice.
+"""End-to-end ROH-calling pipeline of the port.
 
 Counterpart of garlic_tpu/pipeline.py for single-device unweighted TPED
-runs with a pinned --lod-cutoff and --size-bounds, with or without a
---tgls per-genotype error file: load (with the --tpu-panel-cache
-sidecars) -> allele frequencies -> monomorphic filter -> Phase I ->
-Phase III (coverage, tie patrol, run assembly) -> BED.  The .log lines
-and their order are the JAX package's, byte for byte.
+runs, with or without a --tgls per-genotype error file: load (with the
+--tpu-panel-cache sidecars) -> allele frequencies -> monomorphic filter
+-> window size (pinned, --auto-winsize or --winsize-multi) -> Phase I ->
+Phase II (pinned or automatic LOD cutoff) -> Phase III (coverage, tie
+patrol, run assembly) -> Phase IV (pinned or automatic size bounds) ->
+BED; also --freq-only.  The .log lines and their order are the JAX
+package's, byte for byte.
 
 Engines: `fast` runs Phase I on a CUDA device through the hand-written
 kernels (ops/cuda_lod.py: K2 fused with the coverage count on pinned
-runs, K1 for --raw-lod; with --tgls, K4 fused for dictionary-form error
-planes and K3 otherwise); `exact` is the shared f64 numpy/C++ engine.
-Every other configuration exits 1 with one stderr line pointing to
-`python -m garlic_tpu`; nothing runs silently on another path.
+runs, K1 on automatic-cutoff runs and for --raw-lod; with --tgls, K4
+fused for dictionary-form error planes and K3 otherwise), and the KDE's
+Gauss transform and the GMM's EM on the same device (ops/kde.py,
+ops/gmm.py); `exact` is the shared f64 numpy/C++ engine.  Phase II pools
+the exact engine's f64 windows on both engines (the fast engine through
+_exact_thinned_samples and the pool cache), so the .kde x column is the
+same on both.  Every other configuration exits 1 with one stderr line
+pointing to `python -m garlic_tpu`; nothing runs silently on another
+path.
 """
 
 from __future__ import annotations
 
 import os
 import sys
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
@@ -27,13 +35,18 @@ from garlic_tpu import cli
 from garlic_tpu.centromeres import Centromere
 from garlic_tpu.cli import CLIError, ParsedArgs
 from garlic_tpu.core.types import GarlicDataError
-from garlic_tpu.io import filters, freqfile, rawlod, tfam, tgls
+from garlic_tpu.io import filters, freqfile, kdefile, rawlod, tfam, tgls
+from garlic_tpu.io import tped as gt_tped
 from garlic_tpu.logger import RunLog
+from garlic_tpu.ops import convert, cutoff as cutoff_ops, density
+from garlic_tpu.ops import wiggle as wiggle_ops
 from garlic_tpu.version import OUTPUT_COMPAT_VERSION
 
 from .io import bed, tped
-from .ops import assembly, device_win
+from .ops import assembly, device_win, gmm, kde
 from .ops import lod as lod_ops
+
+AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
 
 _MULTIHOST_ENV = ("GARLIC_TPU_COORD", "GARLIC_TPU_NUM_PROCS",
                   "GARLIC_TPU_PROC_ID")
@@ -49,21 +62,12 @@ def _not_ported_msg(what: str) -> str:
 
 
 def _unported(args: ParsedArgs) -> Optional[str]:
-    """The first requested configuration outside the slice, or None."""
+    """The first requested configuration outside the port, or None."""
     checks = [
-        (args[cli.ARG_FREQ_ONLY], cli.ARG_FREQ_ONLY),
         (args[cli.ARG_WEIGHTED], cli.ARG_WEIGHTED),
-        (args[cli.ARG_WINSIZE_MULTI][0] != cli.DEFAULT_WINSIZE_MULTI,
-         cli.ARG_WINSIZE_MULTI),
-        (args[cli.ARG_AUTO_WINSIZE], cli.ARG_AUTO_WINSIZE),
-        (cli.check_auto_cutoff(args[cli.ARG_LOD_CUTOFF]),
-         f"the automatic LOD cutoff (no {cli.ARG_LOD_CUTOFF})"),
-        (list(args[cli.ARG_BOUND_SIZE]) == [cli.DEFAULT_BOUND_SIZE],
-         f"automatic size bounds (no {cli.ARG_BOUND_SIZE})"),
         (args[cli.ARG_MESH] not in ("none", "", "1", "1x1"), cli.ARG_MESH),
         (args[cli.ARG_CM], cli.ARG_CM),
         (args[cli.ARG_PHASED], cli.ARG_PHASED),
-        (args[cli.ARG_AUTO_OVERLAP_FRAC], cli.ARG_AUTO_OVERLAP_FRAC),
         (any(os.environ.get(v) for v in _MULTIHOST_ENV),
          "a multi-host run (" + "/".join(_MULTIHOST_ENV) + ")"),
     ]
@@ -126,6 +130,23 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
         log.close()
 
 
+# garlic_tpu/pipeline.py:36 (PipelineState) for one process
+@dataclass
+class _PhaseII:
+    """What Phase II reads besides the window matrices."""
+    log: RunLog
+    rng: np.random.Generator
+    engine: str
+    device: object = None  # the fast engine's torch device
+    # (winsize, step, rows) -> the exact f64 pooled samples; set on fast
+    # runs, so the bandwidth, the grid and the .kde x column are the
+    # exact engine's
+    exact_sampler: object = None
+    # io.poolcache.PoolCache next to the --tpu-panel-cache sidecar, or
+    # None (no sidecar, or --resample)
+    pool_cache: object = None
+
+
 # copy of garlic_tpu/pipeline.py:121
 class _FreqWriter:
     """Background .freq.gz writer overlapping Phase I (the reference writes
@@ -173,7 +194,7 @@ def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     return rc
 
 
-# garlic_tpu/pipeline.py:171-930 restricted to the slice (configurations
+# garlic_tpu/pipeline.py:171-930 restricted to the port (configurations
 # outside it were refused by _unported); the validation and .log lines are
 # kept verbatim so the .log matches the JAX package's
 def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
@@ -248,6 +269,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     if argerr:
         return -1
     log.log("Explore window sizes:", winsize_explore)
+    if winsize_explore:
+        log.logv("User defined window sizes:", multi_winsizes)
 
     auto_winsize = args[cli.ARG_AUTO_WINSIZE]
     log.log("Automatic window size:", auto_winsize)
@@ -263,19 +286,23 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
                                          auto_winsize, weighted)
     if argerr:
         return -1
-    log.log("User defined window size:", winsize)
+    if not winsize_explore and not auto_winsize:
+        log.log("User defined window size:", winsize)
 
     lod_cutoff = args[cli.ARG_LOD_CUTOFF]
-    log.log("Choose LOD score cutoff automatically:", False)
-    log.log("User defined LOD score cutoff:", lod_cutoff)
+    auto_cutoff = cli.check_auto_cutoff(lod_cutoff)
+    log.log("Choose LOD score cutoff automatically:", auto_cutoff)
+    if not auto_cutoff:
+        log.log("User defined LOD score cutoff:", lod_cutoff)
 
     bound_sizes = list(args[cli.ARG_BOUND_SIZE])
-    err_flag, _ = cli.check_bound_sizes(log, bound_sizes)
+    err_flag, auto_bounds = cli.check_bound_sizes(log, bound_sizes)
     argerr = argerr or err_flag
     if argerr:
         return -1
-    log.log("Choose ROH class thresholds automatically:", False)
-    log.logv("User defined ROH class thresholds:", bound_sizes)
+    log.log("Choose ROH class thresholds automatically:", auto_bounds)
+    if not auto_bounds:
+        log.logv("User defined ROH class thresholds:", bound_sizes)
 
     num_threads = args[cli.ARG_THREADS]
     argerr = argerr or cli.check_threads(log, num_threads)
@@ -299,7 +326,10 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     argerr = argerr or cli.check_overlap_frac(log, overlap_frac)
     if argerr:
         return -1
-    if overlap_frac != 0:
+    auto_overlap_frac = args[cli.ARG_AUTO_OVERLAP_FRAC]
+    if auto_overlap_frac:
+        log.log("Overlap fraction: automatic")
+    elif overlap_frac != 0:
         log.log("Overlap fraction:", overlap_frac)
     else:
         log.log("Overlap fraction: 1/winsize")
@@ -347,6 +377,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     rng = np.random.default_rng(None if seed < 0 else seed)
     from .runtime import PhaseProfiler
     prof = PhaseProfiler(args[cli.ARG_PROFILE], device)
+
+    if freq_only_flag:
+        gt_tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
+                          rng)
+        return 0
 
     # ---------------- Datafile reading ----------------
     centro = Centromere(build, centromere_file, cli.DEFAULT_CENTROMERE_FILE,
@@ -407,13 +442,64 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     num_loci = new_loci
     prof.mark("filter", num_loci, "loci")
 
+    variant_density = -1.0
+    if auto_overlap_frac:
+        variant_density = density.calc_density(num_loci, ds.chroms, centro)
+
+    st = _PhaseII(log=log, rng=rng, engine=engine, device=device)
+    if engine == "fast":
+        # Phase II pools the exact engine's f64 rolling windows (the f32
+        # device windows would shift the nrd0 bandwidth and with it every
+        # .kde x value); assembly keeps the device windows and the tie
+        # patrol (pipeline.py:600-634)
+        st.exact_sampler = lambda wq, step, rows: _exact_thinned_samples(
+            ds.chroms, centro, wq, error, max_gap, use_gl, step, rows)
+        if ds.panel_cache_file is not None and nresample == 0:
+            from .io.poolcache import PoolCache, pool_key
+            st.pool_cache = PoolCache(
+                ds.panel_cache_file,
+                lambda wq, stp: pool_key(ds.chroms, wq, stp, error,
+                                         max_gap, use_gl, centro))
+
+    # ---------------- Winsize resolution ----------------
+    kde_result = None
+    if winsize_explore and auto_winsize:
+        kde_result, winsize = _select_winsize_from_list(
+            st, ds, centro, multi_winsizes, error, use_gl, max_gap,
+            kde_subsample, outfile, thin)
+        if kde_result is None:
+            return 1
+    elif winsize_explore:
+        _explore_winsizes(st, ds, centro, multi_winsizes, error, use_gl,
+                          max_gap, kde_subsample, outfile, thin)
+        return 0
+    elif auto_winsize:
+        try:
+            kde_result, winsize = _select_winsize(
+                st, ds, centro, winsize, auto_winsize_step, error, use_gl,
+                max_gap, kde_subsample, outfile, thin)
+        except GarlicDataError:
+            return 1
+        except Exception as e:
+            log.err("ERROR: Internal failure during window size "
+                    "selection:", repr(e))
+            return 1
+        if kde_result is None:
+            return 1
+        log.log("Selected window size:", winsize)
+
     print(f"Window size: {winsize}")
+
+    if auto_overlap_frac:
+        overlap_frac = density.select_overlap_frac(variant_density, winsize)
+        log.log("Selected overlap fraction:", overlap_frac)
 
     # ---------------- Phase I ----------------
     # Pinned-cutoff fast runs fuse Phase I INTO the coverage kernel (K2):
     # the [I, nwin] f32 window matrix never reaches device memory.
-    # --raw-lod needs the window scores and takes the split path (K1).
-    fused = engine == "fast" and not raw_lod
+    # Automatic-cutoff runs and --raw-lod take the split path (K1), as
+    # garlic_tpu does (pipeline.py:744-745).
+    fused = engine == "fast" and not auto_cutoff and not raw_lod
     fused_args = None
     if fused:
         # pre-resolve the tie band + threshold so each chromosome's K2
@@ -443,8 +529,18 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             log.err("ERROR: Failed to write raw LOD windows:", repr(e))
             return -1
 
-    # ---------------- Phase II: cutoff (pinned) ----------------
-    print(f"User defined LOD score cutoff: {lod_cutoff}")
+    # ---------------- Phase II: cutoff ----------------
+    if auto_cutoff:
+        if kde_result is None:
+            lod_cutoff = _select_lod_cutoff(
+                st, win_by_chr, ds, kde_subsample,
+                kdefile.make_kde_filename(outfile, winsize),
+                winsize if thin else 1, winsize)
+        else:
+            lod_cutoff = _cutoff_from_kde(st, kde_result, winsize)
+        log.log("Selected LOD score cutoff:", lod_cutoff)
+    else:
+        print(f"User defined LOD score cutoff: {lod_cutoff}")
     prof.mark("phase2-cutoff")
 
     # ---------------- Phase III: assembly ----------------
@@ -481,9 +577,26 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         exact_cover=exact_cover, exact_window=exact_window)
     prof.mark("phase3-assembly", float(lengths.size), "ROH")
 
-    # ---------------- Phase IV: size classes (pinned) ----------------
-    log.logv("User provided ROH size boundaries = (", bound_sizes, nl=False)
-    log.log(" )")
+    # ---------------- Phase IV: size classes ----------------
+    if auto_bounds:
+        print(f"Fitting {nclust}-component GMM for size classification")
+        try:
+            bound_sizes, _ = gmm.select_size_classes(
+                lengths, nclust, log,
+                device=device if engine == "fast" else None)
+        except Exception as e:
+            # The reference aborts inside GSL here (collapsed component /
+            # root bracket failure); we fail cleanly instead.
+            log.err("ERROR: GMM size classification failed:", str(e))
+            log.err("\tToo few ROH calls or degenerate length distribution; "
+                    "size boundaries can be supplied with --size-bounds.")
+            return 1
+        log.logv("Selected ROH size boundaries = (", bound_sizes, nl=False)
+        log.log(" )")
+    else:
+        log.logv("User provided ROH size boundaries = (", bound_sizes,
+                 nl=False)
+        log.log(" )")
     prof.mark("phase4-gmm")
     print("Writing ROH tracts.")
     bed.write_roh(bed.make_roh_filename(outfile), roh_by_ind,
@@ -495,10 +608,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     return 0
 
 
-# garlic_tpu/pipeline.py:936 for the slice's engines
+# garlic_tpu/pipeline.py:936 for the port's engines
 def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
-                      error: float, max_gap: int, use_gl: bool, fused: bool,
-                      fused_args=None):
+                      error: float, max_gap: int, use_gl: bool,
+                      fused: bool = False, fused_args=None,
+                      ind_idx: Optional[np.ndarray] = None):
     """calcLODWindows (src/garlic-roh.cpp:279-309).
 
     fused: FusedCov entries for assembly (K2, or K4 for dictionary-form
@@ -507,7 +621,8 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
     TGLS) keeps every window matrix on the device;
     when they would exceed half the device-memory budget the JAX package
     streams them, which this port does not do yet.  The fused path holds
-    no window matrix, so no estimate applies to it."""
+    no window matrix, so no estimate applies to it.  ind_idx: the rows
+    to compute (the winsize searches' --kde-subsample individuals)."""
     from garlic_tpu.core.pbar import Bar
     print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
     if engine == "fast" and not fused:
@@ -525,6 +640,8 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
         # reference quirk: the unweighted bar's total is NLOCI but it
         # advances once per INDIVIDUAL (src/garlic-roh.cpp:40,48)
         bar = Bar(total=c.nloci)
+        if ind_idx is not None:
+            c = _subset_chrom(c, ind_idx)
         if engine == "fast" and fused:
             fc = device_win.FusedCov(c, centro, winsize, error, max_gap,
                                      device, use_gl)
@@ -543,6 +660,249 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
                                                 max_gap, use_gl, bar=bar))
         bar.finalize()
     return out
+
+
+# copy of garlic_tpu/pipeline.py:1392
+def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
+                           max_gap: int, use_gl: bool, step: int,
+                           rows) -> np.ndarray:
+    """The exact engine's pooled Phase-II samples: per chromosome, the f64
+    ROLLING window sequence (the thinned values depend on the full
+    rolling history, src/garlic-roh.cpp:76-103) for the requested rows,
+    thinned by `step` and MISSING-filtered exactly like
+    convertWinData2DoubleData (src/garlic-data.cpp:2026-2150).  Row
+    chunks of 64 bound the [k, L] f64 temporaries; without TGLS the
+    native thinned kernel never builds the full window matrix."""
+    from garlic_tpu.core.types import MISSING
+    parts = []
+    thin_native = None
+    if not use_gl:
+        from garlic_tpu.native import lod_windows_exact_thin_native
+        thin_native = lod_windows_exact_thin_native
+    for c in chroms:
+        r = np.arange(c.nind) if rows is None \
+            else np.asarray(rows, dtype=np.int64)
+        table = miss8 = None
+        if thin_native is not None:
+            table = lod_ops.lod_table(c.freq, error)
+            nwin = max(c.nloci - winsize + 1, 0)
+            miss8 = np.zeros(max(nwin, 1), dtype=np.uint8)
+            if nwin > 0:
+                miss8[:] = lod_ops.window_missing_mask(
+                    c.positions, winsize, max_gap, centro.start(c.chrom),
+                    centro.end(c.chrom)).astype(np.uint8)
+        for s in range(0, r.size, 64):
+            sub = _subset_chrom(c, r[s:s + 64])
+            w = None
+            if thin_native is not None:
+                w = thin_native(sub.genotypes, table, miss8, winsize, step)
+            if w is None:
+                wf = lod_ops.calc_lod_windows(sub, centro, winsize, error,
+                                              max_gap, use_gl)
+                w = wf[:, ::step]
+            flat = w.reshape(-1)
+            m = (flat != MISSING) & ~np.isnan(flat)
+            parts.append(flat[m])
+    return np.concatenate(parts) if parts else np.zeros(0)
+
+
+# garlic_tpu/pipeline.py:1663 without the hybrid (compute_kde_hybrid),
+# in-graph (compute_kde_wins) and mesh branches, which the port does not
+# carry (ops/kde.py)
+def _compute_kde_for(st: _PhaseII, win_by_chr, step: int, ind_idx, log,
+                     exact=None):
+    """Phase-II dispatch.  exact=(winsize, rows) on the fast engine: pool
+    the exact f64 samples on the host (or replay them from the pool
+    cache), so the bandwidth, the grid and the .kde x column match the
+    exact engine bit for bit, then run the transform on the device.  The
+    exact engine pools its own f64 window matrices and transforms on the
+    host."""
+    if exact is not None and st.exact_sampler is not None:
+        wq, rows = exact
+        grid = None
+        ent = (st.pool_cache.lookup(wq, step)
+               if rows is None and st.pool_cache is not None else None)
+        if ent is not None:
+            # warm hit: grid scalars replayed bit-exactly, the pool mapped
+            # in its original pooling order
+            grid, samples = ent.grid(), ent.pool
+        else:
+            samples = st.exact_sampler(wq, step, rows)
+            if rows is None and st.pool_cache is not None:
+                grid = st.pool_cache.store(wq, step, samples)
+        return kde.compute_kde(samples, log, device=st.device, grid=grid)
+    samples = convert.win_to_samples(win_by_chr, step, ind_idx=ind_idx)
+    return kde.compute_kde(samples, log)
+
+
+# copy of garlic_tpu/pipeline.py:1727
+def _select_lod_cutoff(st: _PhaseII, win_by_chr, ds, kde_subsample: int,
+                       kdeoutfile: str, step: int, wsize: int) -> float:
+    """selectLODCutoff (src/garlic-roh.cpp:667-697): thin/subsample, KDE,
+    write, min-between-modes.  Failures return -1 and the pipeline
+    continues, exactly like the reference."""
+    log = st.log
+    idx = None
+    if kde_subsample > 0:
+        idx = convert.choose_subsample(ds.nind, kde_subsample, st.rng)
+        log.logn("Individuals used for KDE: ")
+        for i in idx:
+            log.logn(ds.ind_ids[i])
+            log.logn(" ")
+        log.logn("\n")
+    print("Estimating distribution of raw LOD score windows:",
+          file=sys.stderr)
+    kr = _compute_kde_for(st, win_by_chr, step, idx, log,
+                          exact=(wsize, idx))
+    try:
+        kdefile.write_kde(kr, kdeoutfile, log)
+    except Exception:
+        return -1.0
+    try:
+        c = cutoff_ops.get_min_btw_modes(kr.x, kr.y, wsize)
+    except Exception:
+        _cutoff_error(log)
+        return -1.0
+    _report_cutoff_rivals(kr, wsize, c)
+    return c
+
+
+def _cutoff_error(log) -> None:
+    log.err("ERROR: Failed to find the minimum between modes in the LOD "
+            "score density.")
+    log.err("\tResults from density estimation have been written to file "
+            "for inspection.")
+    log.err("\tA cutoff can be manually specified on the command line with",
+            cli.ARG_LOD_CUTOFF)
+
+
+# copy of garlic_tpu/pipeline.py:1761
+def _report_cutoff_rivals(kr, wsize: int, cutoff: float) -> None:
+    """stderr-only note when the automatic cutoff has FIGTree-error-scale
+    rivals: the reference's Phase II is randomized run to run
+    (time-seeded FIGTree clustering, ops.cutoff.cutoff_tie_probe), so on
+    such densities it selects different cutoffs on different runs.
+    Never written to .log (a compared artifact)."""
+    try:
+        alts = cutoff_ops.cutoff_tie_probe(kr.x, kr.y, wsize)
+    except Exception:
+        return
+    if alts:
+        # the 3 rivals nearest the selection; the count carries the rest
+        near = sorted(alts, key=lambda a: abs(a - cutoff))[:3]
+        more = len(alts) - len(near)
+        tail = " (+%d more)" % more if more > 0 else ""
+        print("[garlic-tpu-torch] note: auto-KDE cutoff %g has %d FIGTree-"
+              "error-scale rival(s), nearest %s%s; the reference's "
+              "randomized Phase II (time-seeded FIGTree) may pick any "
+              "reachable rival on a given run"
+              % (cutoff, len(alts), ", ".join("%g" % a for a in near),
+                 tail), file=sys.stderr)
+
+
+# copy of garlic_tpu/pipeline.py:1787
+def _cutoff_from_kde(st: _PhaseII, kde_result, wsize: int) -> float:
+    """selectLODCutoff(KDEResult*) (src/garlic-roh.cpp:652-664)."""
+    try:
+        c = cutoff_ops.get_min_btw_modes(kde_result.x, kde_result.y, wsize)
+        _report_cutoff_rivals(kde_result, wsize, c)
+        return c
+    except Exception:
+        _cutoff_error(st.log)
+        return -1.0
+
+
+# copy of garlic_tpu/pipeline.py:1801
+def _subset_for_kde(st: _PhaseII, ds, kde_subsample: int):
+    """subsetData (src/garlic-data.cpp:2171-2244) + its log line."""
+    idx = convert.choose_subsample(ds.nind, kde_subsample, st.rng)
+    st.log.loga("Individuals used for KDE:", [ds.ind_ids[i] for i in idx])
+    return idx
+
+
+def _candidate_kde(st: _PhaseII, ds, centro, wq: int, error: float,
+                   use_gl: bool, max_gap: int, ind_idx, thin: bool):
+    """The KDE of one winsize candidate (the loop bodies of
+    garlic_tpu/pipeline.py:1830-1836,1859-1864,1941-1947, one process).
+    garlic_tpu's fast engine computes each candidate's device windows
+    only to feed its hybrid transform; the port's fast engine pools the
+    exact sampler's values, so it computes none.  The exact engine pools
+    its own f64 matrices over the --kde-subsample rows."""
+    win_by_chr = None
+    if st.engine == "exact":
+        win_by_chr = _calc_lod_windows("exact", None, ds, centro, wq, error,
+                                       max_gap, use_gl, ind_idx=ind_idx)
+    return _compute_kde_for(st, win_by_chr, wq if thin else 1, None,
+                            st.log, exact=(wq, ind_idx))
+
+
+# copy of garlic_tpu/pipeline.py:1818
+def _select_winsize(st: _PhaseII, ds, centro, winsize: int, step: int,
+                    error: float, use_gl: bool, max_gap: int,
+                    kde_subsample: int, outfile: str, thin: bool):
+    """selectWinsize (src/garlic-roh.cpp:766-850): grow winsize by step
+    until the wiggle metric <= 0.5."""
+    log = st.log
+    ind_idx = (_subset_for_kde(st, ds, kde_subsample)
+               if kde_subsample > 0 else None)
+    log.log("Searching for acceptable window size, smoothness threshold:",
+            AUTO_WINSIZE_THRESHOLD)
+    log.log("winsize\tsmoothness")
+    wq = winsize
+    while True:
+        kr = _candidate_kde(st, ds, centro, wq, error, use_gl, max_gap,
+                            ind_idx, thin)
+        # calculate_wiggle scales kr.y by 100 in place, before the clone
+        # that is written (src/garlic-roh.cpp:820-834)
+        mse = wiggle_ops.calculate_wiggle(kr)
+        log.log("", wq, nl=False)
+        log.log("\t", mse)
+        if mse <= AUTO_WINSIZE_THRESHOLD:
+            selected = kr.clone()
+            kdefile.write_kde(selected,
+                              kdefile.make_kde_filename(outfile, wq), log)
+            return selected, wq
+        wq += step
+
+
+# copy of garlic_tpu/pipeline.py:1847
+def _select_winsize_from_list(st: _PhaseII, ds, centro, multi: List[int],
+                              error: float, use_gl: bool, max_gap: int,
+                              kde_subsample: int, outfile: str, thin: bool):
+    """selectWinsizeFromList (src/garlic-roh.cpp:852-933)."""
+    log = st.log
+    ind_idx = (_subset_for_kde(st, ds, kde_subsample)
+               if kde_subsample > 0 else None)
+    log.log("Searching for acceptable window size, smoothness threshold:",
+            AUTO_WINSIZE_THRESHOLD)
+    log.log("winsize\tsmoothness")
+    for i, wq in enumerate(multi):
+        kr = _candidate_kde(st, ds, centro, wq, error, use_gl, max_gap,
+                            ind_idx, thin)
+        mse = wiggle_ops.calculate_wiggle(kr)
+        log.log("", wq, nl=False)
+        log.log("\t", mse)
+        if mse <= AUTO_WINSIZE_THRESHOLD or i == len(multi) - 1:
+            selected = kr.clone()
+            kdefile.write_kde(selected,
+                              kdefile.make_kde_filename(outfile, wq), log)
+            return selected, wq
+    return None, 0
+
+
+# the unweighted branch of garlic_tpu/pipeline.py:1875
+def _explore_winsizes(st: _PhaseII, ds, centro, multi: List[int],
+                      error: float, use_gl: bool, max_gap: int,
+                      kde_subsample: int, outfile: str, thin: bool):
+    """exploreWinsizes (src/garlic-roh.cpp:699-763): dump a KDE per
+    candidate winsize and exit."""
+    ind_idx = (_subset_for_kde(st, ds, kde_subsample)
+               if kde_subsample > 0 else None)
+    for wq in multi:
+        kr = _candidate_kde(st, ds, centro, wq, error, use_gl, max_gap,
+                            ind_idx, thin)
+        kdefile.write_kde(kr, kdefile.make_kde_filename(outfile, wq),
+                          st.log)
 
 
 # copy of garlic_tpu/pipeline.py:1030

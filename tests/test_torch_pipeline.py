@@ -166,10 +166,13 @@ def test_raw_lod_matches_garlic_tpu(panel_dir):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and runs with every `jax` import refused, with
     and without a --tgls error file (whose reader and .gtlc sidecar come
-    from garlic_tpu)."""
+    from garlic_tpu), and on an automatic cutoff and bounds run (the KDE,
+    the GMM and the pool cache) on a panel whose GMM fits."""
     panel = make_panel(nind=12, nloci_per_chr=(900, 700), seed=5)
     write_tped(panel, str(tmp_path / "t.tped.gz"), str(tmp_path / "t.tfam"))
     write_tgls(panel, str(tmp_path / "t.tgls.gz"), gl_type="GQ")
+    panel = make_panel(nind=30, nloci_per_chr=(4000, 3000), seed=23)
+    write_tped(panel, str(tmp_path / "a.tped.gz"), str(tmp_path / "a.tfam"))
     script = (
         "import sys\n"
         "class B:\n"
@@ -189,6 +192,14 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "        rc = run_main(base + extra + ['--tpu-engine', eng,\n"
         "                                      '--out', out], device='cpu')\n"
         "        assert rc == 0, (out, rc)\n"
+        "auto = ['--tped', 'a.tped.gz', '--tfam', 'a.tfam', '--build',\n"
+        "        'hg18', '--winsize', '30', '--error', '0.001',\n"
+        "        '--kde-subsample', '0', '--tpu-panel-cache']\n"
+        "for out, eng in (('auto_cold', 'fast'), ('auto_warm', 'fast'),\n"
+        "                 ('auto_exact', 'exact')):\n"
+        "    rc = run_main(auto + ['--tpu-engine', eng, '--out', out],\n"
+        "                  device='cpu')\n"
+        "    assert rc == 0, (out, rc)\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
@@ -201,6 +212,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
     assert (tmp_path / "gl_fast.roh.bed").read_text() == \
         (tmp_path / "gl_exact.roh.bed").read_text()
     assert (tmp_path / "t.tgls.gz.gtlc").exists()
+    for out in ("auto_cold", "auto_warm"):
+        assert (tmp_path / f"{out}.roh.bed").read_text() == \
+            (tmp_path / "auto_exact.roh.bed").read_text()
+    assert "Selected LOD score cutoff:" in \
+        (tmp_path / "auto_cold.log").read_text()
 
 
 def test_fast_engine_without_cuda_exits_nonzero(panel_dir, monkeypatch,
@@ -224,15 +240,13 @@ def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
 @pytest.mark.parametrize("extra,drop,names", [
     (["--weighted", "--map", "m.gz"], [], "--weighted"),
     (["--tgls", "x.tgls", "--weighted", "--map", "m.gz"], [], "--weighted"),
-    (["--freq-only"], [], "--freq-only"),
-    (["--auto-winsize"], [], "--auto-winsize"),
-    (["--winsize-multi", "30", "40"], [], "--winsize-multi"),
+    (["--winsize-multi", "30", "40", "--weighted", "--map", "m.gz"], [],
+     "--weighted"),
+    (["--auto-winsize", "--weighted", "--map", "m.gz"], ["--lod-cutoff"],
+     "--weighted"),
     (["--tpu-mesh", "2x1"], [], "--tpu-mesh"),
     (["--cm", "--map", "m.gz"], [], "--cm"),
     (["--phased"], [], "--phased"),
-    (["--auto-overlap-frac"], [], "--auto-overlap-frac"),
-    ([], ["--lod-cutoff"], "automatic LOD cutoff"),
-    ([], ["--size-bounds"], "automatic size bounds"),
 ])
 def test_unported_configuration_exits_1(panel_dir, capsys, extra, drop,
                                         names):
