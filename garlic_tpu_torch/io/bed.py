@@ -11,8 +11,7 @@ from __future__ import annotations
 
 from typing import List
 
-from garlic_tpu.core.fmt import g
-
+from ..core.fmt import g
 from ..ops.assembly import IndividualROH
 
 # copy of garlic_tpu/io/bed.py:16

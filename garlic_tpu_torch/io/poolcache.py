@@ -19,7 +19,7 @@ Files, next to the `.gtpc` sidecar:
   <sidecar>.p2pool.<key>.json   {key, digest, n, h, mn, mx}; floats as C
                                 hex literals, bit-exact
 
-The grid scalars are what garlic_tpu.ops.kde._kde_grid computes from the
+The grid scalars are what ops.kde._kde_grid computes from the
 pool, so a warm run rebuilds the identical 512-point grid.  The store is
 synchronous: a cold run is bound by parsing the panel, and a pool written
 before the run ends is there for the next run, in or out of process.
@@ -34,7 +34,7 @@ from typing import Optional
 
 import numpy as np
 
-from garlic_tpu.core.digest import content_digest
+from ..core.digest import content_digest
 
 MAX_SLOTS = 8  # pools kept per sidecar
 
@@ -138,7 +138,7 @@ class PoolCache:
         anyway) and persist the pool and scalars.  Returns (h, targets,
         spacing, n), or None for an empty pool.  A failed write is never
         a run failure."""
-        from garlic_tpu.ops.kde import _kde_grid
+        from ..ops.kde import _kde_grid
         if samples.size == 0:
             return None  # the caller takes the uncached path
         key = self._key_fn(winsize, step)

@@ -99,6 +99,8 @@ def library() -> ctypes.CDLL:
         lib.gt_covered_terms.argtypes = [i, p, p, p, p, p, i, i, i,
                                          fl, fl, fl, p]
         lib.gt_covered_terms.restype = i
+        lib.gt_resident_warps.argtypes = [i, i, i]
+        lib.gt_resident_warps.restype = i
         _lib = lib
         return lib
 

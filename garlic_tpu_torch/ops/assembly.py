@@ -229,7 +229,7 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
     extractor, or None to fall back to Python.  handle: a pre-dispatched
     covered_dispatch result (assemble_roh enqueues every chromosome's
     device kernels before the first blocking fetch)."""
-    from garlic_tpu.native import assemble_runs_native
+    from ..native import assemble_runs_native
     from .device_win import DeviceWin, covered_fetch, covered_packed
     sus = susw = None
     t0 = time.perf_counter()
@@ -239,7 +239,7 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
         packed, sus, susw = covered_packed(win, cutoff, winsize, threshold,
                                            tie_delta)
     else:
-        from garlic_tpu.native import covered_pack_native
+        from ..native import covered_pack_native
         packed = covered_pack_native(win, winsize, cutoff, threshold)
         if packed is None:
             above = win >= cutoff

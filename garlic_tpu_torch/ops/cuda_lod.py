@@ -26,8 +26,7 @@ import warnings
 import numpy as np
 import torch
 
-from garlic_tpu.core.types import MISSING
-
+from ..core.types import MISSING
 from . import _build
 from .lod import window_missing_mask
 
@@ -231,6 +230,18 @@ def lod_windows(packed, table, miss, winsize: int) -> torch.Tensor:
     return out
 
 
+def resident_warps(key: str, winsize: int, device=None) -> int:
+    """Warps of kernel `key` (a LAUNCHES key) that one SM holds at window
+    size `winsize`, as its launch sizes its blocks: the occupancy the card
+    allows (of 64 warps per SM), not a measured one."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    n = _build.library().gt_resident_warps(
+        device.index or 0, list(LAUNCHES).index(key), winsize)
+    if n < 0:
+        raise RuntimeError(f"no occupancy for {key} at W={winsize}")
+    return n
+
+
 def _planes(dev, I: int, L: int, nwin: int):
     """Uninitialised (covered [I, L], susw [I, nwin], above [I, nwin])
     u8 outputs of K2/K4."""
@@ -315,7 +326,7 @@ def packed_host(chrom) -> np.ndarray:
     if chrom.geno_is_packed_only:
         return chrom.geno2b[:, :rb]
     geno = np.asarray(chrom.genotypes)
-    from garlic_tpu.native import pack_2bit_padded_native
+    from ..native import pack_2bit_padded_native
     packed = pack_2bit_padded_native(geno, geno.shape[0], 4 * rb)
     return packed if packed is not None else _pack_numpy(geno, 4 * rb)
 

@@ -1,0 +1,35 @@
+"""SNP density and density-driven auto-selection heuristics.
+
+Ports calcDensity/selectOverlapFrac (src/garlic-data.cpp:3-8,318-328);
+selectWinsizeWeighted waits for the weighted path.
+
+Copy of garlic_tpu/ops/density.py: the port imports nothing of
+garlic_tpu. Each function and class names its source line.
+"""
+
+from __future__ import annotations
+
+import math
+
+
+def calc_density(num_loci: int, chroms, centro) -> float:
+    """loci / (covered bp - centromere spans) (src/garlic-data.cpp:318-328).
+
+    Copy of garlic_tpu/ops/density.py:13."""
+    length = 0.0
+    for c in chroms:
+        length += (float(c.positions[-1]) - float(c.positions[0]) + 1.0
+                   - (centro.end(c.chrom) - centro.start(c.chrom)))
+    return float(num_loci) / length
+
+
+def select_overlap_frac(density: float, winsize: int) -> float:
+    """(6.375*ln(d)+63.888)/100, clamped (src/garlic-data.cpp:3-8).
+
+    Copy of garlic_tpu/ops/density.py:22."""
+    frac = (6.375 * math.log(density) + 63.888) / 100.0
+    if frac > 1:
+        frac = 1.0
+    if frac <= 0:
+        frac = 1.0 / float(winsize)
+    return frac

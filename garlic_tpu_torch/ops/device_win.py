@@ -29,9 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from garlic_tpu.core.types import MISSING
-from garlic_tpu.ops.device_win import _edges_to_packed
-
+from ..core.types import MISSING
 from . import cuda_lod
 
 _warned_full_transfer = False
@@ -232,6 +230,47 @@ def _dispatch_fused(fc: FusedCov, cutoff: float, winsize: int,
             c, fc.centro, winsize, fc.error, fc.max_gap, cutoff, threshold,
             tie_delta, fc.device)
     return cov, susw, above, I, L
+
+
+def _set_bits(row: np.ndarray, o: int, c: int) -> None:
+    """Set little-endian bits [o, c) in a packed u8 row.
+
+    Copy of garlic_tpu/ops/device_win.py:509."""
+    if c <= o:
+        return
+    bo, bc = o >> 3, c >> 3
+    if bo == bc:
+        row[bo] |= ((0xFF << (o & 7)) & 0xFF) & (0xFF >> (8 - (c & 7)))
+        return
+    if o & 7:
+        row[bo] |= (0xFF << (o & 7)) & 0xFF
+        bo += 1
+    row[bo:bc] = 0xFF
+    if c & 7:
+        row[bc] |= 0xFF >> (8 - (c & 7))
+
+
+def _edges_to_packed(idx: np.ndarray, last: np.ndarray, I: int,
+                     outw: int) -> np.ndarray:
+    """Reconstruct the bit-packed coverage matrix from run edges.
+
+    idx: sorted flat indices of 0->1/1->0 transitions (row-major over
+    [I, outw]); last: [I] bool, True when the row's final SNP is covered
+    (closes the trailing run at outw).
+
+    Copy of garlic_tpu/ops/device_win.py:525."""
+    row_bytes = (outw + 7) // 8
+    out = np.zeros((I, row_bytes), np.uint8)
+    rows = idx // outw
+    cols = idx % outw
+    bounds = np.searchsorted(rows, np.arange(I + 1))
+    for i in range(I):
+        e = cols[bounds[i]:bounds[i + 1]]
+        if last[i]:
+            e = np.append(e, outw)
+        for k in range(0, e.shape[0] - 1, 2):
+            _set_bits(out[i], int(e[k]), int(e[k + 1]))
+    return out
 
 
 def covered_fetch(handle):

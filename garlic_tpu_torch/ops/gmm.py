@@ -1,8 +1,9 @@
 """Phase IV: the size classes from a Gaussian mixture fitted by EM.
 
 Counterpart of garlic_tpu/ops/gmm.py.  The host EM (fit_gmm), GMMResult,
-the %g guard (_g_format_stable) and the boundary root finder are
-garlic_tpu's own JAX-free code; what moves to the device is the EM loop
+the %g guard (_g_format_stable) and the host path of selectSizeClasses
+are copies of garlic_tpu's (each names its source line; the boundary
+root finder is ops/brent.py); what moves to the device is the EM loop
 that garlic_tpu runs as an f64 lax.while_loop on a 1x1 mesh
 (fit_gmm_sharded, parallel/engine.py:309-443), here an f64 torch loop.
 """
@@ -11,13 +12,102 @@ from __future__ import annotations
 
 import math
 import sys
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from garlic_tpu.ops.gmm import GMMResult, _g_format_stable, fit_gmm
-
+# garlic_tpu/ops/gmm.py:23 (-0.5 * np.log(2.0 * np.pi), the same double)
 _LOG2PI_C = -0.5 * math.log(2.0 * math.pi)
+
+
+@dataclass
+class GMMResult:
+    """Copy of garlic_tpu/ops/gmm.py:27."""
+    weights: np.ndarray   # [K] mixture coefficients
+    means: np.ndarray     # [K]
+    variances: np.ndarray  # [K]
+    loglikelihood: float
+    bic: float
+    converged: bool
+    iterations: int
+
+
+def gmm_sufficient_stats(x: np.ndarray, w: np.ndarray, mu: np.ndarray,
+                         var: np.ndarray):
+    """One E-step over data x -> (sum_wj, sum_wj_xj, sum_wj_xj2, loglik).
+
+    Matches GMM::update's math (src/gmm.cpp:276-331): log responsibilities
+    log(a_k) + normalLog, logsumexp per point, an extra normalization by the
+    (==1) sum of responsibilities, then weighted moment sums.
+
+    Copy of garlic_tpu/ops/gmm.py:37."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        lw = np.log(w)[None, :]                              # [1,K]
+        lv = np.log(var)[None, :]
+        d = x[:, None] - mu[None, :]                         # [N,K]
+        logp = lw + (_LOG2PI_C - 0.5 * lv - (d * d) / (2.0 * var[None, :]))
+    lmax = np.max(logp, axis=1, keepdims=True)
+    tmp = lmax[:, 0] + np.log(np.sum(np.exp(logp - lmax), axis=1))
+    loglik = float(np.sum(tmp))
+    resp = np.exp(logp - tmp[:, None])                       # [N,K]
+    den = np.sum(resp, axis=1, keepdims=True)
+    r = resp / den
+    sum_wj = r.sum(axis=0)
+    sum_wj_xj = (x[:, None] * r).sum(axis=0)
+    sum_wj_xj2 = ((x * x)[:, None] * r).sum(axis=0)
+    return sum_wj, sum_wj_xj, sum_wj_xj2, loglik
+
+
+def fit_gmm(x: np.ndarray, k: int, w0: np.ndarray, mu0: np.ndarray,
+            var0: np.ndarray, max_iter: int = 1000, precision: float = 1e-5,
+            verbose: bool = False) -> GMMResult:
+    """Copy of garlic_tpu/ops/gmm.py:61."""
+    x = np.asarray(x, dtype=np.float64)
+    n = x.shape[0]
+    w, mu, var = w0.copy(), mu0.copy(), var0.copy()
+    last_ll = -np.finfo(np.float64).max
+    ll = last_ll
+    bic = np.finfo(np.float64).max
+    converged = False
+    if verbose:
+        print(f"Begin GMM estimation with k = {k} Gaussians...", file=sys.stderr)
+    it = 0
+    for it in range(1, max_iter + 1):
+        s_w, s_wx, s_wx2, ll = gmm_sufficient_stats(x, w, mu, var)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            w = s_w / float(n)
+            mu = s_wx / s_w
+            var = s_wx2 / s_w - mu * mu
+        if not np.all(np.isfinite(mu)) or not np.all(np.isfinite(var)):
+            raise FloatingPointError(
+                "GMM component collapsed (non-finite parameters)")
+        bic = -2.0 * ll + (3.0 * k - 1) * np.log(n)
+        if abs(ll - last_ll) <= precision:
+            converged = True
+            break
+        last_ll = ll
+    return GMMResult(weights=w, means=mu, variances=var, loglikelihood=ll,
+                     bic=float(bic), converged=converged, iterations=it)
+
+
+def _g_format_stable(res: "GMMResult", rel: float = 3e-12) -> bool:
+    """True when every logged GMM parameter formats to the same %g string
+    under a +-rel relative perturbation — i.e. no parameter sits within
+    the calibrated device-vs-host EM deviation (~1e-13 relative, margin
+    here 3e-12) of a %g rounding boundary, so the device fit's .log lines
+    are guaranteed byte-identical to the host fit's.
+
+    Copy of garlic_tpu/ops/gmm.py:92."""
+    from ..core.fmt import g
+    for arr in (res.weights, res.means, res.variances):
+        for v in arr:
+            v = float(v)
+            d = abs(v) * rel
+            if g(v + d) != g(v) or g(v - d) != g(v):
+                return False
+    return True
+
 
 
 def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
@@ -90,7 +180,7 @@ def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
     there (fit_gmm_device), and a fit with a logged parameter near a %g
     rounding boundary is rerun on the host (_g_format_stable), so the
     .log lines equal the host fit's.  None, or fewer ROH: the host EM."""
-    from garlic_tpu.ops.brent import find_boundary
+    from .brent import find_boundary
     lengths = np.asarray(lengths, dtype=np.float64)
     var = float(np.var(lengths, ddof=1))
     mean = float(np.mean(lengths))

@@ -1,11 +1,13 @@
-"""Phase II: the Gaussian KDE of the pooled LOD windows, on a torch device.
+"""Phase II: the Gaussian KDE of the pooled LOD windows.
 
-Counterpart of garlic_tpu/ops/kde.py.  The bandwidth (nrd0), the
-512-point grid (_kde_grid) and KDEResult are garlic_tpu's own JAX-free
-code, so the .kde x column comes from the same arithmetic on both
-packages.  What moves to the device is the Gauss transform, the
-O(N x 512) part: gauss_transform below is the counterpart of
-gauss_transform(device=True) (kde.py:119-160) in plain PyTorch.
+Counterpart of garlic_tpu/ops/kde.py.  The bandwidth (nrd0, with GSL's
+bit-exact sd through the native library), the 512-point grid (_kde_grid),
+KDEResult and the exact engine's f64 host transform are copies of
+garlic_tpu's (each names its source line), so the .kde x column comes
+from the same arithmetic in both packages.  What moves to the device is
+the Gauss transform, the O(N x 512) part: gauss_transform below is the
+counterpart of gauss_transform(device=True) (kde.py:119-160) in plain
+PyTorch.
 
 Not ported: compute_kde_hybrid/_gauss_wins_factory (kde.py:319-453) and
 compute_kde_wins/_kde_flat_factory (kde.py:194-313).  They exist to keep
@@ -18,11 +20,156 @@ over the exact pool at every pool size.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from garlic_tpu.ops import kde as gt_kde
-from garlic_tpu.ops.kde import KDEResult, _kde_grid
+_block_bufs = {}  # garlic_tpu/ops/kde.py:24
+
+
+@dataclass
+class KDEResult:
+    """Copy of garlic_tpu/ops/kde.py:49."""
+    x: np.ndarray  # [512] float64 targets
+    y: np.ndarray  # [512] float64 normalized density
+
+    @property
+    def size(self) -> int:
+        return int(self.x.shape[0])
+
+    def clone(self) -> "KDEResult":
+        return KDEResult(self.x.copy(), self.y.copy())
+
+
+def nrd0(data: np.ndarray) -> float:
+    """Silverman's rule-of-thumb bandwidth (src/garlic-kde.cpp:130-140):
+    0.9 * min(sd, IQR/1.34) * N^(-1/5), with GSL's linear-interpolated
+    quantiles on sorted data.
+
+    The sd must be BIT-identical to gsl_stats_sd: the KDE grid origin is
+    min - 3h, so the sd feeds every .kde x value (a declared comparison
+    artifact).  GSL accumulates both running-mean recurrences in 80-bit
+    x87 extended precision (verified by disassembling the oracle binary);
+    np.std's pairwise f64 summation differs in the last ulps, which the
+    %g-printed grid exposes.  Native gt_gsl_sd replicates the exact op
+    sequence; the fallback runs the same recurrence via np.longdouble.
+
+    Copy of garlic_tpu/ops/kde.py:61."""
+    x = np.sort(np.asarray(data, dtype=np.float64))
+    n = x.shape[0]
+    hi = _gsl_sd_sorted(x)
+    q75 = _gsl_quantile_sorted(x, 0.75)
+    q25 = _gsl_quantile_sorted(x, 0.25)
+    iqr = q75 - q25
+    lo = min(hi, iqr / 1.34)
+    return 0.9 * lo * float(n) ** -0.2
+
+
+def _gsl_sd_sorted(x: np.ndarray) -> float:
+    """gsl_stats_sd on (already sorted) f64 data — see nrd0.
+
+    Copy of garlic_tpu/ops/kde.py:83."""
+    from ..native import gsl_sd_native
+    s = gsl_sd_native(x)
+    if s is not None:
+        return s
+    n = x.shape[0]
+    if n < 2:
+        return 0.0
+    # Pure-Python mirror of gt_gsl_sd: np.longdouble is the same 80-bit
+    # x87 format on x86-64 Linux.  O(n) Python-loop fallback — the native
+    # path is the production one.
+    mean = np.longdouble(0.0)
+    for i in range(n):
+        mean += (np.longdouble(x[i]) - mean) / np.longdouble(i + 1)
+    mean_d = np.float64(mean)
+    var = np.longdouble(0.0)
+    for i in range(n):
+        delta = np.float64(x[i] - mean_d)
+        var += (np.longdouble(delta) * np.longdouble(delta) - var) \
+            / np.longdouble(i + 1)
+    var_d = np.float64(var)
+    return float(np.sqrt(np.float64(n) / np.float64(n - 1) * var_d))
+
+
+def _gsl_quantile_sorted(x: np.ndarray, f: float) -> float:
+    """gsl_stats_quantile_from_sorted_data: index h=(N-1)f, linear interp.
+
+    Copy of garlic_tpu/ops/kde.py:108."""
+    n = x.shape[0]
+    idx = (n - 1) * f
+    lhs = int(idx)
+    delta = idx - lhs
+    if lhs == n - 1:
+        return float(x[lhs])
+    return float((1 - delta) * x[lhs] + delta * x[lhs + 1])
+
+
+def gauss_transform_host(sources: np.ndarray, targets: np.ndarray,
+                         h: float) -> np.ndarray:
+    """sum_j (1/n) exp(-(x_j - t)^2 / h^2) for each target, blocked
+    float64 numpy on the host (the exact engine's transform): the host
+    branch of garlic_tpu's gauss_transform(device=False).
+
+    Adapted from garlic_tpu/ops/kde.py:119."""
+    n = sources.shape[0]
+    q = 1.0 / float(n)
+    m = targets.shape[0]
+    out = np.zeros(m, dtype=np.float64)
+    t = targets[None, :]
+    inv_h2 = 1.0 / (h * h)
+    step = 1 << 13
+    # one reused block buffer, all ops in place: per-block temporaries at
+    # WGS sample counts are hundreds of MB of fresh pages each, which this
+    # VM faults at ~10 MB/s; cached across calls (winsize searches call
+    # repeatedly)
+    key = (min(step, n), m)
+    buf = _block_bufs.get(key)
+    if buf is None:
+        buf = np.empty(key, dtype=np.float64)
+        _block_bufs[key] = buf
+    for s in range(0, n, step):
+        k = min(step, n - s)
+        b = buf[:k]
+        np.subtract(sources[s:s + k, None], t, out=b)
+        np.multiply(b, b, out=b)
+        b *= -inv_h2
+        # clamp at -700: exp(-700) ~ 1e-304 is still a normal double, so no
+        # subnormal results are produced (x86 FP-assist traps on subnormals
+        # make the unclamped version ~50x slower); the 1e-304 floor is
+        # invisible at the .kde file's %g precision
+        np.maximum(b, -700.0, out=b)
+        np.exp(b, out=b)
+        out += b.sum(axis=0)
+    return out * q
+
+
+def _kde_grid(data: np.ndarray):
+    """Bandwidth + 512-point target grid from the pooled samples —
+    shared by compute_kde and compute_kde_hybrid so the .kde x column
+    (a compared artifact, byte-identical to the oracle's) cannot drift
+    between the two paths.  Exact computeKDE operation order
+    (src/garlic-kde.cpp:24-43).
+
+    Copy of garlic_tpu/ops/kde.py:351."""
+    CUT = 3.0
+    M = 512
+    h = nrd0(data)
+    mn = float(np.min(data))
+    mx = float(np.max(data))
+    mx += CUT * h
+    mn -= CUT * h
+    i = np.arange(1, M + 1, dtype=np.float64)
+    targets = (i / M) * (mx - mn) + mn
+    spacing = targets[1] - targets[0]
+    import os as _os
+    if _os.environ.get("GT_KDE_DEBUG"):
+        import sys as _sys
+        print(f"[gt_kde] n={data.shape[0]} h={h.hex()} mn={mn.hex()} "
+              f"mx={mx.hex()}", file=_sys.stderr)
+    return h, targets, spacing
+
 
 # sources per block: the [BLOCK, 512] f32 temporary is 512 MiB
 BLOCK = 1 << 18
@@ -59,7 +206,7 @@ def compute_kde(data: np.ndarray, log=None, device=None,
     """Full computeKDE (src/garlic-kde.cpp:14-103).
 
     device: the torch device of the fast engine's transform; None runs
-    garlic_tpu's blocked f64 host transform (the exact engine).
+    the blocked f64 host transform (the exact engine).
     grid: (h, targets, spacing, n) from the pool cache; skips the sort
     and nrd0 pass, the transform still reads `data`."""
     data = np.asarray(data, dtype=np.float64)
@@ -72,7 +219,7 @@ def compute_kde(data: np.ndarray, log=None, device=None,
     else:
         h, targets, spacing = _kde_grid(data)
     if device is None:
-        y = gt_kde.gauss_transform(data, targets, h, device=False)
+        y = gauss_transform_host(data, targets, h)
     else:
         y = gauss_transform(data, targets, h, device)
     s = float(np.sum(y))

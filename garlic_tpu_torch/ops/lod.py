@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from garlic_tpu.core.types import MISSING
+from ..core.types import MISSING
 
 
 # copy of garlic_tpu/ops/lod.py:42
@@ -139,7 +139,7 @@ def lod_windows_exact(terms: np.ndarray, missing: np.ndarray,
     the first window of each non-missing run is a fresh left-to-right sum;
     subsequent windows are (prev - head) + tail."""
     try:
-        from garlic_tpu.native import lod_windows_exact_native
+        from ..native import lod_windows_exact_native
         return lod_windows_exact_native(terms, missing, winsize)
     except Exception:
         return _lod_windows_exact_numpy(terms, missing, winsize)
@@ -195,7 +195,7 @@ def calc_lod_windows(chrom, centro, winsize: int, error: float,
         # table-driven native kernel: same per-(genotype, locus) f64
         # values, no [I, L] terms materialization
         try:
-            from garlic_tpu.native import lod_windows_exact_tbl_native
+            from ..native import lod_windows_exact_tbl_native
             table = lod_table(chrom.freq, error)
             I = chrom.genotypes.shape[0]
             if bar is None or I <= 1:

@@ -9,17 +9,20 @@ patrol, run assembly) -> Phase IV (pinned or automatic size bounds) ->
 BED; also --freq-only.  The .log lines and their order are the JAX
 package's, byte for byte.
 
-Engines: `fast` runs Phase I on a CUDA device through the hand-written
-kernels (ops/cuda_lod.py: K2 fused with the coverage count on pinned
-runs, K1 on automatic-cutoff runs and for --raw-lod; with --tgls, K4
-fused for dictionary-form error planes and K3 otherwise), and the KDE's
-Gauss transform and the GMM's EM on the same device (ops/kde.py,
-ops/gmm.py); `exact` is the shared f64 numpy/C++ engine.  Phase II pools
-the exact engine's f64 windows on both engines (the fast engine through
-_exact_thinned_samples and the pool cache), so the .kde x column is the
-same on both.  Every other configuration exits 1 with one stderr line
-pointing to `python -m garlic_tpu`; nothing runs silently on another
-path.
+Engines: `fast` (also what the default `auto` means) runs Phase I on a
+CUDA device through the hand-written kernels (ops/cuda_lod.py: K2 fused
+with the coverage count on pinned runs, K1 on automatic-cutoff runs and
+for --raw-lod; with --tgls, K4 fused for dictionary-form error planes and
+K3 otherwise), and the KDE's Gauss transform and the GMM's EM on the same
+device (ops/kde.py, ops/gmm.py); without a CUDA device it exits 1 and
+names `--tpu-engine exact`, the f64 numpy/C++ engine on the host, which
+runs only when asked for.  Phase II pools the exact engine's f64 windows
+on both engines (the fast engine through _exact_thinned_samples and the
+pool cache), so the .kde x column is the same on both.  Every other
+configuration exits 1 with one stderr line pointing to
+`python -m garlic_tpu`; nothing runs silently on another path.  The
+package imports nothing of garlic_tpu: the host code it shares with it
+is its own copy (cli, io/, core/, native/, ops/).
 """
 
 from __future__ import annotations
@@ -31,20 +34,17 @@ from typing import List, Optional
 
 import numpy as np
 
-from garlic_tpu import cli
-from garlic_tpu.centromeres import Centromere
-from garlic_tpu.cli import CLIError, ParsedArgs
-from garlic_tpu.core.types import GarlicDataError
-from garlic_tpu.io import filters, freqfile, kdefile, rawlod, tfam, tgls
-from garlic_tpu.io import tped as gt_tped
-from garlic_tpu.logger import RunLog
-from garlic_tpu.ops import convert, cutoff as cutoff_ops, density
-from garlic_tpu.ops import wiggle as wiggle_ops
-from garlic_tpu.version import OUTPUT_COMPAT_VERSION
-
-from .io import bed, tped
-from .ops import assembly, device_win, gmm, kde
+from . import cli
+from .centromeres import Centromere
+from .cli import CLIError, ParsedArgs
+from .core.types import MISSING, ChromData, GarlicDataError
+from .io import bed, filters, freqfile, kdefile, rawlod, tfam, tgls, tped
+from .logger import RunLog
+from .ops import assembly, convert, cutoff as cutoff_ops, density
+from .ops import device_win, gmm, kde
 from .ops import lod as lod_ops
+from .ops import wiggle as wiggle_ops
+from .version import OUTPUT_COMPAT_VERSION
 
 AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
 
@@ -78,14 +78,11 @@ def _unported(args: ParsedArgs) -> Optional[str]:
 
 
 def _resolve_engine(name: str) -> str:
-    """auto -> fast only when a CUDA device is present (pipeline.py:81
-    picks fast only on a TPU); the choice is printed on stderr."""
+    """auto -> fast: the port's engine is the CUDA one (garlic_tpu's
+    pipeline.py:81 picks fast on a TPU).  Without a CUDA device the run
+    then exits 1 in run_main; the exact engine runs only when asked for."""
     if name == "auto":
-        import torch
-        name = "fast" if torch.cuda.is_available() else "exact"
-        print(f"[garlic-tpu-torch] {cli.ARG_ENGINE} auto -> {name}",
-              file=sys.stderr)
-        return name
+        return "fast"
     if name not in ("exact", "fast"):
         raise CLIError(f"ERROR: unknown engine {name}")
     return name
@@ -96,8 +93,9 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     """Entry point; returns the process exit status (the reference's
     codes, including 0 on a CLI parse failure, src/garlic-main.cpp:31-32).
 
-    device: where the fast engine runs; None means CUDA, and a fast run
-    without a CUDA device exits 1.  The CPU tests pass "cpu"."""
+    device: where the fast engine runs; None means CUDA, and a fast (or
+    auto) run without a CUDA device exits 1 and names --tpu-engine exact.
+    The CPU tests pass "cpu"."""
     log = RunLog()
     try:
         args = cli.parse_command_line(argv)
@@ -121,7 +119,8 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
         try:
             dev = resolve_device(device)
         except RuntimeError as e:
-            print(f"ERROR: {cli.ARG_ENGINE} fast needs a CUDA device: {e}",
+            print(f"ERROR: {cli.ARG_ENGINE} {args[cli.ARG_ENGINE]} needs a "
+                  f"CUDA device: {e}; run {cli.ARG_ENGINE} exact on the CPU",
                   file=sys.stderr)
             return 1
     try:
@@ -307,7 +306,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     num_threads = args[cli.ARG_THREADS]
     argerr = argerr or cli.check_threads(log, num_threads)
     log.log("Threads:", num_threads)
-    from garlic_tpu.native import set_native_threads
+    from .native import set_native_threads
     set_native_threads(num_threads)  # caps OpenMP in the host kernels
 
     error = args[cli.ARG_ERROR]
@@ -379,8 +378,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     prof = PhaseProfiler(args[cli.ARG_PROFILE], device)
 
     if freq_only_flag:
-        gt_tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
-                          rng)
+        tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
+                       rng)
         return 0
 
     # ---------------- Datafile reading ----------------
@@ -623,7 +622,7 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
     streams them, which this port does not do yet.  The fused path holds
     no window matrix, so no estimate applies to it.  ind_idx: the rows
     to compute (the winsize searches' --kde-subsample individuals)."""
-    from garlic_tpu.core.pbar import Bar
+    from .core.pbar import Bar
     print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
     if engine == "fast" and not fused:
         from .runtime import hbm_budget
@@ -673,11 +672,10 @@ def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
     convertWinData2DoubleData (src/garlic-data.cpp:2026-2150).  Row
     chunks of 64 bound the [k, L] f64 temporaries; without TGLS the
     native thinned kernel never builds the full window matrix."""
-    from garlic_tpu.core.types import MISSING
     parts = []
     thin_native = None
     if not use_gl:
-        from garlic_tpu.native import lod_windows_exact_thin_native
+        from .native import lod_windows_exact_thin_native
         thin_native = lod_windows_exact_thin_native
     for c in chroms:
         r = np.arange(c.nind) if rows is None \
@@ -1031,7 +1029,6 @@ def _subset_chrom_rows(c, idx):
     """_subset_chrom for a FEW rows without firing the whole-matrix
     packed-column compaction: decode the selected rows from the
     UNFILTERED parent payload and column-gather the kept loci."""
-    from garlic_tpu.core.types import ChromData
     if not (c.geno_is_packed_only and c._geno2b is None
             and c.geno2b_parent is not None):
         return _subset_chrom(c, idx)
@@ -1055,7 +1052,6 @@ def _subset_chrom_rows(c, idx):
 
 # copy of garlic_tpu/pipeline.py:1371
 def _subset_chrom(c, idx):
-    from garlic_tpu.core.types import ChromData
     packed = c.geno_is_packed_only
     return ChromData(chrom=c.chrom, positions=c.positions, gpos=c.gpos,
                      locus_names=c.locus_names, alleles=c.alleles,

@@ -222,21 +222,43 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# shapes that register blocking (29 window starts per thread in K1/K3, 15
+# in K2/K4) and the tiles (3712 starts per K1/K3 tile, 3840 per K2/K4
+# block pass) make risky: W=1, nwin=1, W and nwin off multiples of 29 and
+# 15, rows not 16-byte aligned (nwin % 4 != 0), W=120 and W=500, I=1, L
+# under one tile, W below and at the chains' ramps (13, 14), a second
+# tile by one start (nwin=3713 and 3841), K2's two passes (W=2500), more
+# items than resident blocks (200 and 1000 rows), and blocks whose items
+# change column tile (3 rows of 2,000,000), and a table too large for
+# shared memory next to K1's and K2's tiles (W=12000: the unstaged decode)
 @pytest.mark.gpu
 @pytest.mark.parametrize("I,L,W", [(37, 1001, 60), (5, 64, 64), (3, 10, 1),
-                                   (9, 3001, 120), (200, 20000, 60)])
+                                   (9, 3001, 120), (200, 20000, 60),
+                                   (1, 5000, 500), (7, 9001, 500),
+                                   (5, 3772, 60),
+                                   (6, 3901, 61), (4, 777, 13),
+                                   (11, 4001, 14), (3, 12001, 2500),
+                                   (1000, 4000, 60), (3, 2000000, 37),
+                                   (3, 40000, 12000)])
 def test_kernels_match_plain_on_card(cuda_device, I, L, W):
+    """K1/K2 against their plain versions bit for bit, and the twins: K3
+    over K1's own term plane is K1, K4 over it is K2."""
     geno, _, miss, table = _case(I, L, W, seed=I + L)
     inp = [t.to(cuda_device) for t in _torch_inputs(geno, miss, table)]
     before = dict(cuda_lod.LAUNCHES)
     a = cuda_lod.lod_windows(*inp, W)
     b = cuda_lod.lod_windows_plain(*inp, W)
     cutoff = float(b[b != MISSING].median())
-    c = cuda_lod.covered(*inp, W, cutoff, float(max(1, W // 4)), 0.05)
-    d = cuda_lod.covered_plain(*inp, W, cutoff, float(max(1, W // 4)), 0.05)
+    args = (cutoff, float(max(1, W // 4)), 0.05)
+    c = cuda_lod.covered(*inp, W, *args)
+    d = cuda_lod.covered_plain(*inp, W, *args)
+    own = cuda_lod.table_terms(inp[0], inp[1])
+    e = cuda_lod.window_sums(own, inp[2], W)
+    f = cuda_lod.covered_terms(own, inp[2], W, *args)
     torch.cuda.synchronize()
-    assert cuda_lod.LAUNCHES["lod_windows"] == before["lod_windows"] + 1
-    assert cuda_lod.LAUNCHES["covered"] == before["covered"] + 1
+    for k in ("lod_windows", "covered", "window_sums", "covered_terms"):
+        assert cuda_lod.LAUNCHES[k] == before[k] + 1
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    for x, y in zip(c, d):
-        assert torch.equal(x, y)
+    assert torch.equal(e.view(torch.int32), a.view(torch.int32))
+    for x, y, z in zip(c, d, f):
+        assert torch.equal(x, y) and torch.equal(z, x)

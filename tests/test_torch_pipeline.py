@@ -164,10 +164,13 @@ def test_raw_lod_matches_garlic_tpu(panel_dir):
 
 
 def test_port_runs_with_jax_blocked(tmp_path):
-    """The port imports and runs with every `jax` import refused, with
-    and without a --tgls error file (whose reader and .gtlc sidecar come
-    from garlic_tpu), and on an automatic cutoff and bounds run (the KDE,
-    the GMM and the pool cache) on a panel whose GMM fits."""
+    """The port imports and runs with every import of `jax`, `jaxlib` and
+    the JAX package `garlic_tpu` refused (garlic_tpu_torch is a top-level
+    name of its own: only an exact first dotted component is refused),
+    fast with device="cpu" and exact, with and without a --tgls error file
+    (the port's own reader and .gtlc sidecar), and on an automatic cutoff
+    and bounds run (the KDE, the GMM and the pool cache) on a panel whose
+    GMM fits.  No garlic_tpu module is loaded at the end."""
     panel = make_panel(nind=12, nloci_per_chr=(900, 700), seed=5)
     write_tped(panel, str(tmp_path / "t.tped.gz"), str(tmp_path / "t.tfam"))
     write_tgls(panel, str(tmp_path / "t.tgls.gz"), gl_type="GQ")
@@ -177,7 +180,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "import sys\n"
         "class B:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'garlic_tpu'):\n"
         "            raise ImportError('blocked ' + name)\n"
         "sys.meta_path.insert(0, B())\n"
         f"sys.path.insert(0, {REPO!r})\n"
@@ -200,7 +203,8 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "    rc = run_main(auto + ['--tpu-engine', eng, '--out', out],\n"
         "                  device='cpu')\n"
         "    assert rc == 0, (out, rc)\n"
-        "assert not [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.split('.')[0] in ('jax', 'jaxlib', 'garlic_tpu')]\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith("XLA")}
     r = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
@@ -231,10 +235,19 @@ def test_fast_engine_without_cuda_exits_nonzero(panel_dir, monkeypatch,
 
 def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
                                              capsys):
+    """The default --tpu-engine auto means the fast engine: without a
+    CUDA device it no longer runs the exact engine by itself but exits 1
+    with one stderr line that names --tpu-engine exact, which the same
+    run then takes."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert _run(port_main, panel_dir, _base(panel_dir) + [
-        "--out", "auto"]) == 0
-    assert "--tpu-engine auto -> exact" in capsys.readouterr().err
+        "--out", "auto"]) == 1
+    err = capsys.readouterr().err.strip().splitlines()
+    assert len(err) == 1
+    assert "--tpu-engine exact" in err[0] and "--tpu-engine auto" in err[0]
+    assert not os.path.exists(f"{panel_dir}/auto.log")
+    assert _run(port_main, panel_dir, _base(panel_dir) + [
+        "--tpu-engine", "exact", "--out", "auto"]) == 0
 
 
 @pytest.mark.parametrize("extra,drop,names", [
