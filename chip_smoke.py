@@ -62,13 +62,40 @@ Phases (any failure raises and exits non-zero, printing no result):
    - on the 50 x (100k, 100k) panel, fast against exact: --auto-winsize
      from 40 by 20 (the same window size, BED identical, every .kde's x
      column identical) and --winsize-multi 40 60 80 (the same .kde
-     files, x identical).
+     files, x identical);
+6. weighted path (--weighted with a genetic map, --phased, --cm; its
+   programs are plain torch, ops/device_wlod.py, counted like kernels):
+   - bench.py's panel and pinned flags with --weighted --map (a map
+     scaffold at MAP_RATE), fast cold then warm (--tpu-panel-cache)
+     against the exact engine: .roh.bed byte-identical, .freq.gz equal,
+     the pair band, band assembly and window programs run for every
+     chromosome; the warm run prints the tie patrol's stage times;
+   - CUDA-event medians at the bench shape (W=60) of the hr2 and r2 pair
+     bands, the band assembly, the score gather, the window sums and the
+     whole weighted Phase I, each beside its bound; the device-memory
+     peak of the whole (torch.cuda.max_memory_allocated);
+   - on the 50 x (100k, 100k) panel, fast against exact, BED identical:
+     --weighted --phased, --weighted --ld-subsample 20, --weighted
+     --tgls (GQ), automatic --weighted (.log equal, .kde x identical),
+     --weighted --auto-winsize, --cm pinned (K2 runs) and automatic (K1
+     runs, K2 never);
+   - the weighted tie band on bench chromosome 1 at W=60 and W=120:
+     max |win_f32 - win_f64| / (2^-23 * W * tie_scale) within 256, the
+     f64 windows summed on the card over the f64 band of the exact
+     engine's pair counts, taken on the host.
+   The exact engine's weighted runs take minutes of f64 host work, so
+   they run as `python -m garlic_tpu_torch` subprocesses that cannot see
+   the card, side by side, once every timed measurement is over (the
+   tie band is checked beside them); the bench panel's as one run per
+   chromosome, whose outputs are joined (the pinned run treats its
+   chromosomes apart).
 Every run prints its --tpu-profile phase split.
 
 The line before the last is {"kernels": [...]} (launches summed over the
 main path's runs), the last line {"ok": true, "device": {...}}.  The
-script imports no JAX (an import hook refuses it) and writes only under
-build/chip_smoke/, removed at the end.
+script imports no JAX (an import hook refuses it), writes only under
+build/chip_smoke/, removed at the end, and ends every subprocess it
+starts.
 """
 
 from __future__ import annotations
@@ -101,6 +128,13 @@ FLAGS = ["--build", "hg18", "--winsize", "60", "--error", "0.001",
 ERROR, MAX_GAP, OVERLAP_FRAC = 0.001, 200000, 0.25  # the flags' values
 HG18_CHR1_CENTROMERE = (121236957, 123476957)
 TIE_BAND_FACTOR = 256.0
+# the weighted runs: the genetic map's scale (tests/util.write_map_scaffold's
+# rate_cm_per_mb, as tests/test_torch_wlod.py's automatic panel: at the
+# default 1.2 the recombination factor shrinks every score below the
+# pinned cutoff), and the --mu and --M defaults
+MAP_RATE = 0.012
+MU, M_GEN = 1e-9, 7
+INT8_RATE = 1.979e15  # dense int8 operations per second (data sheet)
 # the automatic run: no --lod-cutoff, no --size-bounds
 AUTO_FLAGS = ["--build", "hg18", "--winsize", "60", "--error", "0.001",
               "--kde-subsample", "0", "--tpu-panel-cache", "--tpu-profile"]
@@ -584,6 +618,49 @@ def write_tgls(panel, path, tokens, seed):
                                  for l in range(start, stop)))
 
 
+class _ExactRuns:
+    """Exact-engine runs of `python -m garlic_tpu_torch` in subprocesses
+    that cannot see the card.  They start together once every timed
+    measurement of the smoke is over, so their f64 host work shares the
+    host only with each other and with untimed checks (their own walls
+    are taken side by side).  finish() waits for one, checks its exit
+    code and prints its --tpu-profile split; stop() ends any left."""
+
+    def __init__(self):
+        self.procs = {}
+
+    def start(self, argv, label):
+        out = _MainPath.out(label)
+        log = open(out + ".stderr", "wb")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", "garlic_tpu_torch"] + argv
+            + ["--tpu-engine", "exact", "--out", out], cwd=REPO, env=env,
+            stdout=log, stderr=subprocess.STDOUT), log)
+
+    def finish(self, label, mp):
+        proc, log = self.procs.pop(label)
+        rc = proc.wait()
+        log.close()
+        text = _read(log.name).decode(errors="replace")
+        split = re.findall(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s", text,
+                           flags=re.M)
+        mp.walls[label] = float(dict(split).get("TOTAL", "nan"))
+        say(f"  {label} (subprocess): exit {rc}, --tpu-profile total "
+            f"{mp.walls[label]:.3f}s")
+        if split:
+            say("    profile (s): " + ", ".join(f"{k} {v}" for k, v in split))
+        if rc != 0:
+            raise AssertionError(f"{label} exited {rc}: {text[-3000:]}")
+
+    def stop(self):
+        for proc, log in self.procs.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+        self.procs.clear()
+
+
 class _MainPath:
     """Drives the port's runs; each run's kernel launch counters are
     zeroed just before it and read just after it, and summed."""
@@ -593,12 +670,16 @@ class _MainPath:
         self.launches = dict.fromkeys(KERNELS, 0)
 
     def run(self, argv, label, kernel=None, at_least=0, absent=None):
-        from garlic_tpu_torch.ops import cuda_lod
-        for k in cuda_lod.LAUNCHES:
-            cuda_lod.LAUNCHES[k] = 0
+        """kernel: a kernel's name, or one of the weighted path's
+        plain-torch programs (device_wlod.CALLS), that must run at least
+        at_least times; absent: a kernel that must not run."""
+        from garlic_tpu_torch.ops import cuda_lod, device_wlod
+        for counts in (cuda_lod.LAUNCHES, device_wlod.CALLS):
+            for k in counts:
+                counts[k] = 0
         self.walls[label] = _run_port(argv + ["--out", self.out(label)],
                                       label)
-        got = dict(cuda_lod.LAUNCHES)
+        got = {**cuda_lod.LAUNCHES, **device_wlod.CALLS}
         say(f"    launches: {got}")
         for k in self.launches:
             self.launches[k] += got[k]
@@ -626,6 +707,31 @@ class _MainPath:
             f" ({bed.count(b'track')} individuals, "
             f"{len(bed.splitlines()) - bed.count(b'track')} ROH); "
             ".freq.gz equal")
+
+    def join_chroms(self, label, parts):
+        """Writes label's .roh.bed and .freq.gz from the runs `parts`, one
+        per chromosome in order: each individual's track line, then its
+        calls on each chromosome in turn; the frequency rows of each
+        chromosome in turn under the first header."""
+        blocks = []
+        for k in parts:
+            b = []
+            for line in _read(self.out(k) + ".roh.bed").splitlines(True):
+                if line.startswith(b"track"):
+                    b.append([line])
+                else:
+                    b[-1].append(line)
+            blocks.append(b)
+        if len({tuple(x[0] for x in b) for b in blocks}) != 1:
+            raise AssertionError(f"{parts}: the track lines differ")
+        with open(self.out(label) + ".roh.bed", "wb") as f:
+            for rows in zip(*blocks):
+                f.write(b"".join([rows[0][0]] + [c for r in rows
+                                                 for c in r[1:]]))
+        texts = [_read(self.out(k) + ".freq.gz") for k in parts]
+        with gzip.open(self.out(label) + ".freq.gz", "wb") as f:
+            f.write(texts[0] + b"".join(t.split(b"\n", 1)[1]
+                                        for t in texts[1:]))
 
     def log_lines(self, label):
         """.log after its first line, the output basename normalized."""
@@ -689,14 +795,46 @@ class _MainPath:
             f"of {exact}'s (max |diff| {np.abs(vf[m] - vx[m]).max():.3g})")
 
 
-def phase_main_path(panel, mp):
-    from tests.util import make_panel, write_tped
-    say("== phase 4: main path (python -m garlic_tpu_torch)")
+def _split_rows(path, names):
+    """{name: path} of one gzip text file per chromosome name, holding
+    the rows of the TPED or map file `path` (chromosome first) that
+    belong to it, as they are."""
+    paths = {n: path.replace(".gz", f".{n}.gz") for n in names}
+    outs = {n: gzip.open(q, "wb", compresslevel=1) for n, q in paths.items()}
+    try:
+        with gzip.open(path, "rb") as f:
+            for line in f:
+                outs[line.split(None, 1)[0].decode()].write(line)
+    finally:
+        for o in outs.values():
+            o.close()
+    return paths
+
+
+def write_bench(panel):
+    """bench.py's panel as TPED/TFAM, its genetic map, a copy of the TPED
+    for the weighted runs (a name of their own: their cold run parses),
+    and the weighted TPED and map split by chromosome (the exact engine's
+    weighted runs, one per chromosome)."""
+    from tests.util import write_map_scaffold, write_tped
     tped = os.path.join(WORK, "bench.tped.gz")
     tfam = os.path.join(WORK, "bench.tfam")
     t0 = time.perf_counter()
     write_tped(panel, tped, tfam)
-    say(f"  wrote the bench panel in {time.perf_counter() - t0:.1f}s")
+    wtped = os.path.join(WORK, "weighted.tped.gz")
+    shutil.copy(tped, wtped)
+    wmap = os.path.join(WORK, "bench.map.gz")
+    write_map_scaffold(panel, wmap, rate_cm_per_mb=MAP_RATE)
+    tpeds = _split_rows(wtped, panel.chrom_names)
+    maps = _split_rows(wmap, panel.chrom_names)
+    split = [(tpeds[n], maps[n]) for n in panel.chrom_names]
+    say(f"wrote the bench panel and map in {time.perf_counter() - t0:.1f}s")
+    return tped, tfam, wtped, wmap, split
+
+
+def phase_main_path(panel, mp, tped, tfam):
+    from tests.util import make_panel, write_tped
+    say("== phase 4: main path (python -m garlic_tpu_torch)")
     nchrom = len(panel.chrom_names)
     base = ["--tped", tped, "--tfam", tfam, "--tpu-panel-cache"] + FLAGS
     for label, engine in (("fast_cold", "fast"), ("fast_warm", "fast"),
@@ -753,7 +891,7 @@ def phase_main_path(panel, mp):
                nchrom if engine == "fast" else 0)
     mp.same(("tgls_rawlod_fast",), "tgls_rawlod_exact")
     mp.raw_close("tgls_rawlod_fast", "tgls_rawlod_exact", snames)
-    return (tped, tfam), (stped, stfam)
+    return (stped, stfam), small, sgq
 
 
 def _gmm_init(x, k=3):
@@ -891,6 +1029,250 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     return times
 
 
+def _bytes_or_ops(nbytes, ops_ms, card):
+    """(least time in ms, "bytes" or "operations"): nbytes at the memory
+    rate against ops_ms, the operations at their type's peak rate."""
+    t = nbytes / card[2] * 1e3
+    return (t, "bytes") if t >= ops_ms else (ops_ms, "operations")
+
+
+def _weighted_chrom(tped, mapfile):
+    """Bench chromosome 1 as a weighted run reads it: the port's loader
+    (the warm sidecar), the monomorphic and out-of-bounds filter and the
+    interpolated genetic positions."""
+    from garlic_tpu_torch.centromeres import Centromere
+    from garlic_tpu_torch.io import filters, genmap
+    from garlic_tpu_torch.io import tped as tped_io
+    centro = Centromere("hg18", "none", "none", None)
+    ds, _ = tped_io.load_tped(tped, panel_cache=True)
+    scaffolds = genmap.load_map_scaffold(mapfile, centro)
+    chroms, _ = filters.filter_monomorphic_and_oob(ds.chroms, scaffolds)
+    c = chroms[0]
+    c.gpos, _ = genmap.interpolate_genetic_map(c.positions, scaffolds[0])
+    return c, centro
+
+
+def _wlod_f64(c, centro, W, counts, dev):
+    """f64 weighted windows [I, nwin] on the card, MISSING where masked:
+    the exact engine's pair counts (counts: ld.pair_counts_hr2 over the
+    host genotypes, [L, >= W]), its f64 HR^2 (pair_ld_hr2_from_counts,
+    full-panel marginals), the f64 band by the cumsum assembly
+    (assemble_ld_fast: the exact engine's values up to f64 rounding) and
+    the f64 scores of ops/wlod.py, summed in the reference's order (one
+    rounded product, then one add, j from 0)."""
+    import torch
+    from garlic_tpu_torch.core.types import MISSING
+    from garlic_tpu_torch.ops import ld, wlod
+    from garlic_tpu_torch.ops.lod import window_missing_mask
+    nwin = c.nloci - W + 1
+    num, den = counts
+    P = ld.pair_ld_hr2_from_counts(np.ascontiguousarray(num[:, :W]),
+                                   np.ascontiguousarray(den[:, :W]),
+                                   ld.geno_hom_freq(c.genotypes), W)
+    inv = torch.from_numpy(1.0 / ld.assemble_ld_fast(P, W)[:nwin]).to(dev)
+    del P
+    score = torch.from_numpy(wlod.wlod_scores(c, ERROR, False, MU,
+                                              M_GEN)).to(dev)
+    acc = torch.zeros((c.nind, nwin), dtype=torch.float64, device=dev)
+    for j in range(W):
+        acc += score[:, j:j + nwin] * inv[:, j]
+    missing = torch.from_numpy(window_missing_mask(
+        c.positions, W, MAX_GAP, centro.start(c.chrom),
+        centro.end(c.chrom))).to(dev)
+    return acc.masked_fill_(missing[None, :], float(MISSING)), missing
+
+
+def _weighted_tie_band(c, centro, dev):
+    """max |win_f32 - win_f64| / (2^-23 * W * tie_scale) over every row
+    and live window of bench chromosome 1, at W=60 and W=120; the f64
+    side counts its pairs on the host (the exact engine's code), not with
+    the device program under test."""
+    import torch
+    from garlic_tpu_torch.ops import device_wlod, ld
+    ratios = {}
+    t0 = time.perf_counter()
+    counts = ld.pair_counts_hr2(c.genotypes, 120)
+    say(f"  exact pair counts of bench chromosome 1 to W=120 on the host "
+        f"in {time.perf_counter() - t0:.1f}s")
+    for W in (60, 120):
+        dw = device_wlod.weighted_windows_device(
+            c, centro, W, ERROR, MAX_GAP, False, MU, M_GEN, False, None, dev)
+        w64, missing = _wlod_f64(c, centro, W, counts, dev)
+        live = ~missing
+        diff = float((dw.win[:, live].double() - w64[:, live]).abs().max())
+        scale = float(dw.tie_scale)
+        ratios[f"W={W}"] = diff / (2.0 ** -23 * W * scale)
+        say(f"  weighted W={W}: max |f32 - f64| = {diff:.6g} over {c.nind} "
+            f"rows x {int(live.sum())} windows; tie_scale {scale:.6g}; "
+            f"ratio {ratios[f'W={W}']:.3f} (band {TIE_BAND_FACTOR:g})")
+        del dw, w64, missing, live
+        torch.cuda.empty_cache()
+    if max(ratios.values()) > TIE_BAND_FACTOR:
+        raise AssertionError(f"weighted tie band exceeded: {ratios}")
+    return ratios
+
+
+def _weighted_programs(c, centro, dev):
+    """CUDA-event medians of the weighted path's plain-torch programs at
+    the bench shape (W=60), each beside its bound, as the path calls
+    them, and the device-memory peak of the whole weighted Phase I."""
+    import torch
+    from garlic_tpu_torch.ops import cuda_lod, device_wlod as dw
+    card = _card()
+    W = 60
+    I, L = c.nind, c.nloci
+    nwin = L - W + 1
+    codes = I * ((L + 3) // 4)
+    pk = cuda_lod._upload(cuda_lod.packed_host(c), dev)
+    hf = dw._hom_freq_chunked(pk, L, I)
+    freq = torch.tensor(c.freq, dtype=torch.float32, device=dev)
+    fc = np.random.default_rng(3).random((I, L)) < 0.5
+    P = dw._pair_band_chunked(pk, None, hf, None, L, W, I)
+    inv = 1.0 / dw._assemble_band(P, W).T
+    aux = cuda_lod._upload(dw._weighted_aux(c, centro, W, ERROR, MAX_GAP, MU,
+                                            M_GEN), dev)
+    g = cuda_lod.decode_2bit(pk, L)
+    score = dw._wlod_score_from_table(g, aux[:4])
+    missing = aux[4, :nwin]
+    # pair tests: two 0/1 counts (AND, add) per row, locus and offset; the
+    # window sums: one rounded f32 product and one f32 add per term
+    pairs = I * sum(L - d for d in range(1, W))
+    int8_ms = 2 * 2 * pairs / INT8_RATE * 1e3
+    win_ms = 2 * add_ms(I, L, W, card)
+    progs = {
+        "hr2 pair band (_pair_band_chunked)": (
+            lambda: dw._pair_band_chunked(pk, None, hf, None, L, W, I),
+            _bytes_or_ops(codes + 4 * L + 4 * W * L, int8_ms, card)),
+        "r2 pair band (_pair_band_chunked, host first-copy bits)": (
+            lambda: dw._pair_band_chunked(pk, fc, None, freq, L, W, I),
+            _bytes_or_ops(codes + I * L + 4 * L + 4 * W * L, 2 * int8_ms,
+                          card)),
+        "band assembly (_assemble_band)": (
+            lambda: dw._assemble_band(P, W),
+            _bytes_or_ops(4 * W * L + 4 * W * nwin, 0.0, card)),
+        "score gather (_wlod_score_from_table)": (
+            lambda: dw._wlod_score_from_table(g, aux[:4]),
+            _bytes_or_ops(I * L + 16 * L + 4 * I * L, 0.0, card)),
+        "wLOD window sums (_wlod_windows_dev)": (
+            lambda: dw._wlod_windows_dev(score, inv, missing, W),
+            _bytes_or_ops(4 * I * L + 4 * W * nwin + 4 * nwin
+                          + 4 * I * nwin, win_ms, card)),
+        "weighted Phase I (weighted_windows_device)": (
+            lambda: dw.weighted_windows_device(
+                c, centro, W, ERROR, MAX_GAP, False, MU, M_GEN, False, None,
+                dev),
+            _bytes_or_ops(codes + 20 * L + 4 * I * nwin, int8_ms + win_ms,
+                          card)),
+    }
+    times = {}
+    for name, (fn, (b, by)) in progs.items():
+        t = _median_ms(fn, n=11)
+        times[name] = {"ms": t, "bound_ms": b, "bound_by": by}
+        say(f"  {name} at {I}x{L}, W={W}: {t:.4f} ms, bound {b:.4f} ms "
+            f"({by}), share of bound {b / t:.1%} (CUDA events around one "
+            "call, median of 11)")
+    del pk, g, hf, freq, fc, P, inv, aux, score, missing
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = dw.weighted_windows_device(c, centro, W, ERROR, MAX_GAP, False, MU,
+                                     M_GEN, False, None, dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    say(f"  weighted Phase I device-memory peak at {I}x{L}, W={W}: "
+        f"{peak / 1e6:.1f} MB ({peak / (I * L):.2f} bytes per genotype; "
+        "torch.cuda.max_memory_allocated)")
+    del out
+    return times
+
+
+def weighted_args(tfam, wtped, wmap):
+    """bench.py's pinned flags with --weighted over the bench map."""
+    return ["--tped", wtped, "--tfam", tfam, "--map", wmap,
+            "--weighted"] + FLAGS
+
+
+def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
+                   small_files, sgq):
+    """The weighted fast runs on bench.py's panel, the plain-torch
+    programs' times and peak memory and the small panel's fast runs, all
+    with no other process on the host; then the exact engine's runs in
+    subprocesses side by side, the weighted tie band beside them, and
+    each fast run held to its exact counterpart.  The bench panel's exact
+    run is one run per chromosome (split: (TPED, map) of each), run side
+    by side and joined: the pinned run treats its chromosomes apart, so
+    the joined outputs are the two-chromosome run's, in half the time."""
+    import torch
+    from tests.util import write_map_scaffold
+    say("== phase 6: weighted path (--weighted, --phased, --cm)")
+    wargs = weighted_args(tfam, wtped, wmap)
+    base = wargs + ["--tpu-panel-cache"]
+    mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_cold",
+           "wlod_windows", nchrom)
+    # the warm run prints the tie patrol's suspects and stage times
+    os.environ["GT_ASM_TIMING"] = "1"
+    try:
+        mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_warm",
+               "wlod_windows", nchrom)
+    finally:
+        del os.environ["GT_ASM_TIMING"]
+
+    dev = torch.device("cuda")
+    c, centro = _weighted_chrom(wtped, wmap)
+    times = _weighted_programs(c, centro, dev)
+    torch.cuda.empty_cache()
+
+    stped, stfam = small_files
+    smap = os.path.join(WORK, "small.map.gz")
+    write_map_scaffold(small, smap, rate_cm_per_mb=MAP_RATE)
+    pinned = ["--tped", stped, "--tfam", stfam, "--map", smap] + FLAGS
+    auto = ["--tped", stped, "--tfam", stfam, "--map", smap, "--winsize",
+            "60"] + SEARCH_FLAGS
+    runs = (  # label, flags, program or kernel that must run, absent
+        ("w_phased", pinned + ["--weighted", "--phased"], "wlod_windows",
+         None),
+        ("w_ldsub", pinned + ["--weighted", "--ld-subsample", "20",
+                              "--tpu-seed", "3"], "wlod_windows", None),
+        ("w_tgls", pinned + ["--weighted", "--tgls", sgq, "--gl-type", "GQ"],
+         "wlod_windows", None),
+        ("w_auto", auto + ["--weighted"], "wlod_windows", None),
+        ("w_autowin", pinned + ["--weighted", "--auto-winsize"],
+         "wlod_windows", None),
+        ("cm", pinned + ["--cm"], "covered", None),
+        ("cm_auto", auto + ["--cm"], "lod_windows", "covered"),
+    )
+    for label, flags, prog, absent in runs:
+        mp.run(flags + ["--tpu-engine", "fast"], f"{label}_fast", prog,
+               nchrom, absent=absent)
+
+    # nothing is timed from here on
+    exact = _ExactRuns()
+    try:
+        parts = [f"weighted_exact_{i + 1}" for i in range(len(split))]
+        for k, (t, m) in zip(parts, split):
+            exact.start(weighted_args(tfam, t, m), k)
+        for label, flags, _, _ in runs:
+            exact.start(flags, f"{label}_exact")
+        ratios = _weighted_tie_band(c, centro, dev)
+        del c
+        torch.cuda.empty_cache()
+        for label, _, _, _ in runs:
+            exact.finish(f"{label}_exact", mp)
+            mp.same((f"{label}_fast",), f"{label}_exact")
+            if label.endswith("auto"):
+                mp.same_log((f"{label}_fast",), f"{label}_exact")
+                mp.same_kde((f"{label}_fast",), f"{label}_exact", Y_TOL)
+        for k in parts:
+            exact.finish(k, mp)
+        mp.join_chroms("weighted_exact", parts)
+        mp.same(("weighted_fast_cold", "weighted_fast_warm"),
+                "weighted_exact")
+    finally:
+        exact.stop()
+    return ratios, times
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJaxPackage())
     import torch
@@ -901,6 +1283,7 @@ def main() -> int:
     from tests.util import make_panel
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
+    t_start = time.perf_counter()
     try:
         phase_environment()
         t0 = time.perf_counter()
@@ -908,6 +1291,7 @@ def main() -> int:
         say(f"bench panel {BENCH_PANEL['nind']} x "
             f"{BENCH_PANEL['nloci_per_chr']} made in "
             f"{time.perf_counter() - t0:.1f}s")
+        tped, tfam, wtped, wmap, split = write_bench(panel)
         chrom = _Chrom("chr1", panel.positions[0], panel.genotypes[0],
                        seed=11)
         centro = _Centro(*HG18_CHR1_CENTROMERE)
@@ -915,15 +1299,18 @@ def main() -> int:
         phase_tie_band(chrom, centro)
         del chrom
         mp = _MainPath()
-        bench_files, small_files = phase_main_path(panel, mp)
-        phase_auto_path(mp, bench_files, small_files,
-                        len(panel.chrom_names))
+        small_files, small, sgq = phase_main_path(panel, mp, tped, tfam)
+        nchrom = len(panel.chrom_names)
+        phase_auto_path(mp, (tped, tfam), small_files, nchrom)
+        phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
+                       small_files, sgq)
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))
         launches = mp.launches
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    say(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": KERNELS[k], "launches": launches[k],
                 "max_abs_err": err[k], **times[k]} for k in KERNELS]

@@ -133,3 +133,22 @@ def filter_monomorphic(chroms: List[ChromData]) -> tuple[List[ChromData], int]:
         n += c2.nloci
         out.append(c2)
     return out, n
+
+
+def filter_monomorphic_and_oob(chroms: List[ChromData], scaffolds,
+                               ) -> tuple[List[ChromData], int]:
+    """Also drop sites outside the scaffold range or strictly inside the
+    centromere (src/garlic-data.cpp:1066-1098).
+
+    Copy of garlic_tpu/io/filters.py:128."""
+    out = []
+    n = 0
+    for c, s in zip(chroms, scaffolds):
+        keep = ((c.freq > 0) & (c.freq < 1)
+                & ~(c.positions < s.positions[0])
+                & ~(c.positions > s.positions[-1])
+                & ~((c.positions > s.centro_start) & (c.positions < s.centro_end)))
+        c2 = _apply(c, keep)
+        n += c2.nloci
+        out.append(c2)
+    return out, n

@@ -2,11 +2,10 @@
 
 Copies of garlic_tpu/io/panelcache.py (the container format, the
 readers, the .gtlc reader and writer), so both packages read each
-other's sidecars.  The .gtpc writer differs: garlic_tpu writes it
-through _collect_arrays, which packs int8 genotypes with
-garlic_tpu.ops.pallas_lod; the port's loader always parses genotypes
-straight to 2-bit codes, so its payload is already packed and this copy
-needs no packer.  Each function names its source line.
+other's sidecars.  The .gtpc writer differs only in its packer:
+garlic_tpu packs int8 genotypes (phased parses) with
+garlic_tpu.ops.pallas_lod, the port with ops/cuda_lod.pack_codes, which
+gives the same bytes.  Each function names its source line.
 """
 
 from __future__ import annotations
@@ -48,14 +47,14 @@ def cache_path(tpedfile: str) -> str:
     return tpedfile + ".gtpc"
 
 
-# copy of garlic_tpu/io/panelcache.py:53, 2-bit payloads only
+# copy of garlic_tpu/io/panelcache.py:53, packing int8 genotypes with the
+# port's packer (ops/cuda_lod.pack_codes)
 def _collect_arrays(chroms: List[dict]):
-    """The per-chromosome array dict the container serializes."""
+    """The per-chromosome array dict the container serializes: 2-bit
+    codes (as parsed, or packed from a phased parse's int8 genotypes) and,
+    for phased parses, the bit-packed first-copy plane c{i}_fc."""
     arrays = {}
     for i, c in enumerate(chroms):
-        if c.get("geno2b") is None:
-            raise ValueError("the port's panel cache stores 2-bit parses "
-                             "only")
         arrays[f"c{i}_pos"] = np.asarray(c["positions"], dtype=np.int64)
         arrays[f"c{i}_gpos"] = np.asarray(c["gpos"], dtype=np.float64)
         arrays[f"c{i}_alleles"] = np.asarray(c["alleles"], dtype="<U1")
@@ -64,8 +63,17 @@ def _collect_arrays(chroms: List[dict]):
         raw = names.raw if hasattr(names, "raw") else \
             "\n".join(names).encode()
         arrays[f"c{i}_names"] = np.frombuffer(raw, dtype=np.uint8)
-        # parser emitted packed codes directly (tail codes already 3)
-        arrays[f"c{i}_geno2b"] = np.ascontiguousarray(c["geno2b"])
+        if c.get("geno2b") is not None:
+            # parser emitted packed codes directly (tail codes already 3)
+            arrays[f"c{i}_geno2b"] = np.ascontiguousarray(c["geno2b"])
+        else:
+            from ..ops.cuda_lod import pack_codes
+            arrays[f"c{i}_geno2b"] = pack_codes(
+                np.ascontiguousarray(c["genotypes"]))
+        fc = c.get("first_copy")
+        if fc is not None:
+            arrays[f"c{i}_fc"] = np.packbits(np.asarray(fc, dtype=bool),
+                                             axis=1)
     return arrays
 
 

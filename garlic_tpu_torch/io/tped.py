@@ -2,8 +2,9 @@
 
 Copies of garlic_tpu/io/tped.py: the native C++ parser's assembly, the
 pure-Python reader and the --freq-only stream as they are; load_tped for
-unphased, single-process loads that always ask the native parser for
-2-bit codes, writing a cold run's sidecar through io/panelcache.py here.
+single-process loads, which ask the native parser for 2-bit codes
+(unphased) or int8 genotypes with the first-copy bits (--phased), writing
+a cold run's sidecar through io/panelcache.py here.
 Each function names its source line.
 """
 
@@ -243,17 +244,21 @@ def _assemble_from_native(native, phased: bool, auto_freq: bool, log):
     return ds, num_loci
 
 
-# copy of garlic_tpu/io/tped.py:128 for unphased, single-process loads
-# with genotypes parsed to 2-bit codes (packed_geno=True)
+# copy of garlic_tpu/io/tped.py:128 for single-process loads: unphased
+# genotypes parsed to 2-bit codes (packed_geno=True), phased ones to int8
+# with the first-copy bits
 def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
               auto_freq: bool = True, log=None,
               rng: Optional[np.random.Generator] = None,
-              panel_cache: bool = False) -> Tuple[Dataset, int]:
+              panel_cache: bool = False,
+              phased: bool = False) -> Tuple[Dataset, int]:
     """Load a TPED file into a Dataset. Returns (dataset, total_loci).
 
     Mirrors loadTPEDData (src/garlic-data.cpp:10-177). Frequency
     resampling draws `nresample` Bernoulli(freq) trials
-    (src/garlic-data.cpp:142-148) from the given generator."""
+    (src/garlic-data.cpp:142-148) from the given generator.  phased
+    keeps the first-copy bits (--phased); a sidecar without them is a
+    miss."""
     if not os.path.exists(tpedfile):
         if log is not None:
             log.err("ERROR: Failed to open", tpedfile)
@@ -261,7 +266,7 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
     native = None
     from_cache = False
     if panel_cache:
-        native = panelcache.load_cache(tpedfile, want_fc=False,
+        native = panelcache.load_cache(tpedfile, want_fc=phased,
                                        tped_missing=tped_missing)
         from_cache = native is not None
         if from_cache:
@@ -270,12 +275,13 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
     if native is None:
         try:
             from ..native import parse_tped_native
-            native = parse_tped_native(tpedfile, tped_missing)
+            native = parse_tped_native(tpedfile, tped_missing,
+                                       want_fc=phased)
         except Exception:
             native = None
 
     if native is not None:
-        ds, num_loci = _assemble_from_native(native, False, auto_freq, log)
+        ds, num_loci = _assemble_from_native(native, phased, auto_freq, log)
         if panel_cache:
             ds.panel_cache_file = panelcache.cache_path(tpedfile)
         if panel_cache and not from_cache:
@@ -290,7 +296,7 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
                 for c, d in zip(ds.chroms, digs):
                     c.geno2b_digest = d
     else:
-        ds, num_loci = _load_tped_python(tpedfile, tped_missing, False,
+        ds, num_loci = _load_tped_python(tpedfile, tped_missing, phased,
                                          auto_freq, log)
 
     if auto_freq and nresample > 0:

@@ -91,6 +91,13 @@ def _load():
         lib.gt_tped_chrom_name.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.gt_tped_names_size.restype = ctypes.c_int64
         lib.gt_tped_names_size.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.gt_tped_copy.restype = None
+        lib.gt_tped_copy.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double),
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_int8),
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_double),
+            ctypes.c_char_p]
         lib.gt_tped_close.restype = None
         lib.gt_tped_close.argtypes = [ctypes.c_void_p]
         lib.gt_tped_copy_2bit.restype = None
@@ -331,18 +338,22 @@ def get_native_max_threads() -> int:
     return int(lib.gt_get_max_threads()) if lib is not None else 1
 
 
-def parse_tped_native(path: str, missing: str) -> Optional[List[dict]]:
-    """Parse a TPED via the C++ parser, genotypes emitted straight as
-    2-bit codes (fused transpose+pack, the int8 matrix never exists).
-    Returns per-chromosome dicts or None if the native library is
-    unavailable (callers fall back): the want_packed=True, full-panel
-    branch of garlic_tpu's parse_tped_native.
+def parse_tped_native(path: str, missing: str,
+                      want_fc: bool = False) -> Optional[List[dict]]:
+    """Parse a TPED via the C++ parser.  Returns per-chromosome dicts or
+    None if the native library is unavailable (callers fall back): the
+    full-panel branches of garlic_tpu's parse_tped_native.  Unphased
+    (want_fc=False): genotypes emitted straight as 2-bit codes (fused
+    transpose+pack, the int8 matrix never exists; want_packed=True
+    there).  Phased (want_fc=True): int8 genotypes and the first-copy
+    bits (want_fc=True, want_packed=False there).
 
     Adapted from garlic_tpu/native/build.py:369."""
     lib = _load()
     if lib is None:
         return None
-    h = lib.gt_tped_open(path.encode(), missing.encode()[0:1] or b"0", 0)
+    h = lib.gt_tped_open(path.encode(), missing.encode()[0:1] or b"0",
+                         1 if want_fc else 0)
     if not h:
         raise IOError(f"native TPED parse failed for {path}")
     try:
@@ -358,26 +369,40 @@ def parse_tped_native(path: str, missing: str) -> Optional[List[dict]]:
             alleles = np.empty(L, dtype="S1")
             freq = np.empty(L, dtype=np.float64)
             names_buf = ctypes.create_string_buffer(int(nsz) + 1)
-            rb = (int(L) + 3) // 4
-            geno2b = np.empty((nind, rb), dtype=np.uint8)
-            lib.gt_tped_copy_2bit(
-                h, c,
-                positions.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-                gpos.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-                alleles.ctypes.data_as(ctypes.c_char_p),
-                geno2b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-                rb,
-                freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-                names_buf)
+            geno = geno2b = fc = None
+            if want_fc:
+                geno = np.empty((nind, L), dtype=np.int8)
+                fc = np.empty((nind, L), dtype=np.uint8)
+                lib.gt_tped_copy(
+                    h, c,
+                    positions.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    gpos.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                    alleles.ctypes.data_as(ctypes.c_char_p),
+                    geno.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+                    fc.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                    freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                    names_buf)
+            else:
+                rb = (int(L) + 3) // 4
+                geno2b = np.empty((nind, rb), dtype=np.uint8)
+                lib.gt_tped_copy_2bit(
+                    h, c,
+                    positions.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    gpos.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                    alleles.ctypes.data_as(ctypes.c_char_p),
+                    geno2b.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                    rb,
+                    freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                    names_buf)
             from ..core.types import LocusNames
             out.append({
                 "chrom": name,
                 "positions": positions,
                 "gpos": gpos,
                 "alleles": alleles.astype("<U1"),
-                "genotypes": None,
+                "genotypes": geno,
                 "geno2b": geno2b,
-                "first_copy": None,
+                "first_copy": fc.view(np.bool_) if fc is not None else None,
                 "freq": freq,
                 "freq_num": None,
                 "freq_den": None,

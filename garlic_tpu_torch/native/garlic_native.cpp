@@ -629,6 +629,29 @@ void transpose_blocked(const T *src, T *dst, int64_t L, int64_t I) {
 
 }  // namespace
 
+// Copy chromosome c into caller buffers. geno/first_copy become
+// individual-major [I][L].  first_copy may be null (skip — unphased runs
+// never read it; also absent when opened with want_fc=0).  The phased
+// parse's entry point (garlic_tpu/native/garlic_native.cpp:721).
+void gt_tped_copy(void *hv, int c, int64_t *positions, double *gpos,
+                  char *alleles, int8_t *geno, uint8_t *first_copy,
+                  double *freq, char *names_buf) {
+  TpedHandle *h = (TpedHandle *)hv;
+  ChromBlock &b = h->chroms[c];
+  int64_t L = (int64_t)b.positions.size();
+  int64_t I = h->nstore;
+  memcpy(positions, b.positions.data(), L * sizeof(int64_t));
+  memcpy(gpos, b.gpos.data(), L * sizeof(double));
+  memcpy(alleles, b.allele.data(), L * sizeof(char));
+  memcpy(freq, b.freq.data(), L * sizeof(double));
+  memcpy(names_buf, b.names.data(), b.names.size());
+  transpose_blocked(h->geno.data() + b.row_offset * I, geno, L, I);
+  if (first_copy != nullptr && h->has_fc) {
+    transpose_blocked(h->first_copy.data() + b.row_offset * I, first_copy,
+                      L, I);
+  }
+}
+
 // Copy chromosome c with genotypes emitted DIRECTLY as 2-bit codes
 // [I][rb] (rb = ceil(L/4); tail codes 3 = missing): a fused blocked
 // transpose+pack that writes 4x fewer bytes than the int8 copy — the

@@ -317,18 +317,21 @@ def _pack_numpy(geno: np.ndarray, L4: int) -> np.ndarray:
     return packed.astype(np.uint8)
 
 
-def packed_host(chrom) -> np.ndarray:
-    """u8 [I, ceil(L/4)] 2-bit codes of one chromosome: the panel-cache /
-    packed-filter bytes as they are, else the int8 genotypes packed by
-    the native C++ packer."""
-    L = chrom.nloci
-    rb = (L + 3) // 4
-    if chrom.geno_is_packed_only:
-        return chrom.geno2b[:, :rb]
-    geno = np.asarray(chrom.genotypes)
+def pack_codes(geno: np.ndarray) -> np.ndarray:
+    """u8 [I, ceil(L/4)] 2-bit codes of int8 [I, L] genotypes, missing
+    codes past L: the native C++ packer, else numpy."""
+    rb = (geno.shape[1] + 3) // 4
     from ..native import pack_2bit_padded_native
     packed = pack_2bit_padded_native(geno, geno.shape[0], 4 * rb)
     return packed if packed is not None else _pack_numpy(geno, 4 * rb)
+
+
+def packed_host(chrom) -> np.ndarray:
+    """u8 [I, ceil(L/4)] 2-bit codes of one chromosome: the panel-cache /
+    packed-filter bytes as they are, else the int8 genotypes packed."""
+    if chrom.geno_is_packed_only:
+        return chrom.geno2b[:, :(chrom.nloci + 3) // 4]
+    return pack_codes(np.asarray(chrom.genotypes))
 
 
 def _missing_mask(chrom, centro, winsize: int, max_gap: int, device):

@@ -1,7 +1,7 @@
 """SNP density and density-driven auto-selection heuristics.
 
-Ports calcDensity/selectOverlapFrac (src/garlic-data.cpp:3-8,318-328);
-selectWinsizeWeighted waits for the weighted path.
+Ports calcDensity/selectOverlapFrac (src/garlic-data.cpp:3-8,318-328) and
+selectWinsizeWeighted (src/garlic-roh.cpp:3-9).
 
 Copy of garlic_tpu/ops/density.py: the port imports nothing of
 garlic_tpu. Each function and class names its source line.
@@ -33,3 +33,11 @@ def select_overlap_frac(density: float, winsize: int) -> float:
     if frac <= 0:
         frac = 1.0 / float(winsize)
     return frac
+
+
+def select_winsize_weighted(density: float) -> int:
+    """int(8.3235*ln(d)+138.0521+0.5), min 10 (src/garlic-roh.cpp:3-9).
+
+    Copy of garlic_tpu/ops/density.py:32."""
+    size = int(8.3235 * math.log(density) + 138.0521 + 0.5)
+    return size if size >= 10 else 10

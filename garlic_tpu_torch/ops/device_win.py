@@ -41,11 +41,13 @@ class DeviceWin:
     window-start columns, MISSING where the window is masked (the
     counterpart of device_win.py:30 in its exactly sized layout).
     Accessors present the reference's [nind, nloci] MISSING-tailed
-    view."""
+    view.  tie_scale: the weighted paths' f32 device scalar (max finite
+    |term|), which scales the tie band in covered_dispatch."""
     win: torch.Tensor
     nind: int
     nloci: int
     nwin: int
+    tie_scale: torch.Tensor = None
 
     @property
     def shape(self):
@@ -140,7 +142,7 @@ def _coverage(win: torch.Tensor, cutoff: float, threshold: float,
     MISSING slots score -9999, far from any cutoff band; delta 0 flags
     nothing.  Counts are exact int32 sums."""
     c = torch.tensor(cutoff, dtype=torch.float32, device=win.device)
-    d = torch.tensor(delta, dtype=torch.float32, device=win.device)
+    d = torch.as_tensor(delta, dtype=torch.float32, device=win.device)
     above = win >= c
     susw = (win - c).abs() < d
     I, nwin = win.shape
@@ -190,7 +192,10 @@ def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
     the first blocking fetch.
 
     tie_delta > 0 also flags windows within tie_delta of the cutoff (the
-    f32 error band); covered_fetch returns them for the tie patrol."""
+    f32 error band); covered_fetch returns them for the tie patrol.  When
+    the DeviceWin carries a tie_scale (weighted paths), tie_delta is a
+    factor of that device scalar, multiplied on the device with no host
+    sync (device_win.py:575-576)."""
     # coverage counts are exact integers, so `count >= threshold` over
     # f64 equals `count >= ceil(threshold)`, which is f32-exact
     thr = float(math.ceil(threshold))
@@ -201,6 +206,9 @@ def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
         if h is not None:
             return h
         dwin = dwin.make()
+    if tie_delta and dwin.tie_scale is not None:
+        tie_delta = torch.tensor(tie_delta, dtype=torch.float32,
+                                 device=dwin.win.device) * dwin.tie_scale
     cov, susw, above = _coverage(dwin.win, cutoff, thr, tie_delta, winsize,
                                  dwin.nloci)
     return cov, susw, above, dwin.nind, dwin.nloci

@@ -1,20 +1,23 @@
 """End-to-end ROH-calling pipeline of the port.
 
-Counterpart of garlic_tpu/pipeline.py for single-device unweighted TPED
-runs, with or without a --tgls per-genotype error file: load (with the
---tpu-panel-cache sidecars) -> allele frequencies -> monomorphic filter
--> window size (pinned, --auto-winsize or --winsize-multi) -> Phase I ->
-Phase II (pinned or automatic LOD cutoff) -> Phase III (coverage, tie
-patrol, run assembly) -> Phase IV (pinned or automatic size bounds) ->
-BED; also --freq-only.  The .log lines and their order are the JAX
-package's, byte for byte.
+Counterpart of garlic_tpu/pipeline.py for single-device TPED runs, with
+or without a --tgls per-genotype error file, --phased first copies, a
+--map genetic map (--weighted LD-weighted LOD, --cm lengths): load (with
+the --tpu-panel-cache sidecars) -> allele frequencies -> monomorphic
+(and, with a map, out-of-bounds) filter -> window size (pinned,
+--auto-winsize or --winsize-multi) -> Phase I -> Phase II (pinned or
+automatic LOD cutoff) -> Phase III (coverage, tie patrol, run assembly)
+-> Phase IV (pinned or automatic size bounds) -> BED; also --freq-only.
+The .log lines and their order are the JAX package's, byte for byte.
 
 Engines: `fast` (also what the default `auto` means) runs Phase I on a
 CUDA device through the hand-written kernels (ops/cuda_lod.py: K2 fused
 with the coverage count on pinned runs, K1 on automatic-cutoff runs and
 for --raw-lod; with --tgls, K4 fused for dictionary-form error planes and
-K3 otherwise), and the KDE's Gauss transform and the GMM's EM on the same
-device (ops/kde.py, ops/gmm.py); without a CUDA device it exits 1 and
+K3 otherwise) or, on --weighted runs, the plain-torch LD band and wLOD
+window programs (ops/device_wlod.py), and the KDE's Gauss transform and
+the GMM's EM on the same device (ops/kde.py, ops/gmm.py); without a CUDA
+device it exits 1 and
 names `--tpu-engine exact`, the f64 numpy/C++ engine on the host, which
 runs only when asked for.  Phase II pools the exact engine's f64 windows
 on both engines (the fast engine through _exact_thinned_samples and the
@@ -38,12 +41,15 @@ from . import cli
 from .centromeres import Centromere
 from .cli import CLIError, ParsedArgs
 from .core.types import MISSING, ChromData, GarlicDataError
-from .io import bed, filters, freqfile, kdefile, rawlod, tfam, tgls, tped
+from .io import bed, filters, freqfile, genmap, kdefile, rawlod, tfam, tgls
+from .io import tped
 from .logger import RunLog
 from .ops import assembly, convert, cutoff as cutoff_ops, density
 from .ops import device_win, gmm, kde
+from .ops import ld as ld_ops
 from .ops import lod as lod_ops
 from .ops import wiggle as wiggle_ops
+from .ops import wlod as wlod_ops
 from .version import OUTPUT_COMPAT_VERSION
 
 AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
@@ -64,10 +70,7 @@ def _not_ported_msg(what: str) -> str:
 def _unported(args: ParsedArgs) -> Optional[str]:
     """The first requested configuration outside the port, or None."""
     checks = [
-        (args[cli.ARG_WEIGHTED], cli.ARG_WEIGHTED),
         (args[cli.ARG_MESH] not in ("none", "", "1", "1x1"), cli.ARG_MESH),
-        (args[cli.ARG_CM], cli.ARG_CM),
-        (args[cli.ARG_PHASED], cli.ARG_PHASED),
         (any(os.environ.get(v) for v in _MULTIHOST_ENV),
          "a multi-host run (" + "/".join(_MULTIHOST_ENV) + ")"),
     ]
@@ -230,6 +233,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     log.log("Measure ROH in genetic distance units:", cm)
     argerr = argerr or cli.check_map_file(log, mapfile, weighted or cm)
     log.log("Weighted LOD:", weighted)
+    if weighted:
+        log.log("Map file:", mapfile)
 
     build = args[cli.ARG_BUILD]
     argerr = argerr or cli.check_build(log, build)
@@ -366,7 +371,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     raw_lod = args[cli.ARG_RAW_LOD]
     log.log("Output raw LOD scores:", raw_lod)
 
-    log.log("Use r2 for weighting phased data:", args[cli.ARG_PHASED])
+    phased = args[cli.ARG_PHASED]
+    log.log("Use r2 for weighting phased data:", phased)
 
     thin = not args[cli.ARG_KDE_THINNING]
     log.log("Use thinning for KDE estimation:", thin)
@@ -386,11 +392,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     centro = Centromere(build, centromere_file, cli.DEFAULT_CENTROMERE_FILE,
                         log)
     try:
-        # 2-bit codes on both engines (io/tped.py): the fast engine
-        # uploads them as they are
+        # unphased: 2-bit codes on both engines (io/tped.py), which the
+        # fast engine uploads as they are; phased: int8 and first copies
         ds, num_loci = tped.load_tped(
             tpedfile, tped_missing, nresample, auto_freq, log, rng,
-            panel_cache=args[cli.ARG_PANEL_CACHE])
+            panel_cache=args[cli.ARG_PANEL_CACHE], phased=phased)
         log.log("Total loci:", num_loci)
         ds.ind_ids, ds.pop = tfam.read_tfam(tfamfile, log)
         num_ind = ds.nind
@@ -405,6 +411,14 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             tgls.read_tgls(tglsfile, ds.chroms, num_ind, gl_type, log,
                            panel_cache=bool(args[cli.ARG_PANEL_CACHE]))
             use_gl = True
+
+        scaffolds = None
+        if weighted or cm:
+            scaffolds = genmap.load_map_scaffold(mapfile, centro, log)
+            if len(scaffolds) != len(ds.chroms):
+                log.err("ERROR: Scaffold genetic map does not have the same "
+                        "number of chromosomes as data.")
+                return -1
     except (GarlicDataError, FileNotFoundError):
         # expected load failure: ERROR text already in .error (the
         # reference's catch(...) { return 1; }, src/garlic-main.cpp:210-242)
@@ -435,18 +449,29 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     prof.mark("freq", num_loci, "loci")
 
     # ---------------- Filtering ----------------
-    ds.chroms, new_loci = filters.filter_monomorphic(ds.chroms)
-    log.log("Monomorphic loci filtered:", num_loci - new_loci)
+    if weighted or cm:
+        ds.chroms, new_loci = filters.filter_monomorphic_and_oob(ds.chroms,
+                                                                 scaffolds)
+        log.log("Monomorphic or out of bounds loci filtered:",
+                num_loci - new_loci)
+        num_interp = 0
+        for c, s in zip(ds.chroms, scaffolds):
+            c.gpos, n = genmap.interpolate_genetic_map(c.positions, s)
+            num_interp += n
+        log.log("Number of genetic map locations interpolated:", num_interp)
+    else:
+        ds.chroms, new_loci = filters.filter_monomorphic(ds.chroms)
+        log.log("Monomorphic loci filtered:", num_loci - new_loci)
     log.log("Total loci used for analysis:", new_loci)
     num_loci = new_loci
     prof.mark("filter", num_loci, "loci")
 
     variant_density = -1.0
-    if auto_overlap_frac:
+    if (auto_winsize and weighted) or auto_overlap_frac:
         variant_density = density.calc_density(num_loci, ds.chroms, centro)
 
     st = _PhaseII(log=log, rng=rng, engine=engine, device=device)
-    if engine == "fast":
+    if engine == "fast" and not weighted:
         # Phase II pools the exact engine's f64 rolling windows (the f32
         # device windows would shift the nrd0 bandwidth and with it every
         # .kde x value); assembly keeps the device windows and the tie
@@ -462,7 +487,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
     # ---------------- Winsize resolution ----------------
     kde_result = None
-    if winsize_explore and auto_winsize:
+    if winsize_explore and auto_winsize and not weighted:
         kde_result, winsize = _select_winsize_from_list(
             st, ds, centro, multi_winsizes, error, use_gl, max_gap,
             kde_subsample, outfile, thin)
@@ -470,21 +495,25 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             return 1
     elif winsize_explore:
         _explore_winsizes(st, ds, centro, multi_winsizes, error, use_gl,
-                          max_gap, kde_subsample, outfile, thin)
+                          max_gap, kde_subsample, outfile, weighted, M, mu,
+                          phased, thin, ld_subsample)
         return 0
     elif auto_winsize:
-        try:
-            kde_result, winsize = _select_winsize(
-                st, ds, centro, winsize, auto_winsize_step, error, use_gl,
-                max_gap, kde_subsample, outfile, thin)
-        except GarlicDataError:
-            return 1
-        except Exception as e:
-            log.err("ERROR: Internal failure during window size "
-                    "selection:", repr(e))
-            return 1
-        if kde_result is None:
-            return 1
+        if not weighted:
+            try:
+                kde_result, winsize = _select_winsize(
+                    st, ds, centro, winsize, auto_winsize_step, error,
+                    use_gl, max_gap, kde_subsample, outfile, thin)
+            except GarlicDataError:
+                return 1
+            except Exception as e:
+                log.err("ERROR: Internal failure during window size "
+                        "selection:", repr(e))
+                return 1
+            if kde_result is None:
+                return 1
+        else:
+            winsize = density.select_winsize_weighted(variant_density)
         log.log("Selected window size:", winsize)
 
     print(f"Window size: {winsize}")
@@ -494,25 +523,50 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         log.log("Selected overlap fraction:", overlap_frac)
 
     # ---------------- Phase I ----------------
-    # Pinned-cutoff fast runs fuse Phase I INTO the coverage kernel (K2):
-    # the [I, nwin] f32 window matrix never reaches device memory.
-    # Automatic-cutoff runs and --raw-lod take the split path (K1), as
-    # garlic_tpu does (pipeline.py:744-745).
-    fused = engine == "fast" and not auto_cutoff and not raw_lod
-    fused_args = None
-    if fused:
-        # pre-resolve the tie band + threshold so each chromosome's K2
-        # launch is enqueued during Phase I
-        fused_args = (lod_cutoff,
-                      assembly.overlap_threshold(overlap_frac, winsize),
-                      _tie_band(ds.chroms, winsize, error, use_gl))
-    try:
-        win_by_chr = _calc_lod_windows(engine, device, ds, centro, winsize,
-                                       error, max_gap, use_gl, fused,
-                                       fused_args)
-    except _NotPorted as e:
-        print(_not_ported_msg(str(e)), file=sys.stderr)
-        return 1
+    wpair_cache = {}
+    sub_idx = None
+    if weighted:
+        print("Calculating LD matrix.", file=sys.stderr)
+        sub_idx = _ld_subsample_idx(ds.nind, ld_subsample, rng)
+        if engine == "fast":
+            # Phase II pools the exact f64 thinned wLOD samples; the pair
+            # band memoizes into wpair_cache, which the weighted tie
+            # patrol shares (pipeline.py:678-706)
+            st.exact_sampler = \
+                lambda wq, step, rows: _exact_thinned_wsamples(
+                    ds.chroms, centro, wq, error, max_gap, use_gl, step,
+                    rows, mu, M, phased, sub_idx, wpair_cache)
+            if ds.panel_cache_file is not None and nresample == 0:
+                from .io.poolcache import PoolCache, pool_key
+                st.pool_cache = PoolCache(
+                    ds.panel_cache_file,
+                    lambda wq, stp: pool_key(
+                        ds.chroms, wq, stp, error, max_gap, use_gl,
+                        centro, weighted=True, mu=mu, M=M, phased=phased,
+                        sub_idx=sub_idx))
+        win_by_chr = _calc_wlod_windows(engine, device, ds, centro, winsize,
+                                        error, max_gap, use_gl, mu, M,
+                                        phased, sub_idx)
+    else:
+        # Pinned-cutoff fast runs fuse Phase I INTO the coverage kernel
+        # (K2): the [I, nwin] f32 window matrix never reaches device
+        # memory.  Automatic-cutoff runs and --raw-lod take the split
+        # path (K1), as garlic_tpu does (pipeline.py:744-745).
+        fused = engine == "fast" and not auto_cutoff and not raw_lod
+        fused_args = None
+        if fused:
+            # pre-resolve the tie band + threshold so each chromosome's
+            # K2 launch is enqueued during Phase I
+            fused_args = (lod_cutoff,
+                          assembly.overlap_threshold(overlap_frac, winsize),
+                          _tie_band(ds.chroms, winsize, error, use_gl))
+        try:
+            win_by_chr = _calc_lod_windows(engine, device, ds, centro,
+                                           winsize, error, max_gap, use_gl,
+                                           fused, fused_args)
+        except _NotPorted as e:
+            print(_not_ported_msg(str(e)), file=sys.stderr)
+            return 1
     # the freq writer keeps running through Phase III; _run's finally
     # joins it and reports a failure with exit 1
     prof.mark("phase1-lod",
@@ -549,7 +603,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     # their coverage recomputed with the exact engine, so the fast BED is
     # the exact engine's by construction (pipeline.py:800-835).
     tie_delta, exact_cover, exact_window = 0.0, None, None
-    if engine == "fast":
+    if engine == "fast" and weighted:
+        tie_delta, exact_cover, exact_window = _weighted_patrol(
+            ds, centro, winsize, error, max_gap, use_gl, mu, M, phased,
+            sub_idx, wpair_cache, overlap_frac, lod_cutoff)
+    elif engine == "fast":
         tie_delta = _tie_band(ds.chroms, winsize, error, use_gl)
 
         def exact_cover(ci, rows):
@@ -661,6 +719,77 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
     return out
 
 
+# the weighted Phase-I loop of garlic_tpu/pipeline.py:707-735 on one device
+def _calc_wlod_windows(engine: str, device, ds, centro, winsize: int,
+                       error: float, max_gap: int, use_gl: bool, mu: float,
+                       M: int, phased: bool, sub_idx):
+    """calcwLOD per chromosome (src/garlic-roh.cpp:134-277): the fast
+    engine's DeviceWin (ops/device_wlod.py, with its tie_scale), or the
+    exact engine's f64 LD band and window matrix on the host."""
+    from .core.pbar import Bar
+    from .ops import device_wlod
+    print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
+    out = []
+    for c in ds.chroms:
+        print(f"{c.chrom}    ", file=sys.stderr, end="")
+        bar = Bar(total=c.nind)
+        if engine == "fast":
+            out.append(device_wlod.weighted_windows_device(
+                c, centro, winsize, error, max_gap, use_gl, mu, M, phased,
+                sub_idx, device))
+            bar.advance(c.nind)
+        else:
+            ldm = ld_ops.calc_ld(c, winsize, phased, sub_idx, engine="exact")
+            out.append(wlod_ops.wlod_windows(c, centro, ldm, winsize, error,
+                                             max_gap, use_gl, mu, M,
+                                             bar=bar))
+        bar.finalize()
+    return out
+
+
+# the weighted tie patrol of garlic_tpu/pipeline.py:836-893 for one process
+def _weighted_patrol(ds, centro, winsize: int, error: float, max_gap: int,
+                     use_gl: bool, mu: float, M: int, phased: bool, sub_idx,
+                     wpair_cache: dict, overlap_frac: float, cutoff: float):
+    """(tie_delta, exact_cover, exact_window) of a weighted fast run.
+    1/LD can amplify terms arbitrarily, so the band's scale rides each
+    DeviceWin as a device scalar (tie_scale, max finite |term|) and
+    tie_delta is only the 256 * eps32 * W factor (the margin of
+    _tie_band).  The reference's wLOD windows are fresh sums, so the
+    per-window f64 verification is its exact value."""
+    bands = {}
+
+    def band(ci):
+        if ci not in bands:
+            # the exact band from the pair band the Phase-II sampler may
+            # already have memoized (calc_ld(engine="exact") ==
+            # assemble_ld_exact(pair_ld))
+            P = _wpair_band(ds.chroms, ci, winsize, phased, sub_idx,
+                            wpair_cache)
+            bands[ci] = ld_ops.assemble_ld_exact(P, winsize)
+        return bands[ci]
+
+    def exact_cover(ci, rows):
+        thr = assembly.overlap_threshold(overlap_frac, winsize)
+        rows = np.asarray(rows, dtype=np.int64)
+        out = []
+        for s in range(0, rows.size, 64):  # bound [k, L] temporaries
+            sub = _subset_chrom_rows(ds.chroms[ci], rows[s:s + 64])
+            w = wlod_ops.wlod_windows(sub, centro, band(ci), winsize, error,
+                                      max_gap, use_gl, mu, M)
+            out.append(assembly.coverage_counts_batch(w >= cutoff, winsize)
+                       >= thr)
+        return np.concatenate(out, axis=0) if out else \
+            np.zeros((0, ds.chroms[ci].nloci), dtype=bool)
+
+    def exact_window(ci, rows, wins, sides):
+        return _exact_wlod_window_flips(
+            ds.chroms[ci], rows, wins, sides, winsize, error, use_gl, mu, M,
+            phased, sub_idx, cutoff, P=wpair_cache.get((ci, winsize)))
+
+    return 256.0 * 2.0 ** -23 * winsize, exact_cover, exact_window
+
+
 # copy of garlic_tpu/pipeline.py:1392
 def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
                            max_gap: int, use_gl: bool, step: int,
@@ -701,6 +830,76 @@ def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
             flat = w.reshape(-1)
             m = (flat != MISSING) & ~np.isnan(flat)
             parts.append(flat[m])
+    return np.concatenate(parts) if parts else np.zeros(0)
+
+
+def _ld_subsample_idx(nind: int, ld_subsample: int,
+                      rng: np.random.Generator) -> Optional[np.ndarray]:
+    """Copy of garlic_tpu/pipeline.py:1385."""
+    if ld_subsample >= nind or ld_subsample <= 0:
+        return None
+    return np.sort(rng.choice(nind, size=ld_subsample, replace=False))
+
+
+def _wpair_band(chroms, ci: int, winsize: int, phased: bool, sub_idx,
+                cache: dict) -> np.ndarray:
+    """Exact pairwise LD band P for one chromosome, memoized per
+    (chromosome, winsize) — shared between the weighted exact Phase-II
+    sampler and the weighted tie patrol so the O(L*W*I_sub) pair counting
+    runs at most once per run.
+
+    Copy of garlic_tpu/pipeline.py:1441."""
+    key = (ci, winsize)
+    P = cache.get(key)
+    if P is None:
+        P = ld_ops.pair_ld(chroms[ci], winsize, phased, sub_idx)
+        cache[key] = P
+    return P
+
+
+def _exact_thinned_wsamples(chroms, centro, winsize: int, error,
+                            max_gap: int, use_gl: bool, step: int, rows,
+                            mu: float, M: int, phased: bool, sub_idx,
+                            pair_cache: dict) -> np.ndarray:
+    """The exact engine's pooled Phase-II samples for WEIGHTED runs: the
+    f64 wLOD window values at the thinned positions, in the reference's
+    pooling order (chrom-major, row-major; convertWinData2DoubleData,
+    src/garlic-data.cpp:2026-2150).  The reference's wLOD has no rolling
+    recurrence, so only the thinned window positions are evaluated: the
+    exact LD band rows assemble per position from the memoized pair band
+    (assemble_ld_exact_rows) and each window sums in wlod_windows' j-loop
+    order.
+
+    Copy of garlic_tpu/pipeline.py:1570."""
+    from .core.types import MISSING
+    from .ops.lod import window_missing_mask
+    parts = []
+    for ci, c in enumerate(chroms):
+        L = c.nloci
+        nwin = L - winsize + 1
+        r = np.arange(c.nind) if rows is None \
+            else np.asarray(rows, dtype=np.int64)
+        if nwin <= 0 or r.size == 0:
+            continue
+        P = _wpair_band(chroms, ci, winsize, phased, sub_idx, pair_cache)
+        ws = np.arange(0, nwin, step)
+        missing = window_missing_mask(
+            c.positions, winsize, max_gap, centro.start(c.chrom),
+            centro.end(c.chrom))[ws]
+        band = ld_ops.assemble_ld_exact_rows(P, winsize, ws)
+        inv = 1.0 / band                                     # [nw, W]
+        for s in range(0, r.size, 64):  # bound [k, L] temporaries
+            sub = _subset_chrom(c, r[s:s + 64])
+            score = wlod_ops.wlod_scores(sub, error, use_gl, mu, M)
+            acc = np.zeros((score.shape[0], ws.size), dtype=np.float64)
+            for j in range(winsize):
+                # reference i-loop order (src/garlic-roh.cpp:259-272):
+                # score[i] * (1.0 / LD[l][i-l]), exactly wlod_windows
+                acc = acc + score[:, ws + j] * inv[:, j][None, :]
+            w = np.where(missing[None, :], float(MISSING), acc)
+            flat = w.reshape(-1)
+            m2 = (flat != MISSING) & ~np.isnan(flat)
+            parts.append(flat[m2])
     return np.concatenate(parts) if parts else np.zeros(0)
 
 
@@ -888,17 +1087,44 @@ def _select_winsize_from_list(st: _PhaseII, ds, centro, multi: List[int],
     return None, 0
 
 
-# the unweighted branch of garlic_tpu/pipeline.py:1875
+# garlic_tpu/pipeline.py:1875 without the mesh and per-host branches
 def _explore_winsizes(st: _PhaseII, ds, centro, multi: List[int],
                       error: float, use_gl: bool, max_gap: int,
-                      kde_subsample: int, outfile: str, thin: bool):
+                      kde_subsample: int, outfile: str, weighted: bool,
+                      M: int, mu: float, phased: bool, thin: bool,
+                      ld_subsample: int):
     """exploreWinsizes (src/garlic-roh.cpp:699-763): dump a KDE per
-    candidate winsize and exit."""
+    candidate winsize and exit.  Weighted runs redraw the LD subsample
+    for each candidate (the reference's per-candidate calcLDData); the
+    fast engine then pools the exact sampler's f64 values, as on
+    unweighted runs (_candidate_kde), so it computes no device windows,
+    and the exact engine pools its own f64 window matrices over the
+    --kde-subsample rows."""
     ind_idx = (_subset_for_kde(st, ds, kde_subsample)
                if kde_subsample > 0 else None)
     for wq in multi:
-        kr = _candidate_kde(st, ds, centro, wq, error, use_gl, max_gap,
-                            ind_idx, thin)
+        if not weighted:
+            kr = _candidate_kde(st, ds, centro, wq, error, use_gl, max_gap,
+                                ind_idx, thin)
+            kdefile.write_kde(kr, kdefile.make_kde_filename(outfile, wq),
+                              st.log)
+            continue
+        sub_idx = _ld_subsample_idx(ds.nind, ld_subsample, st.rng)
+        win_by_chr = None
+        if st.engine == "fast":
+            st.exact_sampler = (
+                lambda w2, step, rows, _si=sub_idx: _exact_thinned_wsamples(
+                    ds.chroms, centro, w2, error, max_gap, use_gl, step,
+                    rows, mu, M, phased, _si, {}))
+        else:
+            win_by_chr = []
+            for c in ds.chroms:
+                cc = c if ind_idx is None else _subset_chrom(c, ind_idx)
+                ldm = ld_ops.calc_ld(c, wq, phased, sub_idx, engine="exact")
+                win_by_chr.append(wlod_ops.wlod_windows(
+                    cc, centro, ldm, wq, error, max_gap, use_gl, mu, M))
+        kr = _compute_kde_for(st, win_by_chr, wq if thin else 1, None,
+                              st.log, exact=(wq, ind_idx))
         kdefile.write_kde(kr, kdefile.make_kde_filename(outfile, wq),
                           st.log)
 
@@ -958,6 +1184,141 @@ def _corner_tmax_compute(c, error: float, use_gl: bool) -> float:
             for v in ((1.0 - e) / (1.0 - p) + e, e, (1.0 - e) / p + e):
                 tmax = max(tmax, abs(float(np.log10(v))))
     return tmax
+
+
+def _geno_cols_slice(c, w: int, W: int) -> np.ndarray:
+    """int8 genotype codes [I, W] for loci [w, w+W) — decoded from the
+    2-bit form when the chromosome is packed-only.
+
+    Copy of garlic_tpu/pipeline.py:1095."""
+    if not c.geno_is_packed_only:
+        return np.asarray(c.genotypes[:, w:w + W])
+    b = c.geno2b[:, w // 4:-(-(w + W) // 4)]
+    codes = np.stack([(b >> s) & 3 for s in (0, 2, 4, 6)],
+                     axis=-1).reshape(b.shape[0], -1)
+    g = codes[:, w % 4:w % 4 + W]
+    return np.where(g == 3, -9, g).astype(np.int8)
+
+
+def _wlod_score_slice(c, i: int, w: int, W: int, error, use_gl: bool,
+                      mu: float, M: int) -> np.ndarray:
+    """f64 weighted per-locus scores for individual i, loci [w, w+W) —
+    exactly wlod_scores' values/order ((lod * nomut) * norec,
+    src/garlic-roh.cpp:249) without materializing the [I, L] matrix.
+
+    Copy of garlic_tpu/pipeline.py:1107."""
+    from .ops.lod import lod_terms
+    g = _geno_row_slice(c, i, w, W)
+    if use_gl and c.gl_codes is not None:
+        e = c.gl_lut[c.gl_codes[i, w:w + W]][None, :]
+    elif use_gl:
+        e = np.asarray(c.gl[i, w:w + W], dtype=np.float64)[None, :]
+    else:
+        e = error
+    base = lod_terms(g[None, :], c.freq[w:w + W], e)[0]
+    pos = c.positions.astype(np.float64)
+    gpos = c.gpos.astype(np.float64)
+    dpos = np.empty(W)
+    dg = np.empty(W)
+    dpos[0] = pos[w] if w == 0 else pos[w] - pos[w - 1]
+    dg[0] = gpos[w] if w == 0 else gpos[w] - gpos[w - 1]
+    dpos[1:] = pos[w + 1:w + W] - pos[w:w + W - 1]
+    dg[1:] = gpos[w + 1:w + W] - gpos[w:w + W - 1]
+    nomut = np.exp(-2.0 * M * mu * dpos)
+    norec = np.exp(-2.0 * M * 1.0 * dg)
+    return (base * nomut) * norec
+
+
+def _exact_wlod_band_rows(c, wins, winsize: int, phased: bool, sub_idx,
+                          P: np.ndarray = None) -> np.ndarray:
+    """f64 LD band rows [len(wins), W] of the windows starting at wins:
+    the values and per-entry summation order of ops/ld.py's exact engine
+    (LD[l][j] = sum over the window members k, in order, of ld(k, l+j);
+    the reference's ldHR2/ldR2 k-loop, src/garlic-data.cpp:521-535), for
+    every window at once.  Each window's pair values come from its locus
+    slice [w, w+W) alone through the exact engine's pair formulas, or
+    from the full pair band P when one is memoized.
+
+    The slices of a block of windows are laid side by side, so one call
+    of the pair formulas serves the block: a pair inside a slice gets the
+    counts and the elementwise f64 arithmetic it gets alone, and a pair
+    that straddles two slices is computed but never read."""
+    from .ops import ld as ld_ops
+    wins = np.asarray(wins, dtype=np.int64)
+    W = winsize
+    if P is not None:
+        return ld_ops.assemble_ld_exact_rows(P, W, wins)
+    # Q[m, j] = ld(w + m, w + j) within a window, 1 on the diagonal
+    # (_pair_lookup): member m's pair with site j
+    a = np.arange(W)
+    lo = np.minimum(a[:, None], a[None, :])
+    d = np.abs(a[:, None] - a[None, :])
+    out = np.empty((wins.size, W))
+    for s in range(0, wins.size, 1024):  # bound the [I, k*W] slices
+        blk = wins[s:s + 1024]
+        g = np.concatenate([_geno_cols_slice(c, int(w), W) for w in blk],
+                           axis=1)
+        if phased:
+            cols = (blk[:, None] + a).reshape(-1)
+            P2 = ld_ops.pair_ld_r2(g, c.first_copy[:, cols], c.freq[cols], W,
+                                   sub_idx)
+        else:
+            P2 = ld_ops.pair_ld_hr2(g, ld_ops.geno_hom_freq(g), W, sub_idx)
+        Q = np.where(d == 0, 1.0, P2.reshape(blk.size, W, W)[:, lo, d])
+        acc = np.zeros((blk.size, W))
+        for m in range(W):  # the k-loop order, from 0.0
+            acc = acc + Q[:, m, :]
+        out[s:s + blk.size] = acc
+    return out
+
+
+def _exact_wlod_window_flips(c, rows, wins, sides, winsize: int, error,
+                             use_gl: bool, mu: float, M: int, phased: bool,
+                             sub_idx, cutoff: float,
+                             P: np.ndarray = None) -> np.ndarray:
+    """Weighted tie-patrol verification: per suspect (row, window), does
+    the f64 decision flip versus the device's f32 one?  The reference's
+    wLOD has no rolling update (src/garlic-roh.cpp:259-272), so this f64
+    recomputation is its exact value: the window's LD row from
+    _exact_wlod_band_rows, the scores from _wlod_score_slice, summed in
+    the reference's i-loop order.
+
+    Adapted from garlic_tpu/pipeline.py:1134, which assembles each
+    distinct window's band row alone (W^2 scalar-sized steps); here they
+    are assembled together, with the same values."""
+    wins = np.asarray(wins, dtype=np.int64)
+    distinct, which = np.unique(wins, return_inverse=True)
+    band_rows = _exact_wlod_band_rows(c, distinct, winsize, phased,
+                                      sub_idx, P)
+    flips = np.empty(len(rows), dtype=bool)
+    for k in range(len(rows)):
+        i, w = int(rows[k]), int(wins[k])
+        score = _wlod_score_slice(c, i, w, winsize, error, use_gl, mu, M)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            # a zero band entry divides to inf exactly as the reference's
+            # score/LD does; non-finite sums escalate below
+            terms = score * (1.0 / band_rows[which[k]])
+            s = float(np.cumsum(terms)[-1])  # the reference's i-loop order
+        if not np.isfinite(s):
+            flips[k] = True  # inf/nan band: escalate to the exact row
+            continue
+        flips[k] = (s >= cutoff) != bool(sides[k])
+    return flips
+
+
+def _geno_row_slice(c, i: int, w: int, W: int) -> np.ndarray:
+    """int8 genotype codes [W] for individual i, loci [w, w+W) — decoded
+    from the 2-bit form when the chromosome is packed-only, so the tie
+    patrol never materializes the full int8 matrix.
+
+    Copy of garlic_tpu/pipeline.py:1185."""
+    if not c.geno_is_packed_only:
+        return np.asarray(c.genotypes[i, w:w + W])
+    b = c.geno2b[i, w // 4:-(-(w + W) // 4)]
+    codes = np.stack([(b >> s) & 3 for s in (0, 2, 4, 6)],
+                     axis=-1).reshape(-1)
+    g = codes[w % 4:w % 4 + W]
+    return np.where(g == 3, -9, g).astype(np.int8)
 
 
 # copy of garlic_tpu/pipeline.py:1198

@@ -151,9 +151,10 @@ def test_copies_cover_the_host_modules():
                 "core/fmt.py", "core/pbar.py", "core/types.py", "io/tfam.py",
                 "io/freqfile.py", "io/filters.py", "io/kdefile.py",
                 "io/rawlod.py", "io/tgls.py", "io/tped.py",
-                "io/panelcache.py", "ops/cutoff.py", "ops/density.py",
-                "ops/wiggle.py", "ops/brent.py", "ops/kde.py", "ops/gmm.py",
-                "ops/device_win.py", "native/build.py"):
+                "io/panelcache.py", "io/genmap.py", "ops/cutoff.py",
+                "ops/density.py", "ops/wiggle.py", "ops/brent.py",
+                "ops/kde.py", "ops/gmm.py", "ops/device_win.py", "ops/ld.py",
+                "ops/wlod.py", "native/build.py"):
         assert rel in rels, rel
 
 
@@ -227,11 +228,14 @@ def _windows(seed, I=7, L=700):
     return geno, table, miss
 
 
-def _parse_tped(mod, wd):
+def _parse_tped(mod, wd, phased=False):
+    """Unphased: 2-bit codes straight from the parser; phased: int8
+    genotypes and the first-copy bits."""
     if mod is native:
-        return mod.parse_tped_native(str(wd / "p.tped.gz"), "0")
-    return mod.parse_tped_native(str(wd / "p.tped.gz"), "0", want_fc=False,
-                                 want_packed=True)
+        return mod.parse_tped_native(str(wd / "p.tped.gz"), "0",
+                                     want_fc=phased)
+    return mod.parse_tped_native(str(wd / "p.tped.gz"), "0", want_fc=phased,
+                                 want_packed=not phased)
 
 
 def _freq_roundtrip(mod, wd):
@@ -265,6 +269,7 @@ def _assemble(mod, seed):
 
 NATIVE = {
     "parse_tped": _parse_tped,
+    "parse_tped_phased": lambda mod, wd: _parse_tped(mod, wd, phased=True),
     "parse_tgls_codes": lambda mod, wd: mod.parse_tgls_native(
         str(wd / "GQ.tgls.gz"), 11, [1500, 901]),
     "parse_tgls_vals": lambda mod, wd: mod.parse_tgls_native(
