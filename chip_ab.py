@@ -25,6 +25,9 @@ the same way and in alternating order:
   alternating from one pair to the next; a run is one in-process
   `python -m garlic_tpu_torch`, timed on the host clock up to a CUDA
   synchronize;
+- the device-memory peak of every warm run (torch.cuda.
+  max_memory_allocated above what was allocated before it, reset just
+  before the run);
 - one more warm auto run of each side under cProfile: the top functions
   by own time are printed, the whole table is written to
   OUT/profile_<side>.txt.
@@ -120,9 +123,13 @@ class _KernelInputs:
 
 
 def _run_port(argv):
-    """One in-process `python -m garlic_tpu_torch`: (exit code, seconds)."""
+    """One in-process `python -m garlic_tpu_torch`: (exit code, seconds,
+    device-memory peak in bytes above what was allocated before it)."""
     import runpy
     import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     saved = sys.argv
     sys.argv = ["garlic_tpu_torch"] + argv
     rc = 0
@@ -135,7 +142,8 @@ def _run_port(argv):
     finally:
         sys.argv = saved
     torch.cuda.synchronize()
-    return rc, time.perf_counter() - t0
+    return rc, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() - base
 
 
 def _profiled(argv, path, tree):
@@ -145,7 +153,7 @@ def _profiled(argv, path, tree):
     import pstats
     prof = cProfile.Profile()
     prof.enable()
-    rc, wall = _run_port(argv)
+    rc, wall, _ = _run_port(argv)
     prof.disable()
     with open(path, "w") as f:
         pstats.Stats(prof, stream=f).sort_stats("tottime").print_stats(60)
@@ -185,8 +193,8 @@ def serve(tree):
             torch.cuda.empty_cache()
             out = {}
         elif op == "run":
-            rc, wall = _run_port(order["argv"])
-            out = {"rc": rc, "wall": wall}
+            rc, wall, peak = _run_port(order["argv"])
+            out = {"rc": rc, "wall": wall, "peak": peak}
         elif op == "profile":
             rc, wall, top = _profiled(order["argv"], order["path"], tree)
             out = {"rc": rc, "wall": wall, "top": top}
@@ -244,6 +252,7 @@ def main() -> int:
     ap.add_argument("--out", help="where the profiles and worker logs go",
                     default=os.path.join(HERE, "build", "chip_ab_out"))
     args = ap.parse_args()
+    args.out = os.path.abspath(args.out)  # the workers run in their trees
     sys.path.insert(0, HERE)
     from tests.util import make_panel, write_tped
     trees = {"parent": os.path.abspath(args.parent),
@@ -291,6 +300,7 @@ def main() -> int:
                     raise RuntimeError(f"{side} {c} exited {got['rc']}")
 
         walls = {side: {c: [] for c in CONFIGS} for side in trees}
+        peaks = {side: {c: [] for c in CONFIGS} for side in trees}
         for i in range(args.pairs):
             order = ("parent", "change") if i % 2 == 0 else ("change",
                                                              "parent")
@@ -300,6 +310,7 @@ def main() -> int:
                     if got["rc"] != 0:
                         raise RuntimeError(f"{side} {c} exited {got['rc']}")
                     walls[side][c].append(got["wall"])
+                    peaks[side][c].append(got["peak"])
             say(f"pair {i} ({order[0]} first): " + ", ".join(
                 f"{side} {c} {walls[side][c][-1]:.3f}s"
                 for c in CONFIGS for side in order))
@@ -325,6 +336,8 @@ def main() -> int:
                     for side in trees},
         "walls": {side: {c: _spread(walls[side][c]) for c in CONFIGS}
                   for side in trees},
+        "peak_bytes": {side: {c: _spread(peaks[side][c]) for c in CONFIGS}
+                       for side in trees},
         "profiled_wall": {side: profiles[side]["wall"] for side in trees}}
     for c in CONFIGS:
         p, ch = walls["parent"][c], walls["change"][c]
@@ -332,7 +345,9 @@ def main() -> int:
         say(f"warm {c}: parent median {statistics.median(p):.4f}s "
             f"[{min(p):.4f}, {max(p):.4f}], change median "
             f"{statistics.median(ch):.4f}s [{min(ch):.4f}, {max(ch):.4f}]; "
-            f"change faster in {faster} of {len(p)} pairs")
+            f"change faster in {faster} of {len(p)} pairs; device-memory "
+            f"peak parent {max(peaks['parent'][c]) / 1e6:.1f} MB, change "
+            f"{max(peaks['change'][c]) / 1e6:.1f} MB")
     say(json.dumps(summary))
     return 0
 

@@ -52,8 +52,9 @@ Phases (any failure raises and exits non-zero, printing no result):
      pool read back: the sampler is not called) and the exact engine:
      .roh.bed byte-identical, .freq.gz equal, .log equal after line 1,
      the .kde x column byte-identical and y within 1e-5 * max y of the
-     exact engine's; K1 run for every chromosome of each fast run (the
-     split path), K2 never;
+     exact engine's; K2 run for every chromosome of each fast run (the
+     fused route, dispatched once Phase II has chosen the cutoff), K1
+     never;
    - the device EM against the host EM (the same iterations and %g
      lines) on the run's ROH lengths, or on a synthetic >= 4096 mixture
      when the run calls fewer;
@@ -61,8 +62,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      against the host f64 one, fit_gmm_device against fit_gmm;
    - on the 50 x (100k, 100k) panel, fast against exact: --auto-winsize
      from 40 by 20 (the same window size, BED identical, every .kde's x
-     column identical) and --winsize-multi 40 60 80 (the same .kde
-     files, x identical);
+     column identical; K2, not K1) and --winsize-multi 40 60 80 (the
+     same .kde files, x identical);
 6. weighted path (--weighted with a genetic map, --phased, --cm; its
    programs are plain torch, ops/device_wlod.py, counted like kernels):
    - bench.py's panel and pinned flags with --weighted --map (a map
@@ -77,8 +78,8 @@ Phases (any failure raises and exits non-zero, printing no result):
    - on the 50 x (100k, 100k) panel, fast against exact, BED identical:
      --weighted --phased, --weighted --ld-subsample 20, --weighted
      --tgls (GQ), automatic --weighted (.log equal, .kde x identical),
-     --weighted --auto-winsize, --cm pinned (K2 runs) and automatic (K1
-     runs, K2 never);
+     --weighted --auto-winsize, --cm pinned and automatic (K2 runs, K1
+     never);
    - the weighted tie band on bench chromosome 1 at W=60 and W=120:
      max |win_f32 - win_f64| / (2^-23 * W * tie_scale) within 256, the
      f64 windows summed on the card over the f64 band of the exact
@@ -88,7 +89,25 @@ Phases (any failure raises and exits non-zero, printing no result):
    the card, side by side, once every timed measurement is over (the
    tie band is checked beside them); the bench panel's as one run per
    chromosome, whose outputs are joined (the pinned run treats its
-   chromosomes apart).
+   chromosomes apart);
+7. streaming Phase I and the programmatic API, once phase 6's
+   subprocesses have ended:
+   - bench.py's panel, warm, pinned, automatic and with the GQ TGLS
+     file, each run resident, streamed (GARLIC_TPU_HBM_BUDGET below
+     every run's device holdings), streamed, resident: .roh.bed, .log
+     and (automatic) .kde byte-identical, K2 (K4) run for every
+     chromosome and K1 (K3) never, each run's device-memory peak
+     (torch.cuda.max_memory_allocated, reset just before it), the
+     streamed peak below the resident one, and the walls side by side;
+   - --raw-lod (K1) and GL float-form --raw-lod (K3) on a 20 x (25k,
+     25k) panel, streamed against resident: raw values and BED
+     byte-identical, the streamed run making each chromosome's windows
+     twice (written, then counted);
+   - the programmatic API (garlic_tpu_torch.api) on the bench panel,
+     warm (load_panel(panel_cache=True)): call_roh(engine="fast") with
+     the pinned cutoff and bounds gives phase 4's fast BED rows, and
+     without them a finite cutoff and two ordered bounds, printed beside
+     the CLI's; K1 run for every chromosome of each call.
 Every run prints its --tpu-profile phase split.
 
 The line before the last is {"kernels": [...]} (launches summed over the
@@ -156,6 +175,12 @@ KERNELS = {"lod_windows": "garlic_tpu/ops/pallas_lod.py:93",
 # than 255 distinct tokens: the f64 matrix form)
 GQ_TOKENS = [f" {v}".encode() for v in range(20, 60)]
 GL_TOKENS = [f" {-k / 1e5:.5f}".encode() for k in range(1, 1001)]
+# phase 7: a device budget every fast run of the bench panel exceeds
+# (GARLIC_TPU_HBM_BUDGET, bytes), and the --raw-lod panel (1M values: the
+# text writer takes a few seconds)
+STREAM_BUDGET = "1000"
+RAWLOD_STREAM_PANEL = dict(nind=20, nloci_per_chr=(25_000, 25_000), seed=9,
+                           spacing_mean=4000)
 
 
 def say(*a):
@@ -554,7 +579,7 @@ class _Tee:
 
 def _run_port(argv, label):
     """One `python -m garlic_tpu_torch` run, in this process; prints its
-    --tpu-profile phase split."""
+    --tpu-profile phase split.  Returns (wall seconds, its stderr)."""
     import torch
     saved, saved_err = sys.argv, sys.stderr
     sys.argv = ["garlic_tpu_torch"] + argv
@@ -576,7 +601,7 @@ def _run_port(argv, label):
         say("    profile (s): " + ", ".join(f"{k} {v}" for k, v in split))
     if rc != 0:
         raise AssertionError(f"{label} exited {rc}")
-    return wall
+    return wall, "".join(tee.parts)
 
 
 def _read(path):
@@ -667,18 +692,26 @@ class _MainPath:
 
     def __init__(self):
         self.walls = {}
+        self.stderr = {}
         self.launches = dict.fromkeys(KERNELS, 0)
 
     def run(self, argv, label, kernel=None, at_least=0, absent=None):
         """kernel: a kernel's name, or one of the weighted path's
         plain-torch programs (device_wlod.CALLS), that must run at least
         at_least times; absent: a kernel that must not run."""
+        def port():
+            self.walls[label], self.stderr[label] = _run_port(
+                argv + ["--out", self.out(label)], label)
+        self.counted(port, label, kernel, at_least, absent)
+
+    def counted(self, fn, label, kernel=None, at_least=0, absent=None):
+        """fn() with every launch counter zeroed just before it and read
+        just after it; returns what fn returns."""
         from garlic_tpu_torch.ops import cuda_lod, device_wlod
         for counts in (cuda_lod.LAUNCHES, device_wlod.CALLS):
             for k in counts:
                 counts[k] = 0
-        self.walls[label] = _run_port(argv + ["--out", self.out(label)],
-                                      label)
+        out = fn()
         got = {**cuda_lod.LAUNCHES, **device_wlod.CALLS}
         say(f"    launches: {got}")
         for k in self.launches:
@@ -689,6 +722,7 @@ class _MainPath:
         if absent is not None and got[absent]:
             raise AssertionError(f"{label}: {absent} ran {got[absent]} "
                                  "times, expected none")
+        return out
 
     @staticmethod
     def out(label):
@@ -947,8 +981,8 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
                                      ("auto_fast_warm", "fast", 0),
                                      ("auto_exact", "exact", 0)):
             n0 = len(pools)
-            mp.run(base + ["--tpu-engine", engine], label, "lod_windows",
-                   nchrom if engine == "fast" else 0, absent="covered")
+            mp.run(base + ["--tpu-engine", engine], label, "covered",
+                   nchrom if engine == "fast" else 0, absent="lod_windows")
             say(f"    exact sampler calls: {len(pools) - n0}")
             if len(pools) - n0 != calls:
                 raise AssertionError(f"{label}: the exact sampler ran "
@@ -1009,8 +1043,8 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     for label, engine in (("search_fast", "fast"), ("search_exact",
                                                     "exact")):
         mp.run(sbase + search + ["--tpu-engine", engine], label,
-               "lod_windows", nchrom if engine == "fast" else 0,
-               absent="covered")
+               "covered", nchrom if engine == "fast" else 0,
+               absent="lod_windows")
     ws = [mp.logged(k, r"Selected window size: (\d+)")
           for k in ("search_fast", "search_exact")]
     say(f"  selected window size: fast {ws[0]}, exact {ws[1]}")
@@ -1240,7 +1274,7 @@ def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
         ("w_autowin", pinned + ["--weighted", "--auto-winsize"],
          "wlod_windows", None),
         ("cm", pinned + ["--cm"], "covered", None),
-        ("cm_auto", auto + ["--cm"], "lod_windows", "covered"),
+        ("cm_auto", auto + ["--cm"], "covered", "lod_windows"),
     )
     for label, flags, prog, absent in runs:
         mp.run(flags + ["--tpu-engine", "fast"], f"{label}_fast", prog,
@@ -1271,6 +1305,171 @@ def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
     finally:
         exact.stop()
     return ratios, times
+
+
+def _peak_run(mp, argv, label, kernel, at_least, absent=None, budget=None):
+    """mp.run with its device-memory peak above what was allocated before
+    it (torch.cuda.max_memory_allocated, reset just before the run), in
+    bytes.  budget: GARLIC_TPU_HBM_BUDGET for this run, which must then
+    say that it streamed; without one it must not."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if budget is not None:
+        os.environ["GARLIC_TPU_HBM_BUDGET"] = budget
+    try:
+        mp.run(argv, label, kernel, at_least, absent)
+    finally:
+        os.environ.pop("GARLIC_TPU_HBM_BUDGET", None)
+    peak = torch.cuda.max_memory_allocated() - base
+    streamed = "streaming per chromosome" in mp.stderr[label]
+    say(f"    {'streamed' if streamed else 'resident'}; device-memory peak "
+        f"{peak / 1e6:.1f} MB")
+    if streamed != (budget is not None):
+        raise AssertionError(f"{label}: streamed {streamed}, budget {budget}")
+    return peak
+
+
+def _bed_rows(path):
+    """(individual, chromosome, start, stop, size class, size) of each call
+    of a .roh.bed, in file order."""
+    rows, ind = [], None
+    for line in _read(path).decode().splitlines():
+        if line.startswith("track"):
+            ind = re.search(r"Ind: (\S+) Pop", line).group(1)
+        else:
+            f = line.split("\t")
+            rows.append((ind, f[0], int(f[1]), int(f[2]), f[3], int(f[4])))
+    return rows
+
+
+def _api_rows(res):
+    """ROHResult.to_rows in _bed_rows' form (the BED writer's chr prefix)."""
+    return [(ind, c if c[0] in "cC" else "chr" + c, start, stop, cls,
+             int(size)) for ind, c, start, stop, size, cls in res.to_rows()]
+
+
+def phase_streaming(mp, nchrom, tped, tfam, gq):
+    """Streaming Phase I and the programmatic API (see the module
+    docstring, phase 7)."""
+    import torch
+    from garlic_tpu_torch import api
+    from tests.util import make_panel, write_tped
+    say("== phase 7: streaming Phase I and the programmatic API")
+    os.environ.pop("GARLIC_TPU_HBM_BUDGET", None)
+    configs = {  # name: (flags, kernel of its route, kernel never run)
+        "pinned": (["--tped", tped, "--tfam", tfam, "--tpu-panel-cache"]
+                   + FLAGS, "covered", "lod_windows"),
+        "auto": (["--tped", os.path.join(WORK, "auto.tped.gz"), "--tfam",
+                  tfam] + AUTO_FLAGS, "covered", "lod_windows"),
+        "gq": (["--tped", os.path.join(WORK, "bench_gl.tped.gz"), "--tfam",
+                tfam, "--tgls", gq, "--gl-type", "GQ", "--tpu-panel-cache"]
+               + FLAGS, "covered_terms", "window_sums"),
+    }
+    peaks, walls = {}, {}
+    for name, (argv, kernel, absent) in configs.items():
+        labels = []
+        # resident, streamed, streamed, resident: warm runs, so the walls
+        # of both modes see the same host state on average
+        for i, mode in enumerate(("resident", "streamed", "streamed",
+                                  "resident")):
+            label = f"{name}_{mode}_{i}"
+            labels.append(label)
+            if name == "pinned" and i == 0:  # the tie patrol's suspects
+                os.environ["GT_ASM_TIMING"] = "1"
+            try:
+                peaks[label] = _peak_run(
+                    mp, argv, label, kernel, nchrom, absent,
+                    STREAM_BUDGET if mode == "streamed" else None)
+            finally:
+                os.environ.pop("GT_ASM_TIMING", None)
+            for line in re.findall(r"^\[gt_asm\] c\d+ suspects.*$",
+                                   mp.stderr[label], flags=re.M):
+                say(f"    {line}")
+            walls[label] = mp.walls[label]
+        mp.same(labels[1:], labels[0])
+        mp.same_log(labels[1:], labels[0])
+        if name == "auto":
+            mp.same_kde(labels[1:], labels[0], y_tol=0.0)
+        res = max(peaks[k] for k in labels if "resident" in k)
+        st = max(peaks[k] for k in labels if "streamed" in k)
+        say(f"  {name}: device-memory peak resident {res / 1e6:.1f} MB, "
+            f"streamed {st / 1e6:.1f} MB; warm walls resident "
+            f"{walls[labels[0]]:.3f} / {walls[labels[3]]:.3f} s, streamed "
+            f"{walls[labels[1]]:.3f} / {walls[labels[2]]:.3f} s")
+        if not st < res:
+            raise AssertionError(f"{name}: the streamed peak {st} is not "
+                                 f"below the resident peak {res}")
+
+    # --raw-lod (K1) and GL float-form --raw-lod (K3), streamed against
+    # resident, on a panel whose text the writer prints in a few seconds
+    panel = make_panel(**RAWLOD_STREAM_PANEL)
+    rtped = os.path.join(WORK, "rawst.tped.gz")
+    rtfam = os.path.join(WORK, "rawst.tfam")
+    write_tped(panel, rtped, rtfam)
+    rgl = os.path.join(WORK, "rawst.gl.tgls")
+    write_tgls(panel, rgl, GL_TOKENS, seed=8)
+    names = [f"chr{c}" for c in panel.chrom_names]
+    rbase = ["--tped", rtped, "--tfam", rtfam, "--raw-lod"] + FLAGS
+    for tag, extra, kernel in (("rawlod", [], "lod_windows"),
+                               ("gl_rawlod", ["--tgls", rgl, "--gl-type",
+                                              "GL"], "window_sums")):
+        for mode, budget, runs in (("resident", None, nchrom),
+                                   ("streamed", STREAM_BUDGET, 2 * nchrom)):
+            peaks[f"{tag}_{mode}"] = _peak_run(
+                mp, rbase + extra + ["--tpu-engine", "fast"],
+                f"{tag}_{mode}", kernel, runs, budget=budget)
+        mp.same((f"{tag}_streamed",), f"{tag}_resident")
+        for c in names:
+            sfx = f".POP1.{c}.raw.lod.windows.gz"
+            if _read(mp.out(f"{tag}_streamed") + sfx) != \
+                    _read(mp.out(f"{tag}_resident") + sfx):
+                raise AssertionError(f"{tag}: streamed raw values differ")
+        say(f"  {tag}: raw values byte-identical streamed and resident "
+            f"({panel.genotypes[0].shape[0]} x "
+            f"{RAWLOD_STREAM_PANEL['nloci_per_chr']})")
+
+    # the API on the bench panel, warm: pinned calls against phase 4's
+    # fast BED, the automatic cutoff and bounds beside the CLI's
+    t0 = time.perf_counter()
+    ds = api.load_panel(tped, tfam, build="hg18", panel_cache=True)
+    say(f"  api.load_panel (warm sidecar): {time.perf_counter() - t0:.3f}s")
+
+    def timed(label, **kw):
+        def call():
+            t0 = time.perf_counter()
+            res = api.call_roh(ds, winsize=60, error=ERROR, engine="fast",
+                               **kw)
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            return res
+        res = mp.counted(call, label, "lod_windows", nchrom,
+                         absent="covered")
+        say(f"  {label}: wall {walls[label]:.3f}s, cutoff {res.cutoff!r}, "
+            f"bounds {[float(b) for b in res.bounds]}, "
+            f"{len(res.lengths)} ROH")
+        return res
+
+    pinned = timed("api_pinned", cutoff=1.5, bounds=[500000, 1000000])
+    want = _bed_rows(mp.out("fast_warm") + ".roh.bed")
+    got = _api_rows(pinned)
+    if got != want:
+        diff = sum(a != b for a, b in zip(got, want))
+        raise AssertionError(f"api_pinned: {len(got)} rows against the "
+                             f"CLI's {len(want)}, {diff} differ")
+    say(f"  api_pinned: {len(got)} rows equal to fast_warm's BED rows")
+    auto = timed("api_auto")
+    cli_cut = mp.logged("auto_exact", r"Selected LOD score cutoff: (.*)")
+    cli_bounds = mp.logged("auto_exact", r"boundaries = \((.*)\)")
+    say(f"  api_auto: cutoff {auto.cutoff!r} against the CLI's {cli_cut}; "
+        f"bounds {[float(b) for b in auto.bounds]} against ({cli_bounds})")
+    if not (math.isfinite(auto.cutoff) and len(auto.bounds) == 2
+            and auto.bounds[0] < auto.bounds[1]):
+        raise AssertionError(f"api_auto: cutoff {auto.cutoff}, bounds "
+                             f"{auto.bounds}")
+    return peaks, walls
 
 
 def main() -> int:
@@ -1304,6 +1503,8 @@ def main() -> int:
         phase_auto_path(mp, (tped, tfam), small_files, nchrom)
         phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
                        small_files, sgq)
+        phase_streaming(mp, nchrom, tped, tfam,
+                        os.path.join(WORK, "bench.gq.tgls"))
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))

@@ -230,12 +230,18 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
     covered_dispatch result (assemble_roh enqueues every chromosome's
     device kernels before the first blocking fetch)."""
     from ..native import assemble_runs_native
-    from .device_win import DeviceWin, covered_fetch, covered_packed
+    from .device_win import (DeviceWin, FusedCov, LazyWin, covered_fetch,
+                             covered_packed)
     sus = susw = None
     t0 = time.perf_counter()
     if handle is not None:
         packed, sus, susw = covered_fetch(handle)
-    elif isinstance(win, DeviceWin):
+    elif isinstance(win, LazyWin):
+        # streaming mode: materialize, extract coverage bits, drop
+        packed, sus, susw = covered_packed(win.make(), cutoff, winsize,
+                                           threshold, tie_delta)
+    elif isinstance(win, (DeviceWin, FusedCov)):
+        # a DeviceWin, or a streamed FusedCov: K2/K4 run here, in turn
         packed, sus, susw = covered_packed(win, cutoff, winsize, threshold,
                                            tie_delta)
     else:
@@ -260,7 +266,7 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
 
 
 # copy of garlic_tpu/ops/assembly.py:266, dispatching to this package's
-# device_win (no LazyWin: streaming is not ported)
+# device_win; streamed FusedCov entries stay sequential like LazyWin
 def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
                  centro, cutoff: float, winsize: int, max_gap: int,
                  overlap_frac: float, cm: bool,
@@ -270,18 +276,22 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
     in the reference's (ind, chr, position) order).
 
     win_by_chr entries are numpy [I, L] window matrices (exact engine),
-    DeviceWin (split fast path) or FusedCov (fused fast path).
+    DeviceWin (split fast path), FusedCov (fused fast path) or, in
+    streaming mode, LazyWin and FusedCov with stream set.
 
     tie_delta/exact_cover/exact_window: the fast engine's tie patrol
     (_repair_rows)."""
-    from .device_win import DeviceWin, FusedCov, covered_dispatch
+    from .device_win import DeviceWin, FusedCov, LazyWin, covered_dispatch
     threshold = overlap_threshold(overlap_frac, winsize)
     nind = len(ind_ids)
-    # enqueue every chromosome's coverage kernels up front so chromosome
-    # N+1's device compute overlaps chromosome N's host-side fetch + scan
+    # enqueue every resident chromosome's coverage kernels up front so
+    # chromosome N+1's device compute overlaps chromosome N's host-side
+    # fetch + scan; streamed entries (LazyWin, FusedCov.stream) are made,
+    # dispatched, fetched and dropped in turn, to bound device memory
     t0 = time.perf_counter()
     handles = [covered_dispatch(w, cutoff, winsize, threshold, tie_delta)
-               if isinstance(w, (DeviceWin, FusedCov)) else None
+               if isinstance(w, DeviceWin)
+               or (isinstance(w, FusedCov) and not w.stream) else None
                for w in win_by_chr]
     t0 = _tmark("dispatch-all", t0)
     per_chrom = []
@@ -296,9 +306,14 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
         if runs is None:
             w = win_by_chr[ci]
             covered = None
-            if handles[ci] is not None:
+            h = handles[ci]
+            if h is None and isinstance(w, (LazyWin, FusedCov)):
+                h = covered_dispatch(w.make() if isinstance(w, LazyWin)
+                                     else w, cutoff, winsize, threshold,
+                                     tie_delta)
+            if h is not None:
                 from .device_win import covered_fetch
-                packed, sus, _ = covered_fetch(handles[ci])
+                packed, sus, _ = covered_fetch(h)
                 bits = np.unpackbits(packed, axis=1, bitorder="little")
                 covered = bits[:, :chrom.nloci].astype(bool)
                 if exact_cover is not None and sus is not None:

@@ -8,12 +8,17 @@ that the native run scan reads.
 
 Two Phase-I routes feed it:
 
-* split (--raw-lod, and pinned runs with a float-matrix TGLS error
-  plane): K1 (K3 for TGLS) writes the window matrix (DeviceWin); the
-  coverage program below counts it in plain torch.
-* fused (pinned cutoff): K2 (K4 for dictionary-form TGLS) computes the
+* split (--raw-lod, runs with a float-matrix TGLS error plane, and the
+  programmatic API): K1 (K3 for TGLS) writes the window matrix
+  (DeviceWin); the coverage program below counts it in plain torch.
+* fused (every other run): K2 (K4 for dictionary-form TGLS) computes the
   window sums, cutoff flags, suspect flags and coverage counts in one
   kernel (FusedCov); the window matrix never reaches device memory.
+
+In streaming mode a split chromosome is a LazyWin (a thunk that makes
+its DeviceWin) and a fused one a FusedCov with stream set: assembly
+makes, fetches and drops them one at a time, so one chromosome's window
+matrix or u8 planes is live at once.
 
 The JAX edge extractor's static-shape machinery (tiered caps, the bitmap
 fallback, the cumsum/searchsorted compaction) is not carried over:
@@ -72,22 +77,61 @@ class DeviceWin:
         return self._host
 
 
-class FusedCov:
-    """Deferred fused Phase-I + coverage dispatch (pinned-cutoff fast
-    runs): covered bits, suspect flags and above flags come straight out
-    of kernel K2, or K4 on a dictionary-form TGLS chromosome (use_gl).
-    make() builds the split path's DeviceWin where the fused kernel does
-    not apply (float-matrix TGLS).
+def is_device_win(obj) -> bool:
+    """Copy of garlic_tpu/ops/device_win.py:80."""
+    return isinstance(obj, DeviceWin)
 
-    handle: a covered_dispatch result enqueued during Phase I (the pinned
-    cutoff, threshold and tie band are known there), so the kernel runs
-    on the device while the host finishes Phase I."""
+
+class LazyWin:
+    """Rematerializable window matrix (streaming mode): holds a thunk
+    instead of device memory.  Consumers call make(), extract what they
+    need (thinned samples, coverage bits, the --raw-lod rows) and drop
+    the DeviceWin, so one chromosome's matrix is live at a time.
+
+    Copy of garlic_tpu/ops/device_win.py:84."""
+
+    __slots__ = ("_fn", "nind", "nloci")
+
+    def __init__(self, fn, nind: int, nloci: int):
+        self._fn = fn
+        self.nind = nind
+        self.nloci = nloci
+
+    def make(self) -> DeviceWin:
+        return self._fn()
+
+    @property
+    def shape(self):
+        return (self.nind, self.nloci)
+
+    def __getitem__(self, idx):
+        return self.make().to_numpy()[idx]
+
+
+def is_lazy_win(obj) -> bool:
+    """Copy of garlic_tpu/ops/device_win.py:110."""
+    return isinstance(obj, LazyWin)
+
+
+class FusedCov:
+    """Deferred fused Phase-I + coverage dispatch: covered bits, suspect
+    flags and above flags come straight out of kernel K2, or K4 on a
+    dictionary-form TGLS chromosome (use_gl).  make() builds the split
+    path's DeviceWin where the fused kernel does not apply (float-matrix
+    TGLS).
+
+    handle: a covered_dispatch result enqueued during Phase I (pinned
+    runs: the cutoff, threshold and tie band are known there), so the
+    kernel runs on the device while the host finishes Phase I.
+    stream: streaming mode; assembly dispatches this chromosome only when
+    it reaches it, and drops its planes before the next."""
 
     __slots__ = ("chrom", "centro", "winsize", "error", "max_gap",
-                 "device", "handle", "use_gl")
+                 "device", "handle", "use_gl", "stream")
 
     def __init__(self, chrom, centro, winsize: int, error: float,
-                 max_gap: int, device, use_gl: bool = False):
+                 max_gap: int, device, use_gl: bool = False,
+                 stream: bool = False):
         self.chrom = chrom
         self.centro = centro
         self.winsize = winsize
@@ -96,6 +140,7 @@ class FusedCov:
         self.device = device
         self.handle = None
         self.use_gl = use_gl
+        self.stream = stream
 
     @property
     def nind(self) -> int:
@@ -133,6 +178,19 @@ def lod_windows_device(chrom, centro, winsize: int, error: float,
         win = cuda_lod.lod_windows_packed_raw(chrom, centro, winsize, error,
                                               max_gap, device)
     return DeviceWin(win=win, nind=I, nloci=L, nwin=nwin)
+
+
+def thinned_block(dwin: DeviceWin, step: int, ind_idx=None) -> np.ndarray:
+    """win[:, ::step] sliced on the device, one device-to-host copy, then
+    f64 on the host ([I, ceil(nwin/step)]): convertWinData2DoubleData's
+    thinning (src/garlic-data.cpp:2037), so only 1/step of the matrix
+    crosses the link.  Counterpart of device_win.py:239.  The slice over
+    the nwin window starts keeps the values of garlic_tpu's slice over
+    all nloci slots, whose MISSING tail the caller drops."""
+    out = dwin.win[:, ::step].cpu().numpy().astype(np.float64)
+    if ind_idx is not None:
+        out = out[ind_idx]
+    return out
 
 
 def _coverage(win: torch.Tensor, cutoff: float, threshold: float,
@@ -188,8 +246,8 @@ def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
     the handle pre-enqueued during Phase I, or takes the split path where
     _dispatch_fused declines); a DeviceWin runs the plain-torch coverage
     program over K1's or K3's window matrix.  Kernel launches are
-    asynchronous, so assemble_roh enqueues every chromosome before
-    the first blocking fetch.
+    asynchronous, so assemble_roh enqueues every resident chromosome
+    before the first blocking fetch (streamed ones in turn).
 
     tie_delta > 0 also flags windows within tie_delta of the cutoff (the
     f32 error band); covered_fetch returns them for the tie patrol.  When

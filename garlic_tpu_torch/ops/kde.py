@@ -185,7 +185,8 @@ def gauss_transform(sources: np.ndarray, targets: np.ndarray, h: float,
     padding and power-of-two buckets there bounded XLA recompiles; torch
     takes the ragged last block as it is.  Each block runs in place in
     one temporary (d*d*(-inv_h2) equals -(d*d)*inv_h2 bit for bit:
-    negation is exact)."""
+    negation is exact), dropped before the next block's is made, so one
+    block's temporary is live at a time."""
     n = sources.shape[0]
     q = 1.0 / float(n)
     dev = torch.device(device)
@@ -193,10 +194,17 @@ def gauss_transform(sources: np.ndarray, targets: np.ndarray, h: float,
     tgt = torch.from_numpy(np.asarray(targets, dtype=np.float32)).to(dev)
     neg_inv_h2 = -np.float32(1.0 / (h * h))
     out = torch.zeros(tgt.shape[0], dtype=torch.float64, device=dev)
+    if dev.type == "cpu":
+        # the first exp_ of a process, when it runs on several threads at
+        # once, can leave some of them on another exp kernel for that
+        # call (up to 1.4e-4 relative in the density's tails on a 20000 x
+        # 512 block); one exp on one element first settles the choice
+        torch.ones(1).exp_()
     for s in range(0, n, BLOCK):
         d = src[s:s + BLOCK, None] - tgt[None, :]
         d.square_().mul_(float(neg_inv_h2)).exp_()
         out += d.sum(dim=0).to(torch.float64)
+        del d
     return out.cpu().numpy() * q
 
 

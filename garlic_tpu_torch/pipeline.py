@@ -12,20 +12,22 @@ The .log lines and their order are the JAX package's, byte for byte.
 
 Engines: `fast` (also what the default `auto` means) runs Phase I on a
 CUDA device through the hand-written kernels (ops/cuda_lod.py: K2 fused
-with the coverage count on pinned runs, K1 on automatic-cutoff runs and
-for --raw-lod; with --tgls, K4 fused for dictionary-form error planes and
-K3 otherwise) or, on --weighted runs, the plain-torch LD band and wLOD
-window programs (ops/device_wlod.py), and the KDE's Gauss transform and
-the GMM's EM on the same device (ops/kde.py, ops/gmm.py); without a CUDA
-device it exits 1 and
+with the coverage count, K1 for --raw-lod; with --tgls, K4 fused for
+dictionary-form error planes and K3 otherwise) or, on --weighted runs,
+the plain-torch LD band and wLOD window programs (ops/device_wlod.py),
+and the KDE's Gauss transform and the GMM's EM on the same device
+(ops/kde.py, ops/gmm.py); without a CUDA device it exits 1 and
 names `--tpu-engine exact`, the f64 numpy/C++ engine on the host, which
-runs only when asked for.  Phase II pools the exact engine's f64 windows
-on both engines (the fast engine through _exact_thinned_samples and the
-pool cache), so the .kde x column is the same on both.  Every other
-configuration exits 1 with one stderr line pointing to
-`python -m garlic_tpu`; nothing runs silently on another path.  The
-package imports nothing of garlic_tpu: the host code it shares with it
-is its own copy (cli, io/, core/, native/, ops/).
+runs only when asked for.  When the chromosomes' device holdings exceed
+half the device budget, Phase I streams: one chromosome at a time is
+made, counted and dropped.  Phase II pools the exact engine's f64
+windows on both engines (the fast engine through _exact_thinned_samples
+and the pool cache), so the .kde x column is the same on both.
+Multi-device (--tpu-mesh over several devices) and multi-host runs exit
+1 with one stderr line pointing to `python -m garlic_tpu`; nothing runs
+silently on another path.  The package imports nothing of garlic_tpu:
+the host code it shares with it is its own copy (cli, io/, core/,
+native/, ops/).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -58,10 +60,6 @@ _MULTIHOST_ENV = ("GARLIC_TPU_COORD", "GARLIC_TPU_NUM_PROCS",
                   "GARLIC_TPU_PROC_ID")
 
 
-class _NotPorted(Exception):
-    """A configuration this port does not run yet; the message names it."""
-
-
 def _not_ported_msg(what: str) -> str:
     return (f"ERROR: {what} is not yet ported to garlic_tpu_torch; "
             "run it with python -m garlic_tpu")
@@ -69,15 +67,58 @@ def _not_ported_msg(what: str) -> str:
 
 def _unported(args: ParsedArgs) -> Optional[str]:
     """The first requested configuration outside the port, or None."""
-    checks = [
-        (args[cli.ARG_MESH] not in ("none", "", "1", "1x1"), cli.ARG_MESH),
-        (any(os.environ.get(v) for v in _MULTIHOST_ENV),
-         "a multi-host run (" + "/".join(_MULTIHOST_ENV) + ")"),
-    ]
-    for requested, what in checks:
-        if requested:
-            return _not_ported_msg(what)
+    if any(os.environ.get(v) for v in _MULTIHOST_ENV):
+        return _not_ported_msg("a multi-host run ("
+                               + "/".join(_MULTIHOST_ENV) + ")")
     return None
+
+
+def factor_devices(n: int, max_sp: int = 4) -> Tuple[int, int]:
+    """Pick a (dp, sp) factorization of n devices: dp (individuals) is
+    the primary axis, sp only grows when dp alone cannot use them.
+
+    Copy of garlic_tpu/parallel/mesh.py:30."""
+    sp = 1
+    for cand in range(min(max_sp, n), 0, -1):
+        if n % cand == 0:
+            sp = cand
+            break
+    return n // sp, sp
+
+
+def _device_count(device) -> int:
+    """Devices a --tpu-mesh spec may span: the visible CUDA devices, or 1
+    for a CPU run."""
+    import torch
+    if torch.device(device).type == "cpu":
+        return 1
+    return torch.cuda.device_count()
+
+
+def _resolve_mesh(spec: str, ndev: int):
+    """Parse 'DPxSP' (or 'auto': factor all ndev devices) into (dp, sp),
+    or None for one device.  A malformed spec, or one larger than ndev,
+    raises CLIError with garlic_tpu's message.
+
+    Adapted from garlic_tpu/pipeline.py:55, with make_mesh's size check
+    (garlic_tpu/parallel/mesh.py:56-57) and no jax mesh built."""
+    if spec in ("none", "", "1", "1x1"):
+        return None
+    if spec == "auto":
+        if ndev <= 1:
+            return None
+        n_dp, n_sp = factor_devices(ndev)
+    else:
+        try:
+            parts = spec.lower().replace(",", "x").split("x")
+            n_dp = int(parts[0])
+            n_sp = int(parts[1]) if len(parts) > 1 else 1
+        except (ValueError, IndexError):
+            raise CLIError(f"ERROR: bad {cli.ARG_MESH} spec '{spec}' "
+                           "(expected DPxSP, e.g. 4x2, or auto)")
+    if n_dp * n_sp > ndev:
+        raise CLIError(f"ERROR: mesh {n_dp}x{n_sp} exceeds {ndev} devices")
+    return None if n_dp * n_sp == 1 else (n_dp, n_sp)
 
 
 def _resolve_engine(name: str) -> str:
@@ -126,8 +167,22 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
                   f"CUDA device: {e}; run {cli.ARG_ENGINE} exact on the CPU",
                   file=sys.stderr)
             return 1
+    # garlic_tpu resolves --tpu-mesh on the fast engine only, after
+    # --freq-only has returned (pipeline.py:382-393): a spec it would
+    # refuse is logged there by _run_impl; one that spans several devices
+    # is refused here, before any output
+    mesh_err = None
+    if engine == "fast" and not args[cli.ARG_FREQ_ONLY]:
+        try:
+            mesh = _resolve_mesh(args[cli.ARG_MESH], _device_count(dev))
+        except CLIError as e:
+            mesh, mesh_err = None, str(e)
+        if mesh is not None:
+            print(_not_ported_msg(f"{cli.ARG_MESH} over {mesh[0]}x{mesh[1]} "
+                                  "devices"), file=sys.stderr)
+            return 1
     try:
-        return _run(args, argv, prog, log, engine, dev)
+        return _run(args, argv, prog, log, engine, dev, mesh_err)
     finally:
         log.close()
 
@@ -184,10 +239,10 @@ class _FreqWriter:
 
 # copy of garlic_tpu/pipeline.py:154
 def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-         engine: str, device) -> int:
+         engine: str, device, mesh_err: Optional[str] = None) -> int:
     fw = _FreqWriter()
     try:
-        rc = _run_impl(args, argv, prog, log, fw, engine, device)
+        rc = _run_impl(args, argv, prog, log, fw, engine, device, mesh_err)
     finally:
         werr = fw.finish()
     if werr is not None:
@@ -200,7 +255,8 @@ def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 # outside it were refused by _unported); the validation and .log lines are
 # kept verbatim so the .log matches the JAX package's
 def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-              fw: _FreqWriter, engine: str, device) -> int:
+              fw: _FreqWriter, engine: str, device,
+              mesh_err: Optional[str] = None) -> int:
     outfile = args[cli.ARG_OUTFILE]
     log.init(outfile)
     log.log(" ".join([prog] + list(argv)))
@@ -387,6 +443,9 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
                        rng)
         return 0
+    if mesh_err is not None:  # garlic_tpu/pipeline.py:388-393
+        log.err(mesh_err)
+        return -1
 
     # ---------------- Datafile reading ----------------
     centro = Centromere(build, centromere_file, cli.DEFAULT_CENTROMERE_FILE,
@@ -474,8 +533,9 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     if engine == "fast" and not weighted:
         # Phase II pools the exact engine's f64 rolling windows (the f32
         # device windows would shift the nrd0 bandwidth and with it every
-        # .kde x value); assembly keeps the device windows and the tie
-        # patrol (pipeline.py:600-634)
+        # .kde x value), so no device window matrix is needed for it;
+        # assembly keeps the device kernels and the tie patrol
+        # (pipeline.py:600-634)
         st.exact_sampler = lambda wq, step, rows: _exact_thinned_samples(
             ds.chroms, centro, wq, error, max_gap, use_gl, step, rows)
         if ds.panel_cache_file is not None and nresample == 0:
@@ -548,25 +608,24 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
                                         error, max_gap, use_gl, mu, M,
                                         phased, sub_idx)
     else:
-        # Pinned-cutoff fast runs fuse Phase I INTO the coverage kernel
-        # (K2): the [I, nwin] f32 window matrix never reaches device
-        # memory.  Automatic-cutoff runs and --raw-lod take the split
-        # path (K1), as garlic_tpu does (pipeline.py:744-745).
-        fused = engine == "fast" and not auto_cutoff and not raw_lod
+        # Fast runs fuse Phase I INTO the coverage kernel (K2, or K4 for
+        # dictionary-form TGLS): the [I, nwin] f32 window matrix never
+        # reaches device memory.  Only --raw-lod takes the split path
+        # (K1, or K3), which writes the matrix.  garlic_tpu also splits
+        # automatic-cutoff runs (pipeline.py:744-745), because its Phase
+        # II pools device windows; the port's pools the exact sampler's.
+        fused = engine == "fast" and not raw_lod
         fused_args = None
-        if fused:
+        if fused and not auto_cutoff:
             # pre-resolve the tie band + threshold so each chromosome's
-            # K2 launch is enqueued during Phase I
+            # K2 launch is enqueued during Phase I; automatic-cutoff runs
+            # dispatch in assembly, once Phase II has chosen the cutoff
             fused_args = (lod_cutoff,
                           assembly.overlap_threshold(overlap_frac, winsize),
                           _tie_band(ds.chroms, winsize, error, use_gl))
-        try:
-            win_by_chr = _calc_lod_windows(engine, device, ds, centro,
-                                           winsize, error, max_gap, use_gl,
-                                           fused, fused_args)
-        except _NotPorted as e:
-            print(_not_ported_msg(str(e)), file=sys.stderr)
-            return 1
+        win_by_chr = _calc_lod_windows(engine, device, ds, centro, winsize,
+                                       error, max_gap, use_gl, fused,
+                                       fused_args)
     # the freq writer keeps running through Phase III; _run's finally
     # joins it and reports a failure with exit 1
     prof.mark("phase1-lod",
@@ -675,22 +734,28 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
     fused: FusedCov entries for assembly (K2, or K4 for dictionary-form
     TGLS); fused_args = (cutoff, threshold, tie_delta) enqueues each
     chromosome's kernel immediately.  The split fast path (K1, or K3 for
-    TGLS) keeps every window matrix on the device;
-    when they would exceed half the device-memory budget the JAX package
-    streams them, which this port does not do yet.  The fused path holds
-    no window matrix, so no estimate applies to it.  ind_idx: the rows
-    to compute (the winsize searches' --kde-subsample individuals)."""
+    TGLS) keeps every window matrix on the device.  When what the fast
+    chromosomes hold on the device at once would exceed half the
+    device-memory budget (_device_holding), Phase I streams as
+    garlic_tpu's does (pipeline.py:953-972,999-1004): split entries
+    become LazyWin thunks and fused ones are not pre-enqueued, so
+    assembly makes, fetches and drops one chromosome at a time.
+    ind_idx: the rows to compute (the winsize searches'
+    --kde-subsample individuals)."""
     from .core.pbar import Bar
     print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
-    if engine == "fast" and not fused:
+    streaming = False
+    if engine == "fast":
         from .runtime import hbm_budget
         budget = 0.5 * hbm_budget(device)
-        est = sum(4.0 * c.nind * max(c.nloci - winsize + 1, 1)
+        est = sum(_device_holding(c, winsize, use_gl, fused)
                   for c in ds.chroms)
-        if est > budget:
-            raise _NotPorted(
-                f"streaming Phase I (window matrices ~{est / 1e9:.1f} GB "
-                f"exceed half the {budget * 2 / 1e9:.1f} GB device budget)")
+        streaming = est > budget
+        if streaming:
+            print(f"[garlic-tpu-torch] Phase I device holdings ~"
+                  f"{est / 1e9:.1f} GB exceed half the {2 * budget / 1e9:.1f}"
+                  " GB device budget; streaming per chromosome",
+                  file=sys.stderr)
     out = []
     for c in ds.chroms:
         print(f"{c.chrom}    ", file=sys.stderr, end="")
@@ -701,12 +766,18 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
             c = _subset_chrom(c, ind_idx)
         if engine == "fast" and fused:
             fc = device_win.FusedCov(c, centro, winsize, error, max_gap,
-                                     device, use_gl)
-            if fused_args is not None:
+                                     device, use_gl, stream=streaming)
+            if fused_args is not None and not streaming:
                 fc.handle = device_win.covered_dispatch(
                     fc, fused_args[0], winsize, fused_args[1],
                     fused_args[2])
             out.append(fc)
+            bar.advance(c.nind)
+        elif engine == "fast" and streaming:
+            out.append(device_win.LazyWin(
+                (lambda c=c: device_win.lod_windows_device(
+                    c, centro, winsize, error, max_gap, device, use_gl)),
+                nind=c.nind, nloci=c.nloci))
             bar.advance(c.nind)
         elif engine == "fast":
             out.append(device_win.lod_windows_device(
@@ -717,6 +788,20 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
                                                 max_gap, use_gl, bar=bar))
         bar.finalize()
     return out
+
+
+def _device_holding(c, winsize: int, use_gl: bool, fused: bool) -> float:
+    """Bytes one fast chromosome holds on the device between its dispatch
+    and its fetch: the three u8 planes of K2/K4 (covered [I, L], suspect
+    and above [I, nwin]) on the fused route, else the f32 window matrix
+    [I, nwin] of K1/K3 (a float-form TGLS chromosome takes that route
+    inside covered_dispatch).  Transient inputs and the coverage
+    program's temporaries are not counted: the other half of the budget
+    is theirs, as in garlic_tpu's gate."""
+    nwin = max(c.nloci - winsize + 1, 1)
+    if fused and not (use_gl and c.gl_codes is None):
+        return float(c.nind) * (c.nloci + 2 * nwin)
+    return 4.0 * c.nind * nwin
 
 
 # the weighted Phase-I loop of garlic_tpu/pipeline.py:707-735 on one device

@@ -392,8 +392,10 @@ def split_routes(monkeypatch):
 
 def test_auto_run_matches_garlic_tpu(auto_dir, split_routes):
     """The reference's default run: no --lod-cutoff, no --size-bounds.
-    The port's fast engine takes the split path (K1's plain version on
-    the CPU) for each chromosome, as garlic_tpu does."""
+    The port's fast engine takes the fused route (K2's plain version on
+    the CPU) for each chromosome, dispatched in assembly once Phase II
+    has chosen the cutoff: no window matrix is made (garlic_tpu splits,
+    as its Phase II pools the device windows)."""
     wd, base = auto_dir, _base(auto_dir) + ["--winsize", "60",
                                             "--kde-subsample", "0"]
     assert _run(jax_main, wd, base + ["--tpu-engine", "exact",
@@ -404,7 +406,7 @@ def test_auto_run_matches_garlic_tpu(auto_dir, split_routes):
     assert _run(port_main, wd, base + ["--tpu-engine", "fast",
                                        "--out", "pf"], device="cpu") == 0
     assert cuda_lod.LAUNCHES == before  # CPU tensors: plain versions
-    assert split_routes == {"split": 2, "fused": 0}
+    assert split_routes == {"split": 0, "fused": 2}
     assert _run(port_main, wd, base + ["--tpu-engine", "exact",
                                        "--out", "px"]) == 0
     log = read_text(f"{wd}/jx.log")
@@ -451,7 +453,9 @@ def test_auto_run_pool_cache_cold_and_warm(auto_dir, monkeypatch):
 def test_auto_run_with_tgls_matches_garlic_tpu(auto_dir, split_routes,
                                                gl_type):
     """--tgls on the automatic run: the exact sampler takes the f64 TGLS
-    windows, the fast engine's Phase I the split path (K3)."""
+    windows; the fast engine's Phase I takes the fused route (K4) on the
+    GQ file's dictionary form, and on the GL file's float form the fused
+    dispatch declines and the split path (K3) runs in its place."""
     wd = auto_dir
     base = _base(wd) + ["--winsize", "60", "--kde-subsample", "0",
                         "--tgls", f"{wd}/{gl_type}.tgls.gz", "--gl-type",
@@ -462,7 +466,8 @@ def test_auto_run_with_tgls_matches_garlic_tpu(auto_dir, split_routes,
     assert _run(port_main, wd, base + ["--tpu-engine", "fast",
                                        "--out", f"{tag}_pf"],
                 device="cpu") == 0
-    assert split_routes == {"split": 2, "fused": 0}
+    assert split_routes == ({"split": 0, "fused": 2} if gl_type == "GQ"
+                            else {"split": 2, "fused": 2})
     assert _run(port_main, wd, base + ["--tpu-engine", "exact",
                                        "--out", f"{tag}_px"]) == 0
     for out, fast in ((f"{tag}_pf", True), (f"{tag}_px", False)):
@@ -586,10 +591,11 @@ def test_fit_gmm_device_on_card_matches_host(cuda_device):
 def test_auto_run_on_card_matches_exact(auto_dir, cuda_device):
     wd, base = auto_dir, _base(auto_dir) + ["--winsize", "60",
                                             "--kde-subsample", "0"]
-    before = cuda_lod.LAUNCHES["lod_windows"]
+    before = dict(cuda_lod.LAUNCHES)
     assert _run(port_main, wd, base + ["--tpu-engine", "fast",
                                        "--out", "gpu_auto"]) == 0
-    assert cuda_lod.LAUNCHES["lod_windows"] == before + 2
+    assert cuda_lod.LAUNCHES["covered"] == before["covered"] + 2
+    assert cuda_lod.LAUNCHES["lod_windows"] == before["lod_windows"]
     assert _run(port_main, wd, base + ["--tpu-engine", "exact",
                                        "--out", "gpu_autox"]) == 0
     _same_outputs(wd, "gpu_auto", "gpu_autox")

@@ -154,8 +154,61 @@ def test_copies_cover_the_host_modules():
                 "io/panelcache.py", "io/genmap.py", "ops/cutoff.py",
                 "ops/density.py", "ops/wiggle.py", "ops/brent.py",
                 "ops/kde.py", "ops/gmm.py", "ops/device_win.py", "ops/ld.py",
-                "ops/wlod.py", "native/build.py"):
+                "ops/wlod.py", "native/build.py", "ops/convert.py", "api.py",
+                "pipeline.py"):
         assert rel in rels, rel
+
+
+_ADAPTED = re.compile(r"Adapted from\s+garlic_tpu/(\S+?\.py):(\d+)")
+
+
+def _adapted(path):
+    """(name, source file, source line) of each top-level definition whose
+    docstring says it is adapted from garlic_tpu."""
+    out = []
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            m = _ADAPTED.search(" ".join(
+                (ast.get_docstring(node) or "").split()))
+            if m:
+                out.append((node.name, m.group(1), int(m.group(2))))
+    return out
+
+
+def _source_defs(rel):
+    src = ast.parse(open(os.path.join(REPO, "garlic_tpu", rel)).read())
+    return {n.lineno: n.name for n in src.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+@pytest.mark.parametrize("path", [p for p in _port_sources() if _adapted(p)],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_adapted_definitions_name_a_source_definition(path):
+    """An adapted definition (its code differs on purpose) names the line
+    of a top-level definition of garlic_tpu."""
+    for name, rel, line in _adapted(path):
+        assert line in _source_defs(rel), \
+            f"{name}: no definition at garlic_tpu/{rel}:{line}"
+
+
+@pytest.mark.parametrize("rel,names,adapted", [
+    ("ops/device_win.py", ("is_device_win", "LazyWin", "is_lazy_win"), ()),
+    ("ops/convert.py", ("win_to_samples",), ()),
+    ("api.py", ("ROHResult",), ("load_panel", "call_roh")),
+    ("pipeline.py", ("factor_devices",), ("_resolve_mesh",)),
+], ids=["device_win", "convert", "api", "pipeline"])
+def test_streaming_and_api_definitions_are_held_to_their_sources(
+        rel, names, adapted):
+    """The definitions of the streaming and API slice: the copies are
+    held to their code by test_copied_definitions_are_garlic_tpus, the
+    adapted ones to a garlic_tpu definition of the same name."""
+    path = os.path.join(PORT, rel)
+    copies = {n for n, _, _, _ in _copied(path)}
+    assert set(names) <= copies, set(names) - copies
+    for name, src, line in _adapted(path):
+        if name in adapted:
+            assert _source_defs(src)[line] == name
+    assert set(adapted) <= {n for n, _, _ in _adapted(path)}
 
 
 # ---------------------------------------------------------------------------

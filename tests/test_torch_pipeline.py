@@ -21,6 +21,7 @@ sys.path.insert(0, os.path.dirname(__file__))
 from util import (diff_logs, make_panel, read_text, write_tgls,  # noqa: E402
                   write_tped)
 
+from garlic_tpu_torch import pipeline as port_pipeline  # noqa: E402
 from garlic_tpu_torch.ops import cuda_lod  # noqa: E402
 from garlic_tpu_torch.pipeline import run_main as port_main  # noqa: E402
 
@@ -251,11 +252,15 @@ def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
 
 
 # --weighted, --cm and --phased run now: tests/test_torch_wlod.py holds
-# them to garlic_tpu's runs, with a real map and TGLS file
+# them to garlic_tpu's runs, with a real map and TGLS file.  A --tpu-mesh
+# over several devices is refused where that many are visible (on the
+# CPU one is: there 2x1 exceeds the count, as in test_mesh_spec_...).
 @pytest.mark.parametrize("extra,names", [
     (["--tpu-mesh", "2x1"], "--tpu-mesh"),
 ])
-def test_unported_configuration_exits_1(panel_dir, capsys, extra, names):
+def test_unported_configuration_exits_1(panel_dir, capsys, monkeypatch,
+                                        extra, names):
+    monkeypatch.setattr(port_pipeline, "_device_count", lambda dev: 2)
     rc = _run(port_main, panel_dir,
               _base(panel_dir) + extra + ["--out", "refused"], device="cpu")
     err = capsys.readouterr().err.strip().splitlines()
@@ -265,23 +270,71 @@ def test_unported_configuration_exits_1(panel_dir, capsys, extra, names):
     assert not os.path.exists(f"{panel_dir}/refused.log")
 
 
-def test_multihost_env_and_streaming_are_refused(panel_dir, monkeypatch,
-                                                 capsys):
+def test_multihost_env_is_refused_and_streaming_runs(panel_dir,
+                                                     monkeypatch, capsys):
     monkeypatch.setenv("GARLIC_TPU_NUM_PROCS", "2")
     assert _run(port_main, panel_dir, _base(panel_dir) + [
         "--out", "mh"], device="cpu") == 1
     assert "multi-host" in capsys.readouterr().err
     monkeypatch.delenv("GARLIC_TPU_NUM_PROCS")
-    # split-path window matrices above half the device budget: the JAX
-    # package streams them, the port refuses
+    # split-path window matrices above half the device budget stream one
+    # chromosome at a time, as the JAX package's do (tests/
+    # test_torch_stream.py holds them to garlic_tpu's runs)
     monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", "1000")
     assert _run(port_main, panel_dir, _base(panel_dir) + [
         "--raw-lod", "--tpu-engine", "fast", "--out", "st"],
-        device="cpu") == 1
-    assert "streaming" in capsys.readouterr().err
-    # the fused path holds no window matrix: the same budget runs it
+        device="cpu") == 0
+    assert "streaming per chromosome" in capsys.readouterr().err
+    # and so does the fused path, on K2
     assert _run(port_main, panel_dir, _base(panel_dir) + [
         "--tpu-engine", "fast", "--out", "st2"], device="cpu") == 0
+    assert read_text(f"{panel_dir}/st2.roh.bed") == \
+        read_text(f"{panel_dir}/st.roh.bed")
+
+
+# as in garlic_tpu/pipeline.py:382-393: --freq-only returns before the
+# mesh is resolved, the exact engine ignores it, `auto` over one device
+# (the port on the CPU counts one) is single-device, and a malformed spec
+# exits -1 with the ERROR line in .error
+@pytest.mark.parametrize("tag,extra,rc", [
+    ("auto", ["--tpu-mesh", "auto", "--tpu-engine", "fast"], 0),
+    ("exact_2x1", ["--tpu-mesh", "2x1", "--tpu-engine", "exact"], 0),
+    ("freq_only_2x1", ["--tpu-mesh", "2x1", "--freq-only"], 0),
+    ("malformed", ["--tpu-mesh", "4x", "--tpu-engine", "fast"], -1),
+])
+def test_mesh_spec_matches_garlic_tpu(panel_dir, monkeypatch, tag, extra,
+                                      rc):
+    wd = panel_dir
+    monkeypatch.setenv("GARLIC_TPU_FUSED_INTERPRET", "1")
+    assert _run(jax_main, wd, _base(wd) + extra + ["--out", f"mj{tag}"]) == rc
+    assert _run(port_main, wd, _base(wd) + extra + ["--out", f"mp{tag}"],
+                device="cpu") == rc
+    assert read_text(f"{wd}/mp{tag}.error") == read_text(f"{wd}/mj{tag}.error")
+    if rc == 0 and "--freq-only" not in extra:
+        _same_outputs(wd, f"mp{tag}", f"mj{tag}")
+    else:
+        assert diff_logs(read_text(f"{wd}/mj{tag}.log"),
+                         read_text(f"{wd}/mp{tag}.log"), f"mj{tag}",
+                         f"mp{tag}") == []
+        assert not os.path.exists(f"{wd}/mp{tag}.roh.bed")
+    if "--freq-only" in extra:
+        assert read_text(f"{wd}/mp{tag}.freq.gz") == \
+            read_text(f"{wd}/mj{tag}.freq.gz")
+    if rc == -1:
+        assert "ERROR: bad --tpu-mesh spec '4x'" in \
+            read_text(f"{wd}/mp{tag}.error")
+
+
+def test_mesh_larger_than_the_devices_exits_minus_1(panel_dir, capsys):
+    """make_mesh's refusal (garlic_tpu/parallel/mesh.py:56-57): on the CPU
+    the port counts one device."""
+    rc = _run(port_main, panel_dir, _base(panel_dir) + [
+        "--tpu-mesh", "2x1", "--tpu-engine", "fast", "--out", "big"],
+        device="cpu")
+    assert rc == -1
+    assert "ERROR: mesh 2x1 exceeds 1 devices" in capsys.readouterr().err
+    assert "ERROR: mesh 2x1 exceeds 1 devices" in \
+        read_text(f"{panel_dir}/big.error")
 
 
 @pytest.mark.gpu
