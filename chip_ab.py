@@ -18,11 +18,13 @@ the same way and in alternating order:
   back-to-back launches divided by 10; order parent, change, change,
   parent;
 - walls: bench.py's panel (200 x (500k, 500k), seed 42), pinned
-  (--lod-cutoff 1.5 --size-bounds 500000 1000000) and auto (neither),
-  --tpu-engine fast --tpu-panel-cache, no --tpu-profile; each side runs
-  each once cold (its own copy of the TPED, so the sidecar and the pool
-  are its own), then N warm runs of each, the order of the two sides
-  alternating from one pair to the next; a run is one in-process
+  (--lod-cutoff 1.5 --size-bounds 500000 1000000), auto (neither), gq
+  (pinned with chip_smoke.py's GQ TGLS file) and weighted (pinned with
+  --weighted over chip_smoke.py's bench map), --tpu-engine fast
+  --tpu-panel-cache, no --tpu-profile; each side runs each once cold
+  (its own names for the TPED and the TGLS file, so the sidecars and
+  the pool are its own), then N warm runs of each, the order of the two
+  sides alternating from one pair to the next; a run is one in-process
   `python -m garlic_tpu_torch`, timed on the host clock up to a CUDA
   synchronize;
 - the device-memory peak of every warm run (torch.cuda.
@@ -55,9 +57,13 @@ W, ERROR, MAX_GAP, OVERLAP_FRAC = 60, 0.001, 200000, 0.25
 COMMON = ["--build", "hg18", "--winsize", str(W), "--error", str(ERROR),
           "--kde-subsample", "0", "--tpu-panel-cache", "--tpu-engine",
           "fast"]
-CONFIGS = {"pinned": COMMON + ["--lod-cutoff", "1.5", "--size-bounds",
-                               "500000", "1000000"],
-           "auto": COMMON}
+PINNED = COMMON + ["--lod-cutoff", "1.5", "--size-bounds", "500000",
+                   "1000000"]
+# configuration -> its flags; {tgls} and {map} are the side's files
+CONFIGS = {"pinned": PINNED,
+           "auto": COMMON,
+           "gq": PINNED + ["--tgls", "{tgls}", "--gl-type", "GQ"],
+           "weighted": PINNED + ["--map", "{map}", "--weighted"]}
 KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms")
 
 
@@ -254,7 +260,8 @@ def main() -> int:
     args = ap.parse_args()
     args.out = os.path.abspath(args.out)  # the workers run in their trees
     sys.path.insert(0, HERE)
-    from tests.util import make_panel, write_tped
+    import chip_smoke
+    from tests.util import make_panel, write_map_scaffold, write_tped
     trees = {"parent": os.path.abspath(args.parent),
              "change": os.path.abspath(args.change)}
     work = os.path.join(HERE, "build", "chip_ab")
@@ -271,8 +278,13 @@ def main() -> int:
         tped, tfam = os.path.join(work, "bench.tped.gz"), \
             os.path.join(work, "bench.tfam")
         write_tped(panel, tped, tfam)
+        gq = os.path.join(work, "bench.gq.tgls")
+        chip_smoke.write_tgls(panel, gq, chip_smoke.GQ_TOKENS, seed=5)
+        wmap = os.path.join(work, "bench.map.gz")
+        write_map_scaffold(panel, wmap, rate_cm_per_mb=chip_smoke.MAP_RATE)
         del panel
-        say(f"bench panel written in {time.perf_counter() - t0:.1f}s")
+        say(f"bench panel, GQ TGLS file and map written in "
+            f"{time.perf_counter() - t0:.1f}s")
         for side, tree in trees.items():
             workers[side] = _Worker(side, tree, args.out)
             say(f"{side}: {workers[side].ask(op='hello')}")
@@ -290,9 +302,13 @@ def main() -> int:
         for side in trees:
             copy = os.path.join(work, f"{side}.tped.gz")
             shutil.copy(tped, copy)
+            tgls = os.path.join(work, f"{side}.gq.tgls")
+            os.link(gq, tgls)  # a name of its own: its own .gtlc sidecar
             base = ["--tped", copy, "--tfam", tfam, "--out",
                     os.path.join(work, side)]
-            argv[side] = {c: base + flags for c, flags in CONFIGS.items()}
+            argv[side] = {c: base + [f.format(tgls=tgls, map=wmap)
+                                     for f in flags]
+                          for c, flags in CONFIGS.items()}
             for c in CONFIGS:
                 got = workers[side].ask(op="run", argv=argv[side][c])
                 say(f"{side} {c} cold: {got}")

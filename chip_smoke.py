@@ -59,7 +59,8 @@ Phases (any failure raises and exits non-zero, printing no result):
      lines) on the run's ROH lengths, or on a synthetic >= 4096 mixture
      when the run calls fewer;
    - medians on the card: the pool's upload, the device Gauss transform
-     against the host f64 one, fit_gmm_device against fit_gmm;
+     against the host f64 one, the device EM against fit_gmm (both
+     over the card's 1x1 mesh: gauss_transform_sharded, fit_gmm_sharded);
    - on the 50 x (100k, 100k) panel, fast against exact: --auto-winsize
      from 40 by 20 (the same window size, BED identical, every .kde's x
      column identical; K2, not K1) and --winsize-multi 40 60 80 (the
@@ -107,7 +108,28 @@ Phases (any failure raises and exits non-zero, printing no result):
      warm (load_panel(panel_cache=True)): call_roh(engine="fast") with
      the pinned cutoff and bounds gives phase 4's fast BED rows, and
      without them a finite cutoff and two ordered bounds, printed beside
-     the CLI's; K1 run for every chromosome of each call.
+     the CLI's; K1 run for every chromosome of each call;
+8. meshes on the one card (--tpu-mesh, garlic_tpu_torch/parallel/): the
+   meshes 2x1, 1x2 and 2x2 over ["cuda:0"] * k, every shard on the card:
+   - on bench chromosome 1 (W=60), K1 and K3 per shard
+     (lod_windows_sharded) bit for bit equal to the 1x1 mesh's
+     windows (one device), and K2 and K4 per shard (a FusedCov over the
+     mesh) equal to its u8 planes, the stitched coverage rows too; the
+     device-memory peak of one shard's K2/K4 launch, of all the mesh's
+     shards at once and of the 1x1 mesh's launch;
+   - bench.py's pinned, automatic, GQ TGLS and --weighted runs, warm,
+     and phase 4's GL TGLS run on the 50 x (100k, 100k) panel (K3 on
+     the split route), through run_main(..., device=["cuda:0"] * k) and
+     on one device: .roh.bed, .freq.gz, .log (and .kde) equal to phases
+     4-7's single-device runs, the kernel (or K2/K4's weighted
+     counterpart) run on every shard of every chromosome, each run's
+     wall and device-memory peak;
+   - call_roh(mesh=...) on the bench panel, warm, pinned: K1 on every
+     shard, its rows equal to phase 4's fast BED rows;
+   - with more than one card visible, `python -m garlic_tpu_torch
+     --tpu-mesh auto` over them in a subprocess, its BED against phase
+     4's; with one, a line that says runs over distinct cards did not
+     happen.
 Every run prints its --tpu-profile phase split.
 
 The line before the last is {"kernels": [...]} (launches summed over the
@@ -181,6 +203,8 @@ GL_TOKENS = [f" {-k / 1e5:.5f}".encode() for k in range(1, 1001)]
 STREAM_BUDGET = "1000"
 RAWLOD_STREAM_PANEL = dict(nind=20, nloci_per_chr=(25_000, 25_000), seed=9,
                            spacing_mean=4000)
+# phase 8: the meshes laid on the one card, (dp, sp)
+MESHES = ((2, 1), (1, 2), (2, 2))
 
 
 def say(*a):
@@ -577,18 +601,24 @@ class _Tee:
                           "".join(self.parts), flags=re.M)
 
 
-def _run_port(argv, label):
+def _run_port(argv, label, device=None):
     """One `python -m garlic_tpu_torch` run, in this process; prints its
-    --tpu-profile phase split.  Returns (wall seconds, its stderr)."""
+    --tpu-profile phase split.  Returns (wall seconds, its stderr).
+    device: a device list for run_main (the meshes of phase 8), called
+    directly; None runs the module as the command line does."""
     import torch
+    from garlic_tpu_torch.pipeline import run_main
     saved, saved_err = sys.argv, sys.stderr
     sys.argv = ["garlic_tpu_torch"] + argv
     tee = sys.stderr = _Tee(saved_err)
     t0 = time.perf_counter()
     rc = 0
     try:
-        runpy.run_module("garlic_tpu_torch", run_name="__main__",
-                         alter_sys=True)
+        if device is None:
+            runpy.run_module("garlic_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        else:
+            rc = run_main(argv, prog="garlic_tpu_torch", device=device)
     except SystemExit as e:
         rc = e.code
     finally:
@@ -695,13 +725,15 @@ class _MainPath:
         self.stderr = {}
         self.launches = dict.fromkeys(KERNELS, 0)
 
-    def run(self, argv, label, kernel=None, at_least=0, absent=None):
+    def run(self, argv, label, kernel=None, at_least=0, absent=None,
+            device=None):
         """kernel: a kernel's name, or one of the weighted path's
         plain-torch programs (device_wlod.CALLS), that must run at least
-        at_least times; absent: a kernel that must not run."""
+        at_least times; absent: a kernel that must not run; device: see
+        _run_port."""
         def port():
             self.walls[label], self.stderr[label] = _run_port(
-                argv + ["--out", self.out(label)], label)
+                argv + ["--out", self.out(label)], label, device)
         self.counted(port, label, kernel, at_least, absent)
 
     def counted(self, fn, label, kernel=None, at_least=0, absent=None):
@@ -937,12 +969,14 @@ def _gmm_init(x, k=3):
 
 
 def _check_em(x, what):
-    """fit_gmm_device on the card against the host EM: the same
-    iterations and the same %g-printed parameters."""
+    """fit_gmm_sharded on the card's 1x1 mesh against the host EM: the
+    same iterations and the same %g-printed parameters."""
     from garlic_tpu_torch.core.fmt import g
     from garlic_tpu_torch.ops import gmm
+    from garlic_tpu_torch.parallel import engine
+    from garlic_tpu_torch.parallel.mesh import make_mesh
     init = _gmm_init(x)
-    dev = gmm.fit_gmm_device(x, 3, *init, "cuda")
+    dev = engine.fit_gmm_sharded(x, 3, *init, make_mesh(1, 1, ["cuda:0"]))
     host = gmm.fit_gmm(x, 3, *init)
     fmt = [[g(float(v)) for v in r.weights] + [g(float(v)) for v in r.means]
            + [g(float(v)) for v in r.variances] for r in (dev, host)]
@@ -970,9 +1004,9 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
         pools.append(sampler(*a, **k))
         return pools[-1]
 
-    def recording_select(lengths, nclust, log=None, device=None):
-        fits.append((np.array(lengths, dtype=np.float64), device))
-        return select(lengths, nclust, log, device=device)
+    def recording_select(lengths, nclust, log=None, mesh=None):
+        fits.append((np.array(lengths, dtype=np.float64), mesh))
+        return select(lengths, nclust, log, mesh=mesh)
 
     pipeline._exact_thinned_samples = counting_sampler
     gmm.select_size_classes = recording_select
@@ -999,7 +1033,7 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     cutoff = mp.logged("auto_exact", r"Selected LOD score cutoff: (.*)")
     bounds = mp.logged("auto_exact", r"boundaries = \((.*)\)")
     say(f"  selected LOD score cutoff {cutoff}, size bounds ({bounds}), "
-        f"{lengths.size} ROH; GMM devices per run "
+        f"{lengths.size} ROH; GMM meshes per run "
         f"{[str(d) for _, d in fits]}")
     if lengths.size >= GMM_GATE:
         _check_em(lengths, "the run's ROH lengths")
@@ -1011,22 +1045,30 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
             f"a synthetic mixture (the run's {lengths.size} ROH are below "
             f"the {GMM_GATE} gate)")
 
+    from garlic_tpu_torch.parallel import engine
+    from garlic_tpu_torch.parallel.mesh import make_mesh
+    one_card = make_mesh(1, 1, ["cuda:0"])
     pool = pools[0]
     h, targets, _ = kde._kde_grid(pool)
     f32 = pool.astype(np.float32)
-    y_dev = kde.gauss_transform(pool, targets, h, "cuda")
+
+    def transform():
+        return engine.gauss_transform_sharded(pool, targets, h, one_card) \
+            * (1.0 / pool.size)
+    y_dev = transform()
     y_host = kde.gauss_transform_host(pool, targets, h)
     init = _gmm_init(lengths)
     times = {
         "pool H2D (f32)": _median_ms(
             lambda: torch.from_numpy(f32).to("cuda"), n=11),
-        "device Gauss transform": _median_wall_ms(
-            lambda: kde.gauss_transform(pool, targets, h, "cuda"), n=7),
+        "device Gauss transform (gauss_transform_sharded, 1x1)":
+            _median_wall_ms(transform, n=7),
         "host f64 Gauss transform": _median_wall_ms(
             lambda: kde.gauss_transform_host(pool, targets, h),
             n=3),
-        "fit_gmm_device": _median_wall_ms(
-            lambda: gmm.fit_gmm_device(lengths, 3, *init, "cuda"), n=7),
+        "device EM (fit_gmm_sharded, 1x1)": _median_wall_ms(
+            lambda: engine.fit_gmm_sharded(lengths, 3, *init, one_card),
+            n=7),
         "fit_gmm (host)": _median_wall_ms(
             lambda: gmm.fit_gmm(lengths, 3, *init), n=7),
     }
@@ -1116,30 +1158,41 @@ def _wlod_f64(c, centro, W, counts, dev):
     return acc.masked_fill_(missing[None, :], float(MISSING)), missing
 
 
+def _weighted_1x1(c, centro, W, dev):
+    """Weighted Phase I (pinned flags, HR^2) on the 1x1 mesh over dev, as
+    the pipeline runs it: ld_band_sharded, then wlod_windows_sharded."""
+    from garlic_tpu_torch.parallel import engine
+    from garlic_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(1, 1, [dev])
+    return engine.wlod_windows_sharded(
+        c, centro, engine.ld_band_sharded(c, W, False, None, mesh), W, ERROR,
+        MAX_GAP, False, MU, M_GEN, mesh)
+
+
 def _weighted_tie_band(c, centro, dev):
     """max |win_f32 - win_f64| / (2^-23 * W * tie_scale) over every row
     and live window of bench chromosome 1, at W=60 and W=120; the f64
     side counts its pairs on the host (the exact engine's code), not with
     the device program under test."""
     import torch
-    from garlic_tpu_torch.ops import device_wlod, ld
+    from garlic_tpu_torch.ops import ld
     ratios = {}
     t0 = time.perf_counter()
     counts = ld.pair_counts_hr2(c.genotypes, 120)
     say(f"  exact pair counts of bench chromosome 1 to W=120 on the host "
         f"in {time.perf_counter() - t0:.1f}s")
     for W in (60, 120):
-        dw = device_wlod.weighted_windows_device(
-            c, centro, W, ERROR, MAX_GAP, False, MU, M_GEN, False, None, dev)
+        dw = _weighted_1x1(c, centro, W, dev)
         w64, missing = _wlod_f64(c, centro, W, counts, dev)
         live = ~missing
-        diff = float((dw.win[:, live].double() - w64[:, live]).abs().max())
+        win = dw.blocks[(0, 0)]
+        diff = float((win[:, live].double() - w64[:, live]).abs().max())
         scale = float(dw.tie_scale)
         ratios[f"W={W}"] = diff / (2.0 ** -23 * W * scale)
         say(f"  weighted W={W}: max |f32 - f64| = {diff:.6g} over {c.nind} "
             f"rows x {int(live.sum())} windows; tie_scale {scale:.6g}; "
             f"ratio {ratios[f'W={W}']:.3f} (band {TIE_BAND_FACTOR:g})")
-        del dw, w64, missing, live
+        del dw, win, w64, missing, live
         torch.cuda.empty_cache()
     if max(ratios.values()) > TIE_BAND_FACTOR:
         raise AssertionError(f"weighted tie band exceeded: {ratios}")
@@ -1158,10 +1211,11 @@ def _weighted_programs(c, centro, dev):
     nwin = L - W + 1
     codes = I * ((L + 3) // 4)
     pk = cuda_lod._upload(cuda_lod.packed_host(c), dev)
-    hf = dw._hom_freq_chunked(pk, L, I)
+    hf = dw._hom_freq_from_counts(*dw._hom_counts_chunked(pk, L, I))
     freq = torch.tensor(c.freq, dtype=torch.float32, device=dev)
     fc = np.random.default_rng(3).random((I, L)) < 0.5
-    P = dw._pair_band_chunked(pk, None, hf, None, L, W, I)
+    P = dw._pair_band(*dw._pair_counts_chunked(pk, None, L, W, I), hf, None,
+                      W)
     inv = 1.0 / dw._assemble_band(P, W).T
     aux = cuda_lod._upload(dw._weighted_aux(c, centro, W, ERROR, MAX_GAP, MU,
                                             M_GEN), dev)
@@ -1174,11 +1228,14 @@ def _weighted_programs(c, centro, dev):
     int8_ms = 2 * 2 * pairs / INT8_RATE * 1e3
     win_ms = 2 * add_ms(I, L, W, card)
     progs = {
-        "hr2 pair band (_pair_band_chunked)": (
-            lambda: dw._pair_band_chunked(pk, None, hf, None, L, W, I),
+        "hr2 pair band (_pair_counts_chunked, _pair_band)": (
+            lambda: dw._pair_band(*dw._pair_counts_chunked(pk, None, L, W, I),
+                                  hf, None, W),
             _bytes_or_ops(codes + 4 * L + 4 * W * L, int8_ms, card)),
-        "r2 pair band (_pair_band_chunked, host first-copy bits)": (
-            lambda: dw._pair_band_chunked(pk, fc, None, freq, L, W, I),
+        "r2 pair band (_pair_counts_chunked, _pair_band, host first-copy "
+        "bits)": (
+            lambda: dw._pair_band(*dw._pair_counts_chunked(pk, fc, L, W, I),
+                                  None, freq, W),
             _bytes_or_ops(codes + I * L + 4 * L + 4 * W * L, 2 * int8_ms,
                           card)),
         "band assembly (_assemble_band)": (
@@ -1191,10 +1248,8 @@ def _weighted_programs(c, centro, dev):
             lambda: dw._wlod_windows_dev(score, inv, missing, W),
             _bytes_or_ops(4 * I * L + 4 * W * nwin + 4 * nwin
                           + 4 * I * nwin, win_ms, card)),
-        "weighted Phase I (weighted_windows_device)": (
-            lambda: dw.weighted_windows_device(
-                c, centro, W, ERROR, MAX_GAP, False, MU, M_GEN, False, None,
-                dev),
+        "weighted Phase I (ld_band_sharded, wlod_windows_sharded, 1x1)": (
+            lambda: _weighted_1x1(c, centro, W, dev),
             _bytes_or_ops(codes + 20 * L + 4 * I * nwin, int8_ms + win_ms,
                           card)),
     }
@@ -1210,8 +1265,7 @@ def _weighted_programs(c, centro, dev):
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    out = dw.weighted_windows_device(c, centro, W, ERROR, MAX_GAP, False, MU,
-                                     M_GEN, False, None, dev)
+    out = _weighted_1x1(c, centro, W, dev)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) - base
     say(f"  weighted Phase I device-memory peak at {I}x{L}, W={W}: "
@@ -1307,23 +1361,32 @@ def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
     return ratios, times
 
 
-def _peak_run(mp, argv, label, kernel, at_least, absent=None, budget=None):
-    """mp.run with its device-memory peak above what was allocated before
-    it (torch.cuda.max_memory_allocated, reset just before the run), in
-    bytes.  budget: GARLIC_TPU_HBM_BUDGET for this run, which must then
-    say that it streamed; without one it must not."""
+def _peak(fn):
+    """(fn(), the device-memory peak of the call above what was allocated
+    before it, in bytes: torch.cuda.max_memory_allocated, reset just
+    before it)."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def _peak_run(mp, argv, label, kernel, at_least, absent=None, budget=None,
+              device=None):
+    """mp.run with its device-memory peak (_peak), in bytes.  budget:
+    GARLIC_TPU_HBM_BUDGET for this run, which must then say that it
+    streamed; without one it must not."""
     if budget is not None:
         os.environ["GARLIC_TPU_HBM_BUDGET"] = budget
     try:
-        mp.run(argv, label, kernel, at_least, absent)
+        _, peak = _peak(lambda: mp.run(argv, label, kernel, at_least, absent,
+                                       device))
     finally:
         os.environ.pop("GARLIC_TPU_HBM_BUDGET", None)
-    peak = torch.cuda.max_memory_allocated() - base
     streamed = "streaming per chromosome" in mp.stderr[label]
     say(f"    {'streamed' if streamed else 'resident'}; device-memory peak "
         f"{peak / 1e6:.1f} MB")
@@ -1472,6 +1535,168 @@ def phase_streaming(mp, nchrom, tped, tfam, gq):
     return peaks, walls
 
 
+def _mesh_kernels(chrom, centro):
+    """Phase 8's kernel checks on bench chromosome 1, W=60: for each mesh,
+    K1/K3 per shard against the 1x1 mesh's windows (max |diff| over
+    every shard, which must be 0) and K2/K4 per shard against the 1x1
+    mesh's planes, with the device-memory peaks of the fused launches.
+    Returns {kernel: max |diff|}."""
+    import torch
+    from garlic_tpu_torch import pipeline
+    from garlic_tpu_torch.ops import cuda_lod
+    from garlic_tpu_torch.ops import device_win as dw
+    from garlic_tpu_torch.parallel import engine
+    from garlic_tpu_torch.parallel.mesh import make_mesh
+    W, cut = 60, 1.5
+    thr = float(math.ceil(OVERLAP_FRAC * W))
+    one_card = make_mesh(1, 1, ["cuda:0"])
+    pk = cuda_lod.packed_host(chrom)
+    miss = engine._missing(chrom, centro, W, MAX_GAP)
+    err = {}
+    for use_gl in (False, True):
+        split, fused = (("window_sums", "covered_terms") if use_gl
+                        else ("lod_windows", "covered"))
+        delta = pipeline._tie_band([chrom], W, ERROR, use_gl)
+        one = engine.lod_windows_sharded(chrom, centro, W, ERROR, MAX_GAP,
+                                         one_card, use_gl).blocks[(0, 0)]
+        fc = dw.FusedCov(chrom, centro, W, ERROR, MAX_GAP, one_card, use_gl)
+        ref, one_peak = _peak(lambda: engine.covered_sharded(fc, cut, W, thr,
+                                                             delta))
+        cov, susw, above = (getattr(ref.pieces[0], k)
+                            for k in ("cov", "susw", "above"))
+        want_rows = dw.covered_fetch(ref)
+        for n_dp, n_sp in MESHES:
+            mesh = make_mesh(n_dp, n_sp, ["cuda:0"] * (n_dp * n_sp))
+            sw = engine.lod_windows_sharded(chrom, centro, W, ERROR, MAX_GAP,
+                                            mesh, use_gl)
+            e, bits = 0.0, True
+            for sh, blk in sw._live():
+                want = one[sh.r0:sh.r1, sh.c0:sh.w1]
+                bits &= _bitwise(blk, want)
+                e = max(e, float((blk - want).abs().max()))
+            del sw
+            fcm = dw.FusedCov(chrom, centro, W, ERROR, MAX_GAP, mesh, use_gl)
+            h, mesh_peak = _peak(lambda: engine.covered_sharded(
+                fcm, cut, W, thr, delta))
+            planes = True
+            for p in h.pieces:
+                r = slice(p.r0, p.r0 + p.cov.shape[0])
+                c = slice(p.c0, p.c0 + p.cov.shape[1])
+                nw = slice(p.c0, p.c0 + p.susw.shape[1])
+                planes &= (torch.equal(p.cov, cov[r, c])
+                           and torch.equal(p.susw, susw[r, nw])
+                           and torch.equal(p.above, above[r, nw])
+                           and (p.prev is None
+                                or torch.equal(p.prev, cov[r, p.c0 - 1])))
+            got_rows = dw.covered_fetch(h)
+            rows = (np.array_equal(got_rows[0], want_rows[0])
+                    and np.array_equal(got_rows[1], want_rows[1])
+                    and all(np.array_equal(a, b) for a, b in
+                            zip(got_rows[2], want_rows[2])))
+            del h
+            sh = engine.shard_blocks(chrom.nind, chrom.nloci, mesh, W)[0]
+            _, shard_peak = _peak(lambda: engine.covered_shard(
+                fcm, sh, pk, miss, cut, W, thr, delta))
+            err[split] = max(err.get(split, 0.0), e)
+            say(f"  mesh {n_dp}x{n_sp}, bench chr1 {chrom.nind}x"
+                f"{chrom.nloci} W={W}: {split} per shard bitwise "
+                f"{bits} (max |diff| {e}); {fused} planes per shard equal "
+                f"{planes}, stitched rows equal {rows}; device-memory peak "
+                f"of one shard's {fused} launch {shard_peak / 1e6:.1f} MB, "
+                f"of the {n_dp * n_sp} shards' {mesh_peak / 1e6:.1f} MB, of "
+                f"the 1x1 mesh's launch {one_peak / 1e6:.1f} MB")
+            if not (bits and e == 0.0 and planes and rows):
+                raise AssertionError(f"mesh {n_dp}x{n_sp}: {split}/{fused} "
+                                     "per shard differ from the 1x1 mesh")
+        del one, ref, cov, susw, above
+        torch.cuda.empty_cache()
+    return err
+
+
+def phase_mesh(mp, nchrom, chrom, centro, configs, peaks):
+    """Meshes on the one card (see the module docstring, phase 8).
+    configs: name -> (argv, single-device label of phases 4-7, kernel or
+    program of its route, .kde written); peaks: phase 7's resident
+    peaks."""
+    import torch
+    say("== phase 8: meshes on the one card (--tpu-mesh, "
+        "garlic_tpu_torch/parallel/)")
+    t0 = time.perf_counter()
+    err = _mesh_kernels(chrom, centro)
+    walls, run_peaks = {}, {}
+    for name, (argv, ref, kernel, kde) in configs.items():
+        for n_dp, n_sp in ((1, 1),) + MESHES:
+            k = n_dp * n_sp
+            label = f"mesh_{name}_{n_dp}x{n_sp}"
+            flags = argv + ["--tpu-engine", "fast"]
+            if k > 1:
+                flags += ["--tpu-mesh", f"{n_dp}x{n_sp}"]
+            run_peaks[label] = _peak_run(mp, flags, label, kernel,
+                                         nchrom * k,
+                                         device=["cuda:0"] * k)
+            walls[label] = mp.walls[label]
+            mp.same((label,), ref)
+            mp.same_log((label,), ref)
+            if kde:
+                mp.same_kde((label,), ref, Y_TOL)
+        say(f"  {name}: warm walls " + ", ".join(
+            f"{lb.rsplit('_', 1)[1]} {walls[lb]:.3f}s"
+            for lb in walls if lb.startswith(f"mesh_{name}_"))
+            + f" (phases 4-7's single-device run {mp.walls[ref]:.3f}s); "
+            "device-memory peaks " + ", ".join(
+                f"{lb.rsplit('_', 1)[1]} {run_peaks[lb] / 1e6:.1f} MB"
+                for lb in run_peaks if lb.startswith(f"mesh_{name}_"))
+            + (f" (phase 7's resident {peaks[name] / 1e6:.1f} MB)"
+               if name in peaks else "")
+            + "; every shard on the one card, so these walls are no "
+            "scaling figures")
+    # the API over the same meshes, warm: K1 per shard, the rows of
+    # phase 4's fast BED
+    from garlic_tpu_torch import api
+    from garlic_tpu_torch.parallel.mesh import make_mesh
+    argv = configs["pinned"][0]
+    ds = api.load_panel(argv[argv.index("--tped") + 1],
+                        argv[argv.index("--tfam") + 1], build="hg18",
+                        panel_cache=True)
+    want = _bed_rows(mp.out("fast_warm") + ".roh.bed")
+    for n_dp, n_sp in MESHES:
+        label = f"mesh_api_{n_dp}x{n_sp}"
+        mesh = make_mesh(n_dp, n_sp, ["cuda:0"] * (n_dp * n_sp))
+
+        def call():
+            t1 = time.perf_counter()
+            res = api.call_roh(ds, winsize=60, error=ERROR, engine="fast",
+                               cutoff=1.5, bounds=[500000, 1000000],
+                               mesh=mesh)
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t1
+            return res
+        got = _api_rows(mp.counted(call, label, "lod_windows",
+                                   nchrom * n_dp * n_sp, absent="covered"))
+        if got != want:
+            raise AssertionError(f"{label}: {len(got)} rows against the "
+                                 f"CLI's {len(want)}")
+        say(f"  {label}: call_roh(mesh=...) wall {walls[label]:.3f}s, "
+            f"{len(got)} rows equal to fast_warm's BED rows")
+    n = torch.cuda.device_count()
+    if n > 1:
+        argv, ref, _, _ = configs["pinned"]
+        out = mp.out("mesh_cards_auto")
+        r = subprocess.run([sys.executable, "-m", "garlic_tpu_torch"] + argv
+                           + ["--tpu-engine", "fast", "--tpu-mesh", "auto",
+                              "--out", out], cwd=REPO, capture_output=True)
+        if r.returncode != 0:
+            raise AssertionError(f"--tpu-mesh auto over {n} cards exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        mp.same(("mesh_cards_auto",), ref)
+        say(f"  --tpu-mesh auto over {n} cards (subprocess): BED equal")
+    else:
+        say("  one card visible: no run over distinct cards happened (the "
+            "mesh's peer copies between cards, and any NCCL, untried)")
+    say(f"  phase 8: {time.perf_counter() - t0:.1f}s")
+    return err
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJaxPackage())
     import torch
@@ -1503,8 +1728,33 @@ def main() -> int:
         phase_auto_path(mp, (tped, tfam), small_files, nchrom)
         phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
                        small_files, sgq)
-        phase_streaming(mp, nchrom, tped, tfam,
-                        os.path.join(WORK, "bench.gq.tgls"))
+        gq = os.path.join(WORK, "bench.gq.tgls")
+        peaks, _ = phase_streaming(mp, nchrom, tped, tfam, gq)
+        configs = {  # phase 8: name -> (flags, single-device run, kernel,
+            #            .kde written)
+            "pinned": (["--tped", tped, "--tfam", tfam, "--tpu-panel-cache"]
+                       + FLAGS, "fast_warm", "covered", False),
+            "auto": (["--tped", os.path.join(WORK, "auto.tped.gz"), "--tfam",
+                      tfam] + AUTO_FLAGS, "auto_fast_warm", "covered", True),
+            "gq": (["--tped", os.path.join(WORK, "bench_gl.tped.gz"),
+                    "--tfam", tfam, "--tgls", gq, "--gl-type", "GQ",
+                    "--tpu-panel-cache"] + FLAGS, "tgls_fast_warm",
+                   "covered_terms", False),
+            "weighted": (weighted_args(tfam, wtped, wmap)
+                         + ["--tpu-panel-cache"], "weighted_fast_warm",
+                         "wlod_windows", False),
+            # float-form TGLS: K3 per shard on the split route
+            "gl": (["--tped", small_files[0], "--tfam", small_files[1]]
+                   + FLAGS + ["--tgls", os.path.join(WORK, "small.gl.tgls"),
+                              "--gl-type", "GL"], "gl_fast", "window_sums",
+                   False),
+        }
+        chrom = _Chrom("chr1", panel.positions[0], panel.genotypes[0],
+                       seed=11)
+        mesh_err = phase_mesh(mp, nchrom, chrom, centro, configs,
+                              {k: peaks[f"{k}_resident_0"]
+                               for k in ("pinned", "auto", "gq")})
+        del chrom
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))
@@ -1512,9 +1762,12 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     say(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
+    # max |diff| against the plain version (phase 2) and, for K1/K3's
+    # shards, against the single-device launch (phase 8)
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,
                 "replaces": KERNELS[k], "launches": launches[k],
-                "max_abs_err": err[k], **times[k]} for k in KERNELS]
+                "max_abs_err": max(err[k], mesh_err.get(k, 0.0)),
+                **times[k]} for k in KERNELS]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,10 @@ windows, as garlic_tpu's API does).  Like garlic_tpu's API, the fast
 engine has no tie patrol (its calls can differ from the CLI's where a
 window lies within f32 rounding of the cutoff), pools the device
 windows rather than the CLI's exact Phase-II sampler, and keeps every
-chromosome's window matrix on the device at once.  A `mesh` (several
-devices) is not ported.
+chromosome's window matrix on the device at once.  The fast engine
+runs over a mesh (parallel.mesh.make_mesh; one device is the 1x1 mesh),
+its windows made per shard (parallel.engine.lod_windows_sharded), as
+garlic_tpu's does on a mesh.
 """
 
 from __future__ import annotations
@@ -117,24 +119,22 @@ def call_roh(ds: Dataset, winsize: int = 60, error: float = 0.001,
     discovery (KDE min-between-modes / GMM intersections, the EM on the
     host).
 
-    device: where engine="fast" runs; None means CUDA, and without a
-    CUDA device it raises RuntimeError (it never falls back to the CPU;
-    the tests pass "cpu" to run the kernels' plain versions).
+    mesh: a parallel.mesh.Mesh that engine="fast" runs over: K1 (K3
+    with TGLS) per shard and the transform's partials per shard.  None
+    means the 1x1 mesh over `device`: None there means CUDA, and without
+    a CUDA device it raises RuntimeError (it never falls back to the
+    CPU; the tests pass "cpu" to run the kernels' plain versions).
 
-    Adapted from garlic_tpu/api.py:94: no mesh (several devices wait for
-    multi-GPU support), the device argument, and the port's Phase-I
-    routes (device_win.lod_windows_device: K1, or K3 with TGLS)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "call_roh(mesh=...) is not yet ported to garlic_tpu_torch; run "
-            "several devices with python -m garlic_tpu --tpu-mesh")
+    Adapted from garlic_tpu/api.py:94: the device argument, and the
+    port's Phase-I route (parallel.engine.lod_windows_sharded, TGLS
+    included)."""
     if engine not in ("exact", "fast"):
         raise ValueError(f"unknown engine {engine!r} (exact or fast)")
-    dev = None
-    if engine == "fast":
-        from .runtime import resolve_device
+    if engine == "fast" and mesh is None:
+        from .parallel.mesh import make_mesh
+        from .runtime import resolve_devices
         try:
-            dev = resolve_device(device)
+            mesh = make_mesh(1, 1, resolve_devices(device))
         except RuntimeError as e:
             raise RuntimeError(f'call_roh(engine="fast") needs a CUDA device:'
                                f' {e}; use engine="exact" on the CPU') from e
@@ -145,9 +145,9 @@ def call_roh(ds: Dataset, winsize: int = 60, error: float = 0.001,
     win_by_chr = []
     for c in ds.chroms:
         if engine == "fast":
-            from .ops import device_win
-            win_by_chr.append(device_win.lod_windows_device(
-                c, centro, winsize, error, max_gap, dev, use_gl))
+            from .parallel.engine import lod_windows_sharded
+            win_by_chr.append(lod_windows_sharded(
+                c, centro, winsize, error, max_gap, mesh, use_gl))
         else:
             win_by_chr.append(lod_ops.calc_lod_windows(
                 c, centro, winsize, error, max_gap, use_gl))
@@ -156,7 +156,8 @@ def call_roh(ds: Dataset, winsize: int = 60, error: float = 0.001,
     if cutoff is None:
         samples = convert.win_to_samples(
             win_by_chr, winsize if kde_thin else 1)
-        kr = kde_ops.compute_kde(samples, device=dev)
+        kr = kde_ops.compute_kde(samples,
+                                 mesh=mesh if engine == "fast" else None)
         cutoff = cutoff_ops.get_min_btw_modes(kr.x, kr.y, winsize)
 
     calls, lengths = assembly.assemble_roh(

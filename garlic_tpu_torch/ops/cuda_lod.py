@@ -39,9 +39,9 @@ def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
     """[I, ceil(L/4)] u8 little-endian 2-bit codes -> int8 [I, L]
     genotypes 0/1/2, code 3 -> -9 (missing).  Counterpart of
     pallas_lod._decode_2bit (:959) and the unpack in _packed_entry
-    (:813-815)."""
-    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
-                          device=packed.device)
+    (:813-815).  The shifts are made on the device: a host tensor would
+    be a copy that waits for the work already queued on the stream."""
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
     codes = (packed.unsqueeze(-1) >> shifts) & 3
     codes = codes.reshape(packed.shape[0], -1)[:, :nloci]
     return torch.where(codes == 3, -9, codes.to(torch.int8)).to(torch.int8)
@@ -210,9 +210,13 @@ def _check_terms(terms, miss, winsize: int):
 
 def _launch(fn: str, key: str, device, *args) -> None:
     """Enqueue one kernel through the library's C launcher `fn` on
-    PyTorch's current stream of `device`; raises on a launch error."""
+    PyTorch's current stream of `device`; raises on a launch error.  The
+    launcher sets the CUDA device it launches on; the guard sets it back
+    afterwards, so a mesh shard's launch on another card leaves the
+    process's current device as it was."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(_build.library(), fn)(device.index, *args, stream)
+    with torch.cuda.device(device):
+        rc = getattr(_build.library(), fn)(device.index, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
     LAUNCHES[key] += 1
@@ -334,33 +338,40 @@ def packed_host(chrom) -> np.ndarray:
     return pack_codes(np.asarray(chrom.genotypes))
 
 
-def _missing_mask(chrom, centro, winsize: int, max_gap: int, device):
-    return _upload(window_missing_mask(
-        chrom.positions, winsize, max_gap, centro.start(chrom.chrom),
-        centro.end(chrom.chrom)).astype(np.uint8), device)
+def _missing_mask(chrom, centro, winsize: int, max_gap: int, device,
+                  miss=None):
+    if miss is None:
+        miss = window_missing_mask(
+            chrom.positions, winsize, max_gap, centro.start(chrom.chrom),
+            centro.end(chrom.chrom))
+    return _upload(np.asarray(miss).astype(np.uint8), device)
 
 
 def chrom_device_inputs(chrom, centro, winsize: int, error: float,
-                        max_gap: int, device):
+                        max_gap: int, device, miss=None):
     """One chromosome's K1/K2 inputs on `device`: (packed u8
     [I, ceil(L/4)], table f32 [3, L], window-missing mask u8 [nwin]),
     with nwin = L - winsize + 1 >= 1.  The codes go up as they are (a
     plain H2D copy) and the f32 table is built on the device; the input
     stage of lod_windows_pallas_prepacked_raw (pallas_lod.py:1261) and
-    covered_pallas_prepacked_raw (:1352)."""
+    covered_pallas_prepacked_raw (:1352).  miss: the host mask [nwin] to
+    upload (a mesh shard's slice of its chromosome's), else the mask of
+    chrom.positions."""
     freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
     return (_upload(packed_host(chrom), device), lod_table_f32(freq, error),
-            _missing_mask(chrom, centro, winsize, max_gap, device))
+            _missing_mask(chrom, centro, winsize, max_gap, device, miss))
 
 
-def chrom_gl_inputs(chrom, centro, winsize: int, max_gap: int, device):
+def chrom_gl_inputs(chrom, centro, winsize: int, max_gap: int, device,
+                    miss=None):
     """One TGLS chromosome's K3/K4 inputs on `device`: (terms f32 [I, L],
     window-missing mask u8 [nwin]).  The 2-bit genotype codes go up as
     they are; the error plane goes up in the native reader's dictionary
     form (u8 codes [I, L] + f32 lut, gathered on the device: the K-way
     select of pallas_lod.py:686-688) or as the f32 cast of chrom.gl
     (:773); the plane is decoded on the device (_gl_codes_masked_entry,
-    :668, and _gl_entry, :638, without their padding)."""
+    :668, and _gl_entry, :638, without their padding).  miss: as in
+    chrom_device_inputs."""
     geno = decode_2bit(_upload(packed_host(chrom), device), chrom.nloci)
     freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
     if chrom.gl_codes is not None:
@@ -371,44 +382,4 @@ def chrom_gl_inputs(chrom, centro, winsize: int, max_gap: int, device):
     else:
         err = _upload(np.asarray(chrom.gl, dtype=np.float32), device)
     return (gl_terms_f32(geno, freq, err),
-            _missing_mask(chrom, centro, winsize, max_gap, device))
-
-
-def lod_windows_packed_raw(chrom, centro, winsize: int, error: float,
-                           max_gap: int, device) -> torch.Tensor:
-    """K1 over one chromosome: masked f32 window sums [I, nwin] on
-    `device`, the 2-bit codes uploaded as they are.  Counterpart of
-    lod_windows_pallas_prepacked_raw (pallas_lod.py:1261) and
-    lod_windows_pallas_packed_raw (:885)."""
-    return lod_windows(*chrom_device_inputs(chrom, centro, winsize, error,
-                                            max_gap, device), winsize)
-
-
-def covered_packed_raw(chrom, centro, winsize: int, error: float,
-                       max_gap: int, cutoff: float, thr: float, delta: float,
-                       device):
-    """K2 over one chromosome: (covered u8 [I, L], susw u8 [I, nwin],
-    above u8 [I, nwin]) on `device`, the 2-bit codes uploaded as they
-    are.  Counterpart of covered_pallas_prepacked_raw (pallas_lod.py:1352)."""
-    return covered(*chrom_device_inputs(chrom, centro, winsize, error,
-                                        max_gap, device),
-                   winsize, cutoff, thr, delta)
-
-
-def window_sums_gl_raw(chrom, centro, winsize: int, max_gap: int,
-                       device) -> torch.Tensor:
-    """K3 over one TGLS chromosome: masked f32 window sums [I, nwin] on
-    `device`.  Counterpart of lod_windows_pallas_gl_codes_raw
-    (pallas_lod.py:695, dictionary form) and lod_windows_pallas_gl_raw
-    (:751, float form)."""
-    return window_sums(*chrom_gl_inputs(chrom, centro, winsize, max_gap,
-                                        device), winsize)
-
-
-def covered_gl_raw(chrom, centro, winsize: int, max_gap: int,
-                   cutoff: float, thr: float, delta: float, device):
-    """K4 over one TGLS chromosome: K2's three u8 planes on `device`.
-    Counterpart of covered_pallas_gl_codes_raw (pallas_lod.py:509)."""
-    return covered_terms(*chrom_gl_inputs(chrom, centro, winsize, max_gap,
-                                          device),
-                         winsize, cutoff, thr, delta)
+            _missing_mask(chrom, centro, winsize, max_gap, device, miss))

@@ -6,19 +6,27 @@ per chromosome holding the coverage run edges and the tie-patrol suspect
 windows, from which the host rebuilds the bit-packed coverage matrix
 that the native run scan reads.
 
-Two Phase-I routes feed it:
+Every fast run lays its chromosomes on a mesh (parallel/mesh.py; one
+device is the 1x1 mesh over it), and two Phase-I routes feed it, each
+run per shard (parallel/engine.py):
 
 * split (--raw-lod, runs with a float-matrix TGLS error plane, and the
-  programmatic API): K1 (K3 for TGLS) writes the window matrix
-  (DeviceWin); the coverage program below counts it in plain torch.
+  programmatic API): K1 (K3 for TGLS) writes each shard's window block
+  (DeviceWin: the blocks and the layout); the coverage program below
+  counts each shard's windows in plain torch.
 * fused (every other run): K2 (K4 for dictionary-form TGLS) computes the
   window sums, cutoff flags, suspect flags and coverage counts in one
-  kernel (FusedCov); the window matrix never reaches device memory.
+  kernel per shard (FusedCov); the window matrix never reaches device
+  memory.
+
+Either way the coverage handle holds one _Piece per shard, each on its
+device; covered_fetch fetches each piece's edge payload and stitches
+them, in locus order, into the packed rows of the whole chromosome.
 
 In streaming mode a split chromosome is a LazyWin (a thunk that makes
 its DeviceWin) and a fused one a FusedCov with stream set: assembly
 makes, fetches and drops them one at a time, so one chromosome's window
-matrix or u8 planes is live at once.
+blocks or u8 planes are live at once.
 
 The JAX edge extractor's static-shape machinery (tiered caps, the bitmap
 fallback, the cumsum/searchsorted compaction) is not carried over:
@@ -42,16 +50,19 @@ _warned_full_transfer = False
 
 @dataclass
 class DeviceWin:
-    """One chromosome's f32 window scores on the device: win [I, nwin]
-    window-start columns, MISSING where the window is masked (the
-    counterpart of device_win.py:30 in its exactly sized layout).
-    Accessors present the reference's [nind, nloci] MISSING-tailed
-    view.  tie_scale: the weighted paths' f32 device scalar (max finite
-    |term|), which scales the tie band in covered_dispatch."""
-    win: torch.Tensor
+    """One chromosome's f32 window scores on the devices of a mesh (the
+    counterpart of device_win.py:30 in an exactly sized, sharded layout):
+    shards, the layout (parallel.engine.shard_blocks); blocks[(d, s)],
+    the [rows, nw] windows of shard (d, s)'s rows and own window starts
+    on its device, MISSING where the window is masked.  Accessors present
+    the reference's [nind, nloci] MISSING-tailed view.  tie_scale: the
+    weighted paths' f32 scalar (max finite |term|) on the mesh's first
+    device, which scales the tie band in covered_dispatch."""
     nind: int
     nloci: int
     nwin: int
+    shards: list
+    blocks: dict
     tie_scale: torch.Tensor = None
 
     @property
@@ -69,12 +80,63 @@ class DeviceWin:
                   file=sys.stderr)
         return self.to_numpy()[idx]
 
+    def _live(self):
+        return [(sh, self.blocks[(sh.d, sh.s)]) for sh in self.shards
+                if sh.live]
+
     def to_numpy(self) -> np.ndarray:
         if not hasattr(self, "_host"):
             host = np.full((self.nind, self.nloci), float(MISSING))
-            host[:, :self.nwin] = self.win.cpu().numpy()
+            for sh, win in self._live():
+                host[sh.r0:sh.r1, sh.c0:sh.w1] = win.cpu().numpy()
             self._host = host
         return self._host
+
+    def thinned(self, step: int) -> np.ndarray:
+        """win[:, ::step] in f64 on the host (see thinned_block)."""
+        out = np.empty((self.nind, -(-self.nwin // step)))
+        for sh, win in self._live():
+            k0 = -(-sh.c0 // step)  # the shard's first start on the grid
+            part = win[:, k0 * step - sh.c0::step].cpu().numpy()
+            out[sh.r0:sh.r1, k0:k0 + part.shape[1]] = part
+        return out
+
+    def _window_cols(self, d: int, lo: int, hi: int, device):
+        """Windows of starts [lo, hi) of row block d on `device`, copied
+        from the shards that own them."""
+        parts = [win[:, max(lo, sh.c0) - sh.c0:min(hi, sh.w1) - sh.c0]
+                 .to(device) for sh, win in self._live()
+                 if sh.d == d and min(hi, sh.w1) > max(lo, sh.c0)]
+        if not parts:
+            rows = next(sh.rows for sh in self.shards if sh.d == d)
+            return torch.empty((rows, 0), dtype=torch.float32, device=device)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def coverage(self, cutoff: float, threshold: float, tie_delta,
+                 winsize: int) -> "Coverage":
+        """Enqueue the plain-torch coverage program (see covered_dispatch)
+        per shard, over its own window starts with the W windows left of
+        them from its left neighbours (the coverage of its first locus
+        and of the one before it)."""
+        pieces = []
+        for sh, _ in self._live():
+            lo = max(0, sh.c0 - winsize)
+            hi = max(lo, min(sh.c1, self.nwin))
+            win = self._window_cols(sh.d, lo, hi, sh.device)
+            pieces.append(_coverage(win, lo, sh.c0, sh.n, sh.nw, cutoff,
+                                    threshold,
+                                    self.tie_band(tie_delta, sh.device),
+                                    winsize, sh.r0))
+        return Coverage(pieces, self.nind, self.nloci, self.nwin)
+
+    def tie_band(self, tie_delta, device):
+        """The tie band on `device`: tie_delta, times the device scalar
+        tie_scale where the windows carry one (weighted paths), with no
+        host sync (device_win.py:575-576)."""
+        if tie_delta and self.tie_scale is not None:
+            return torch.tensor(tie_delta, dtype=torch.float32,
+                                device=device) * self.tie_scale.to(device)
+        return tie_delta
 
 
 def is_device_win(obj) -> bool:
@@ -114,30 +176,30 @@ def is_lazy_win(obj) -> bool:
 
 
 class FusedCov:
-    """Deferred fused Phase-I + coverage dispatch: covered bits, suspect
-    flags and above flags come straight out of kernel K2, or K4 on a
-    dictionary-form TGLS chromosome (use_gl).  make() builds the split
-    path's DeviceWin where the fused kernel does not apply (float-matrix
-    TGLS).
+    """Deferred fused Phase-I + coverage dispatch over a mesh: covered
+    bits, suspect flags and above flags come straight out of kernel K2
+    per shard, or K4 on a dictionary-form TGLS chromosome (use_gl)
+    (parallel.engine.covered_sharded).  make() builds the split path's
+    DeviceWin where the fused kernel does not apply (float-matrix TGLS).
 
     handle: a covered_dispatch result enqueued during Phase I (pinned
     runs: the cutoff, threshold and tie band are known there), so the
-    kernel runs on the device while the host finishes Phase I.
+    kernels run on the devices while the host finishes Phase I.
     stream: streaming mode; assembly dispatches this chromosome only when
     it reaches it, and drops its planes before the next."""
 
-    __slots__ = ("chrom", "centro", "winsize", "error", "max_gap",
-                 "device", "handle", "use_gl", "stream")
+    __slots__ = ("chrom", "centro", "winsize", "error", "max_gap", "mesh",
+                 "handle", "use_gl", "stream")
 
     def __init__(self, chrom, centro, winsize: int, error: float,
-                 max_gap: int, device, use_gl: bool = False,
+                 max_gap: int, mesh, use_gl: bool = False,
                  stream: bool = False):
         self.chrom = chrom
         self.centro = centro
         self.winsize = winsize
         self.error = error
         self.max_gap = max_gap
-        self.device = device
+        self.mesh = mesh
         self.handle = None
         self.use_gl = use_gl
         self.stream = stream
@@ -155,80 +217,97 @@ class FusedCov:
         return (self.nind, self.nloci)
 
     def make(self) -> DeviceWin:
-        return lod_windows_device(self.chrom, self.centro, self.winsize,
-                                  self.error, self.max_gap, self.device,
-                                  self.use_gl)
-
-
-def lod_windows_device(chrom, centro, winsize: int, error: float,
-                       max_gap: int, device, use_gl: bool = False
-                       ) -> DeviceWin:
-    """Split Phase I with no host transfer of the result
-    (device_win.py:162-233): K3 over the TGLS term plane (use_gl, both
-    error-plane forms, :180-195), else K1."""
-    I, L = chrom.nind, chrom.nloci
-    nwin = max(L - winsize + 1, 0)
-    if nwin == 0:
-        win = torch.empty((I, 0), dtype=torch.float32, device=device)
-        return DeviceWin(win=win, nind=I, nloci=L, nwin=0)
-    if use_gl:
-        win = cuda_lod.window_sums_gl_raw(chrom, centro, winsize, max_gap,
-                                          device)
-    else:
-        win = cuda_lod.lod_windows_packed_raw(chrom, centro, winsize, error,
-                                              max_gap, device)
-    return DeviceWin(win=win, nind=I, nloci=L, nwin=nwin)
+        from ..parallel import engine
+        return engine.lod_windows_sharded(self.chrom, self.centro,
+                                          self.winsize, self.error,
+                                          self.max_gap, self.mesh,
+                                          self.use_gl)
 
 
 def thinned_block(dwin: DeviceWin, step: int, ind_idx=None) -> np.ndarray:
-    """win[:, ::step] sliced on the device, one device-to-host copy, then
-    f64 on the host ([I, ceil(nwin/step)]): convertWinData2DoubleData's
-    thinning (src/garlic-data.cpp:2037), so only 1/step of the matrix
-    crosses the link.  Counterpart of device_win.py:239.  The slice over
-    the nwin window starts keeps the values of garlic_tpu's slice over
-    all nloci slots, whose MISSING tail the caller drops."""
-    out = dwin.win[:, ::step].cpu().numpy().astype(np.float64)
+    """win[:, ::step] sliced on the device, one device-to-host copy per
+    shard, then f64 on the host ([I, ceil(nwin/step)]):
+    convertWinData2DoubleData's thinning (src/garlic-data.cpp:2037), so
+    only 1/step of the matrix crosses the link.  Counterpart of
+    device_win.py:239.  The slice over the nwin window starts keeps the
+    values of garlic_tpu's slice over all nloci slots, whose MISSING
+    tail the caller drops."""
+    out = dwin.thinned(step)
     if ind_idx is not None:
         out = out[ind_idx]
     return out
 
 
-def _coverage(win: torch.Tensor, cutoff: float, threshold: float,
-              delta: float, winsize: int, nloci: int):
-    """Split-path coverage program (device_win.py:346) in plain torch:
-    (covered bool [I, nloci], susw bool [I, nwin], above bool [I, nwin]).
-    MISSING slots score -9999, far from any cutoff band; delta 0 flags
-    nothing.  Counts are exact int32 sums."""
+@dataclass
+class _Piece:
+    """One shard's coverage planes, on its device: cov [rows, n] over
+    loci c0.., susw and above [rows, nw] over window starts c0.., and
+    prev [rows], the coverage of locus c0 - 1 (None when c0 = 0), which
+    decides whether locus c0 opens or closes a run.  r0: the first row."""
+    cov: torch.Tensor
+    susw: torch.Tensor
+    above: torch.Tensor
+    prev: object
+    r0: int
+    c0: int
+
+
+@dataclass
+class Coverage:
+    """A covered_dispatch handle: the pieces of one chromosome
+    [nind, nloci] (nwin window starts), one per shard."""
+    pieces: list
+    nind: int
+    nloci: int
+    nwin: int
+
+
+def _coverage(win: torch.Tensor, first: int, c0: int, n: int, nw: int,
+              cutoff: float, threshold: float, delta, winsize: int,
+              r0: int) -> _Piece:
+    """Split-path coverage program (device_win.py:346) in plain torch.
+    win: f32 windows of the global starts [first, first + k), k >= 0,
+    holding every window that covers loci [c0 - 1, c0 + n) (first <=
+    c0 - winsize where c0 > 0); the piece covers loci c0.. (n) and window
+    starts c0.. (nw).  MISSING slots score -9999, far from any cutoff
+    band; delta 0 flags nothing.  Counts are exact int32 sums."""
     c = torch.tensor(cutoff, dtype=torch.float32, device=win.device)
     d = torch.as_tensor(delta, dtype=torch.float32, device=win.device)
     above = win >= c
     susw = (win - c).abs() < d
-    I, nwin = win.shape
-    if nwin == 0:
-        cov = torch.zeros((I, nloci), dtype=torch.bool, device=win.device)
+    o = c0 - first
+    if win.shape[1] == 0:
+        cov = torch.zeros((win.shape[0], n), dtype=torch.bool,
+                          device=win.device)
+        prev = None
     else:
-        cov = cuda_lod.window_counts(above, winsize)[:, :nloci] >= threshold
-    return cov, susw, above
+        counts = cuda_lod.window_counts(above, winsize) >= threshold
+        cov = counts[:, o:o + n]
+        prev = counts[:, o - 1] if c0 > 0 else None
+    return _Piece(cov, susw[:, o:o + nw], above[:, o:o + nw], prev, r0, c0)
 
 
 def _edges_payload(covered: torch.Tensor, susw: torch.Tensor,
-                   above: torch.Tensor) -> np.ndarray:
+                   above: torch.Tensor, prev=None) -> np.ndarray:
     """The edge extractor (device_win.py:391) in plain torch: one int64
     payload, one device-to-host copy:
     [nedge, nsusw, last(I), sus(I), sidx(nsusw), sside(nsusw),
      edges(nedge)].
     edges: sorted flat indices (row-major over [I, L]) of the 0->1 / 1->0
-    coverage transitions; last: the row's final SNP is covered; sus: the
-    row holds a suspect window; sidx/sside: flat indices over [I, nwin]
-    of the suspect windows and their f32 side of the cutoff."""
+    coverage transitions, against prev [I] left of column 0 (0 when
+    None); last: the row's final SNP is covered; sus: the row holds a
+    suspect window; sidx/sside: flat indices over [I, nwin] of the
+    suspect windows and their f32 side of the cutoff."""
     covered = covered.bool()
     susw = susw.bool()
     I, L = covered.shape
     last = covered[:, -1] if L else torch.zeros(I, dtype=torch.bool,
                                                 device=covered.device)
-    prev = torch.zeros_like(covered)
-    prev[:, 1:] = covered[:, :-1]
-    edges = torch.nonzero((covered != prev).reshape(-1)).reshape(-1)
+    before = torch.zeros_like(covered)
+    before[:, 1:] = covered[:, :-1]
+    if prev is not None:
+        before[:, 0] = prev.bool()
+    edges = torch.nonzero((covered != before).reshape(-1)).reshape(-1)
     sidx = torch.nonzero(susw.reshape(-1)).reshape(-1)
     sside = above.reshape(-1)[sidx].to(torch.int64)
     head = torch.tensor([edges.numel(), sidx.numel()], dtype=torch.int64,
@@ -240,14 +319,14 @@ def _edges_payload(covered: torch.Tensor, susw: torch.Tensor,
 
 
 def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
-                     tie_delta: float = 0.0):
-    """Enqueue one chromosome's coverage on the device and return a
-    handle for covered_fetch.  A FusedCov launches K2 or K4 (or returns
-    the handle pre-enqueued during Phase I, or takes the split path where
-    _dispatch_fused declines); a DeviceWin runs the plain-torch coverage
-    program over K1's or K3's window matrix.  Kernel launches are
-    asynchronous, so assemble_roh enqueues every resident chromosome
-    before the first blocking fetch (streamed ones in turn).
+                     tie_delta: float = 0.0) -> Coverage:
+    """Enqueue one chromosome's coverage, each shard's on its device, and
+    return a handle for covered_fetch.  A FusedCov launches K2 or K4 per
+    shard (or returns the handle pre-enqueued during Phase I, or takes
+    the split path where covered_sharded declines); a DeviceWin runs the
+    plain-torch coverage program over K1's or K3's window blocks.  Kernel
+    launches are asynchronous, so assemble_roh enqueues every resident
+    chromosome before the first blocking fetch (streamed ones in turn).
 
     tie_delta > 0 also flags windows within tie_delta of the cutoff (the
     f32 error band); covered_fetch returns them for the tie patrol.  When
@@ -260,42 +339,12 @@ def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
     if isinstance(dwin, FusedCov):
         if dwin.handle is not None:  # pre-enqueued during Phase I
             return dwin.handle
-        h = _dispatch_fused(dwin, cutoff, winsize, thr, tie_delta)
+        from ..parallel import engine
+        h = engine.covered_sharded(dwin, cutoff, winsize, thr, tie_delta)
         if h is not None:
             return h
         dwin = dwin.make()
-    if tie_delta and dwin.tie_scale is not None:
-        tie_delta = torch.tensor(tie_delta, dtype=torch.float32,
-                                 device=dwin.win.device) * dwin.tie_scale
-    cov, susw, above = _coverage(dwin.win, cutoff, thr, tie_delta, winsize,
-                                 dwin.nloci)
-    return cov, susw, above, dwin.nind, dwin.nloci
-
-
-def _dispatch_fused(fc: FusedCov, cutoff: float, winsize: int,
-                    threshold: float, tie_delta: float):
-    """Run K2, or K4 for dictionary-form TGLS, for one chromosome
-    (_dispatch_fused, device_win.py:599).  None -> the caller takes the
-    split path: float-matrix TGLS, as device_win.py:634-637 does.  Exact
-    sizing leaves no bucket-slack case; a chromosome shorter than the
-    window has no windows and so nothing covered."""
-    c = fc.chrom
-    I, L = c.nind, c.nloci
-    if L - winsize + 1 <= 0:
-        z = torch.zeros((I, 0), dtype=torch.uint8, device=fc.device)
-        return (torch.zeros((I, L), dtype=torch.uint8, device=fc.device),
-                z, z, I, L)
-    if fc.use_gl:
-        if c.gl_codes is None:
-            return None
-        cov, susw, above = cuda_lod.covered_gl_raw(
-            c, fc.centro, winsize, fc.max_gap, cutoff, threshold, tie_delta,
-            fc.device)
-    else:
-        cov, susw, above = cuda_lod.covered_packed_raw(
-            c, fc.centro, winsize, fc.error, fc.max_gap, cutoff, threshold,
-            tie_delta, fc.device)
-    return cov, susw, above, I, L
+    return dwin.coverage(cutoff, thr, tie_delta, winsize)
 
 
 def _set_bits(row: np.ndarray, o: int, c: int) -> None:
@@ -339,22 +388,39 @@ def _edges_to_packed(idx: np.ndarray, last: np.ndarray, I: int,
     return out
 
 
-def covered_fetch(handle):
+def covered_fetch(handle: Coverage):
     """(uint8 [I, ceil(L/8)] little-endian bit-packed coverage, bool [I]
     suspect-row flags, suspect-window detail (rows, wins, f32_above))
-    for a covered_dispatch handle (covered_fetch, device_win.py:724)."""
-    cov, susw, above, I, L = handle
-    m = _edges_payload(cov, susw, above)
-    nedge, nsusw = int(m[0]), int(m[1])
-    o = 2
-    last = m[o:o + I].astype(bool)
-    sus = m[o + I:o + 2 * I].astype(bool)
-    o += 2 * I
-    sidx = m[o:o + nsusw]
-    sside = m[o + nsusw:o + 2 * nsusw].astype(bool)
-    o += 2 * nsusw
-    edges = m[o:o + nedge]
-    nwin = susw.shape[1]
+    for a covered_dispatch handle (covered_fetch, device_win.py:724).
+    Each piece's payload is fetched and its indices moved to the
+    chromosome's rows and columns; the pieces of several shards are then
+    merged into row-major order."""
+    I, L, nwin = handle.nind, handle.nloci, handle.nwin
+    last = np.zeros(I, dtype=bool)
+    sus = np.zeros(I, dtype=bool)
+    none = np.zeros(0, dtype=np.int64)  # a chromosome with no piece
+    edges, sidx, sside = [none], [none], [none.astype(bool)]
+    for p in handle.pieces:
+        rows, n = p.cov.shape
+        nw = max(p.susw.shape[1], 1)
+        m = _edges_payload(p.cov, p.susw, p.above, p.prev)
+        nedge, nsusw = int(m[0]), int(m[1])
+        o = 2
+        if p.c0 + n == L:
+            last[p.r0:p.r0 + rows] = m[o:o + rows].astype(bool)
+        sus[p.r0:p.r0 + rows] |= m[o + rows:o + 2 * rows].astype(bool)
+        o += 2 * rows
+        s = m[o:o + nsusw]
+        sidx.append((p.r0 + s // nw) * max(nwin, 1) + p.c0 + s % nw)
+        sside.append(m[o + nsusw:o + 2 * nsusw].astype(bool))
+        o += 2 * nsusw
+        e = m[o:o + nedge]
+        edges.append((p.r0 + e // max(n, 1)) * L + p.c0 + e % max(n, 1))
+    edges, sidx, sside = (np.concatenate(x) for x in (edges, sidx, sside))
+    if len(handle.pieces) > 1:
+        edges.sort()
+        order = np.argsort(sidx, kind="stable")
+        sidx, sside = sidx[order], sside[order]
     susw_detail = (sidx // max(nwin, 1), sidx % max(nwin, 1), sside)
     return _edges_to_packed(edges, last, I, L), sus, susw_detail
 

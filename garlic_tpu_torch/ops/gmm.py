@@ -4,8 +4,9 @@ Counterpart of garlic_tpu/ops/gmm.py.  The host EM (fit_gmm), GMMResult,
 the %g guard (_g_format_stable) and the host path of selectSizeClasses
 are copies of garlic_tpu's (each names its source line; the boundary
 root finder is ops/brent.py); what moves to the device is the EM loop
-that garlic_tpu runs as an f64 lax.while_loop on a 1x1 mesh
-(fit_gmm_sharded, parallel/engine.py:309-443), here an f64 torch loop.
+that garlic_tpu runs as an f64 lax.while_loop on a mesh
+(fit_gmm_sharded, parallel/engine.py:309-443), here an f64 torch loop
+over the shards of the fast engine's mesh (fit_em).
 """
 
 from __future__ import annotations
@@ -129,27 +130,30 @@ def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
                       ((x * x)[:, None] * r).sum(dim=0), tmp.sum()[None]])
 
 
-def fit_gmm_device(x: np.ndarray, k: int, w0: np.ndarray, mu0: np.ndarray,
-                   var0: np.ndarray, device, max_iter: int = 1000,
-                   precision: float = 1e-5) -> GMMResult:
-    """GMM-EM in f64 on `device`: the single-device body of
-    fit_gmm_sharded (parallel/engine.py:344-443).
+def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
+           var0: np.ndarray, device, max_iter: int = 1000,
+           precision: float = 1e-5) -> GMMResult:
+    """GMM-EM in f64 over the f64 tensors `shards` (the points, split over
+    devices), the parameters on `device`.
 
-    Each iteration is one fused E+M pass and one host read (the
-    log-likelihood and a finiteness flag of the new parameters); the
-    loop stops on |ll - last_ll| <= precision (conv), on non-finite
-    parameters (bad, raised below) or at max_iter, and last_ll keeps its
-    value on the iteration that stops, as the while_loop's carry does.
-    Agrees with fit_gmm up to the order of the f64 sums."""
-    dev = torch.device(device)
-    xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64)).to(dev)
-    n = xd.shape[0]
-    w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(dev)
+    Each iteration is one fused E+M pass: every shard's packed E-step
+    sums (_em_stats) are added on `device` in shard order, and one host
+    read takes the log-likelihood and a finiteness flag of the new
+    parameters.  The loop stops on |ll - last_ll| <= precision (conv),
+    on non-finite parameters (bad, raised below) or at max_iter, and
+    last_ll keeps its value on the iteration that stops, as the
+    while_loop's carry of garlic_tpu/parallel/engine.py:374-397 does."""
+    n = sum(int(x.shape[0]) for x in shards)
+    w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(device)
                   for a in (w0, mu0, var0))
     last_ll = ll = -np.finfo(np.float64).max
     it, done = 0, False
     while not done and it < max_iter:
-        s = _em_stats(xd, w, mu, var)
+        s = None
+        for x in shards:
+            d = x.device
+            part = _em_stats(x, w.to(d), mu.to(d), var.to(d)).to(device)
+            s = part if s is None else s + part
         s0, s1, s2 = s[:k], s[k:2 * k], s[2 * k:3 * k]
         w, mu = s0 / float(n), s1 / s0
         var = s2 / s0 - mu * mu
@@ -169,17 +173,20 @@ def fit_gmm_device(x: np.ndarray, k: int, w0: np.ndarray, mu0: np.ndarray,
                      bic=float(bic), converged=done, iterations=it)
 
 
-# copy of garlic_tpu/ops/gmm.py:127 with the device EM of fit_gmm_device
+# copy of garlic_tpu/ops/gmm.py:127 with the device EM of fit_gmm_sharded
 def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
-                        device=None):
+                        mesh=None):
     """selectSizeClasses (src/garlic-roh.cpp:935-1003): fit the GMM, sort
     the components by mean, log their parameters, then root-find the K-1
     pairwise Gaussian intersections as the size-class boundaries.
 
-    device: the fast engine's torch device; at >= 4096 ROH the EM runs
-    there (fit_gmm_device), and a fit with a logged parameter near a %g
-    rounding boundary is rerun on the host (_g_format_stable), so the
-    .log lines equal the host fit's.  None, or fewer ROH: the host EM."""
+    mesh: the fast engine's parallel.mesh.Mesh.  garlic_tpu's rule picks
+    the EM: over a mesh of several devices it runs there at every size,
+    as its --tpu-mesh runs do; over one device (the 1x1 mesh) at >= 4096
+    ROH (parallel.engine.fit_gmm_sharded).  A device fit with a logged
+    parameter near a %g rounding boundary is rerun on the host
+    (_g_format_stable), so the .log lines equal the host fit's.  None, or
+    fewer ROH on one device: the host EM."""
     from .brent import find_boundary
     lengths = np.asarray(lengths, dtype=np.float64)
     var = float(np.var(lengths, ddof=1))
@@ -188,11 +195,12 @@ def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
     w0 = np.full(k, 1.0 / k)
     mu0 = np.array([mean * (n + 1) / (k + 1) for n in range(k)])
     var0 = np.array([var * (n + 1) / k for n in range(k)])
-    if device is not None and lengths.shape[0] >= 4096:
+    if mesh is not None and (mesh.size > 1 or lengths.shape[0] >= 4096):
+        from ..parallel.engine import fit_gmm_sharded
         print(f"Begin GMM estimation with k = {k} Gaussians...",
               file=sys.stderr)
-        res = fit_gmm_device(lengths, k, w0, mu0, var0, device,
-                             max_iter=1000, precision=1e-5)
+        res = fit_gmm_sharded(lengths, k, w0, mu0, var0, mesh,
+                              max_iter=1000, precision=1e-5)
         if not _g_format_stable(res):
             res = fit_gmm(lengths, k, w0, mu0, var0, max_iter=1000,
                           precision=1e-5, verbose=False)

@@ -5,9 +5,10 @@ bit-exact sd through the native library), the 512-point grid (_kde_grid),
 KDEResult and the exact engine's f64 host transform are copies of
 garlic_tpu's (each names its source line), so the .kde x column comes
 from the same arithmetic in both packages.  What moves to the device is
-the Gauss transform, the O(N x 512) part: gauss_transform below is the
+the Gauss transform, the O(N x 512) part: gauss_sums below is the
 counterpart of gauss_transform(device=True) (kde.py:119-160) in plain
-PyTorch.
+PyTorch, run per shard of the fast engine's mesh
+(parallel.engine.gauss_transform_sharded; one device is the 1x1 mesh).
 
 Not ported: compute_kde_hybrid/_gauss_wins_factory (kde.py:319-453) and
 compute_kde_wins/_kde_flat_factory (kde.py:194-313).  They exist to keep
@@ -175,9 +176,10 @@ def _kde_grid(data: np.ndarray):
 BLOCK = 1 << 18
 
 
-def gauss_transform(sources: np.ndarray, targets: np.ndarray, h: float,
-                    device) -> np.ndarray:
-    """sum_j (1/n) exp(-(x_j - t)^2 / h^2) for each target, on `device`.
+def gauss_sums(sources: np.ndarray, targets: np.ndarray, h: float,
+               device) -> torch.Tensor:
+    """sum_j exp(-(x_j - t)^2 / h^2) for each target: f64 [M] on `device`,
+    not fetched (a mesh shard's partial stays on its device).
 
     The scheme of gauss_transform(device=True): f32 sources against f32
     targets, exp(-(d*d)*inv_h2) summed per block in f32, the block
@@ -188,7 +190,6 @@ def gauss_transform(sources: np.ndarray, targets: np.ndarray, h: float,
     negation is exact), dropped before the next block's is made, so one
     block's temporary is live at a time."""
     n = sources.shape[0]
-    q = 1.0 / float(n)
     dev = torch.device(device)
     src = torch.from_numpy(np.asarray(sources, dtype=np.float32)).to(dev)
     tgt = torch.from_numpy(np.asarray(targets, dtype=np.float32)).to(dev)
@@ -205,18 +206,21 @@ def gauss_transform(sources: np.ndarray, targets: np.ndarray, h: float,
         d.square_().mul_(float(neg_inv_h2)).exp_()
         out += d.sum(dim=0).to(torch.float64)
         del d
-    return out.cpu().numpy() * q
+    return out
 
 
-# garlic_tpu/ops/kde.py:456 without the mesh branch
-def compute_kde(data: np.ndarray, log=None, device=None,
-                grid=None) -> KDEResult:
+# garlic_tpu/ops/kde.py:456
+def compute_kde(data: np.ndarray, log=None, grid=None,
+                mesh=None) -> KDEResult:
     """Full computeKDE (src/garlic-kde.cpp:14-103).
 
-    device: the torch device of the fast engine's transform; None runs
-    the blocked f64 host transform (the exact engine).
     grid: (h, targets, spacing, n) from the pool cache; skips the sort
-    and nrd0 pass, the transform still reads `data`."""
+    and nrd0 pass, the transform still reads `data`.
+    mesh: the fast engine's parallel.mesh.Mesh: the transform runs as
+    per-shard partials summed in shard order
+    (parallel.engine.gauss_transform_sharded); None runs the blocked f64
+    host transform (the exact engine).  The bandwidth and grid are the
+    host's either way."""
     data = np.asarray(data, dtype=np.float64)
     n = data.shape[0]
     if log is not None:
@@ -226,10 +230,11 @@ def compute_kde(data: np.ndarray, log=None, device=None,
         h, targets, spacing, _ = grid
     else:
         h, targets, spacing = _kde_grid(data)
-    if device is None:
+    if mesh is None:
         y = gauss_transform_host(data, targets, h)
     else:
-        y = gauss_transform(data, targets, h, device)
+        from ..parallel.engine import gauss_transform_sharded
+        y = gauss_transform_sharded(data, targets, h, mesh) * (1.0 / float(n))
     s = float(np.sum(y))
     y = y / (s * spacing)
     return KDEResult(x=targets, y=y)

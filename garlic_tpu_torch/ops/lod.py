@@ -177,7 +177,7 @@ def _lod_windows_exact_numpy(terms: np.ndarray, missing: np.ndarray,
 
 
 # copy of the exact branch of garlic_tpu/ops/lod.py:310 (calc_lod_windows);
-# the fast engine is ops/device_win.lod_windows_device
+# the fast engine is parallel/engine.lod_windows_sharded
 def calc_lod_windows(chrom, centro, winsize: int, error: float,
                      max_gap: int, use_gl: bool = False,
                      bar=None) -> np.ndarray:

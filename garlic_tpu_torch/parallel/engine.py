@@ -1,0 +1,517 @@
+"""Multi-device ROH engine: each phase's shards over a Mesh.
+
+Counterpart of garlic_tpu/parallel/engine.py, whose shard_map programs
+become one loop over the mesh's shards in the one process that drives
+every device.  Every fast run goes through here: one device is the 1x1
+mesh over it, whose one shard is the whole chromosome.  Each shard's
+inputs are sliced from the host panel and uploaded to its device, its
+work is enqueued on that device's current stream, and a reduction adds
+the shards' partials on the mesh's first device in shard order, so its
+result does not depend on the device count.  Whether shards on
+different cards overlap is not measured (only one card has run them,
+and the uploads are blocking copies from pageable host memory).
+
+* Phase I, lod_windows_sharded: individuals over dp, loci over sp; a
+  shard's inputs are its locus range plus the next winsize-1 loci, taken
+  from the host panel (no exchange), and K1 (K3 for TGLS) runs on them.
+  Every window is a fresh chain of W f32 adds from 0 in each kernel, so
+  a shard's windows are the 1x1 mesh's bit for bit.  The result is a
+  DeviceWin: per-shard window blocks and the layout.
+* the fused route, covered_sharded: K2 (K4) per shard over its locus
+  range with W loci to the left (the coverage of its first locus and of
+  the one before it) and W-1 to the right; each shard keeps the covered
+  plane of its own loci and the flags of its own window starts.
+* Phase II, gauss_transform_sharded: the sources split over every shard,
+  the [512] partials of ops/kde.py's transform added in shard order.
+* Phase IV, fit_gmm_sharded: the lengths split over every shard, each
+  EM iteration's packed sums (ops/gmm._em_stats) added in shard order.
+* the weighted path, ld_band_sharded + wlod_windows_sharded: int32 pair
+  counts summed over dp (the band equals the 1x1 band bit for bit), the
+  pair band's W-1 right-halo columns copied from the neighbour's device,
+  and the wLOD window sums per shard in the j order of
+  ops/device_wlod._wlod_windows_dev, the tie scale a max over the
+  shards.
+
+Computed halos (window columns, pair-band columns, the tie scale) are
+device-to-device copies; on one card they are copies within it.
+Allele frequencies are not sharded: a single-host run holds the whole
+panel, so they come from the host load.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..ops import cuda_lod
+from ..ops import device_wlod as dw
+from ..ops.device_win import Coverage, DeviceWin, _Piece
+from ..runtime import hbm_budget
+from .mesh import AXIS_DP, AXIS_SP
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+def check_halo_fits(L_padded: int, width: int, n_sp: int) -> None:
+    """The ppermute halo pulls `width` columns from ONE right neighbor, so
+    each sp shard must hold at least that many loci — otherwise x_blk[:, :w]
+    silently clamps and the windows straddling two shards go wrong (or the
+    trace dies with an opaque shape error).  Raise a clear error instead.
+
+    Copy of garlic_tpu/parallel/engine.py:93."""
+    per_shard = L_padded // n_sp
+    if width > per_shard:
+        raise ValueError(
+            f"ERROR: winsize-1 = {width} exceeds the per-shard locus width "
+            f"{per_shard} ({L_padded} loci over sp={n_sp}); reduce the sp "
+            "axis of --tpu-mesh or the window size.")
+
+
+def full_window_missing(positions: np.ndarray, winsize: int, max_gap: int,
+                        cstart: int, cend: int) -> np.ndarray:
+    """[L] bool mask: window-missing per start locus, True past nwin.
+
+    Copy of garlic_tpu/parallel/engine.py:913."""
+    from ..ops.lod import window_missing_mask
+    L = positions.shape[0]
+    nwin = max(L - winsize + 1, 0)
+    m = np.ones(L, dtype=bool)
+    m[:nwin] = window_missing_mask(positions, winsize, max_gap, cstart, cend)
+    return m
+
+
+@dataclass(frozen=True)
+class Shard:
+    """Cell (d, s) of the mesh for one chromosome: rows [r0, r1), its own
+    loci [c0, c1) and own window starts [c0, w1), on `device`."""
+    d: int
+    s: int
+    device: torch.device
+    r0: int
+    r1: int
+    c0: int
+    c1: int
+    w1: int
+
+    @property
+    def rows(self) -> int:
+        return self.r1 - self.r0
+
+    @property
+    def n(self) -> int:
+        return self.c1 - self.c0
+
+    @property
+    def nw(self) -> int:
+        return self.w1 - self.c0
+
+    @property
+    def live(self) -> bool:
+        return self.rows > 0 and self.n > 0
+
+    def block(self, left: int, right: int, nloci: int):
+        """(a, b): the loci [a, b) of the own range with `left` loci of
+        halo on the left and `right` on the right, clamped to the
+        chromosome, a rounded down to a multiple of 4 (a whole byte of
+        2-bit codes).  The halos each route reads: K1/K3 and the weighted
+        scores (0, W-1), K2/K4 (W, W-1)."""
+        return (max(0, self.c0 - left) // 4 * 4,
+                min(nloci, self.c1 + right))
+
+
+def shard_blocks(nind: int, nloci: int, mesh, winsize: int) -> List[Shard]:
+    """Every cell of `mesh` for an [nind, nloci] chromosome, dp-major.
+    The layout is garlic_tpu's: each axis is rounded up to a multiple of
+    its mesh axis (pad_for_mesh, garlic_tpu/parallel/engine.py:862), so
+    each shard's slot is ceil(nind / dp) rows by ceil(nloci / sp) loci;
+    nothing is padded, so the last shards of an axis are short, or
+    empty.  A mesh with sp > 1 must hold winsize-1 loci per shard
+    (check_halo_fits)."""
+    n_dp, n_sp = mesh.shape[AXIS_DP], mesh.shape[AXIS_SP]
+    per_i, per_l = -(-nind // n_dp), -(-nloci // n_sp)
+    if n_sp > 1:
+        check_halo_fits(per_l * n_sp, winsize - 1, n_sp)
+    nwin = max(nloci - winsize + 1, 0)
+    out = []
+    for d in range(n_dp):
+        r0 = min(d * per_i, nind)
+        r1 = min(r0 + per_i, nind)
+        for s in range(n_sp):
+            c0 = min(s * per_l, nloci)
+            c1 = min(c0 + per_l, nloci)
+            out.append(Shard(d, s, mesh.devices[d, s], r0, r1, c0, c1,
+                             max(c0, min(c1, nwin))))
+    return out
+
+
+class _Block:
+    """Rows [r0, r1) and loci [a, b) of a chromosome (a a multiple of 4),
+    with what cuda_lod's input builders read of a chromosome: the 2-bit
+    codes (a byte slice of pk, the chromosome's packed codes), freq and
+    the TGLS error plane."""
+
+    geno_is_packed_only = True
+
+    def __init__(self, chrom, pk: np.ndarray, r0: int, r1: int, a: int,
+                 b: int):
+        self.nind, self.nloci = r1 - r0, b - a
+        self.geno2b = pk[r0:r1, a // 4:(b + 3) // 4]
+        self.freq = chrom.freq[a:b]
+        self.gl_codes = None if chrom.gl_codes is None \
+            else chrom.gl_codes[r0:r1, a:b]
+        self.gl_lut = chrom.gl_lut
+        self._chrom, self._cut = chrom, (r0, r1, a, b)
+
+    @property
+    def gl(self) -> np.ndarray:
+        r0, r1, a, b = self._cut
+        return np.asarray(self._chrom.gl)[r0:r1, a:b]
+
+
+def _missing(chrom, centro, winsize: int, max_gap: int) -> np.ndarray:
+    return full_window_missing(chrom.positions, winsize, max_gap,
+                               centro.start(chrom.chrom),
+                               centro.end(chrom.chrom))
+
+
+def _shard_inputs(blk: _Block, winsize: int, error: float, use_gl: bool,
+                  miss: np.ndarray, device):
+    """One shard's kernel inputs on `device`: K1/K2's (2-bit codes,
+    table, mask), or K3/K4's (TGLS term plane, mask) with use_gl; miss:
+    the shard's slice of its chromosome's full_window_missing mask."""
+    if use_gl:
+        return cuda_lod.chrom_gl_inputs(blk, None, winsize, None, device,
+                                        miss=miss)
+    return cuda_lod.chrom_device_inputs(blk, None, winsize, error, None,
+                                        device, miss=miss)
+
+
+# ---------------------------------------------------------------------------
+# Phase I: window matrices and the fused route
+# ---------------------------------------------------------------------------
+
+def lod_windows_sharded(chrom, centro, winsize: int, error: float,
+                        max_gap: int, mesh, use_gl: bool = False
+                        ) -> DeviceWin:
+    """Phase-I window scan over a ("dp", "sp") mesh -> DeviceWin.
+
+    Each shard runs K1 over the 2-bit codes, table and mask of its rows
+    and of its loci plus the next winsize-1 (K3 over the TGLS term plane
+    with use_gl: the error plane sliced like the genotypes), and keeps
+    the windows of its own starts.  The mask is the chromosome's
+    (full_window_missing), sliced.
+
+    Adapted from garlic_tpu/parallel/engine.py:449 and its step,
+    make_sharded_lod_fn (:498): a kernel launch per shard in place of a
+    jitted shard_map step and of the XLA window sums, halos from the
+    host panel in place of ppermute, no padding, and no per-host
+    column-range load."""
+    W = winsize
+    I, L = chrom.nind, chrom.nloci
+    shards = shard_blocks(I, L, mesh, W)
+    miss = _missing(chrom, centro, W, max_gap)
+    pk = cuda_lod.packed_host(chrom)
+    blocks = {}
+    for sh in shards:
+        if not sh.live:
+            continue
+        if sh.nw <= 0:
+            win = torch.empty((sh.rows, 0), dtype=torch.float32,
+                              device=sh.device)
+        else:
+            a, b = sh.block(0, W - 1, L)
+            inp = _shard_inputs(_Block(chrom, pk, sh.r0, sh.r1, a, b), W,
+                                error, use_gl, miss[a:b - W + 1], sh.device)
+            win = (cuda_lod.window_sums if use_gl
+                   else cuda_lod.lod_windows)(*inp, W)
+            win = win[:, sh.c0 - a:sh.c0 - a + sh.nw]
+        blocks[(sh.d, sh.s)] = win
+    return DeviceWin(nind=I, nloci=L, nwin=max(L - W + 1, 0), shards=shards,
+                     blocks=blocks)
+
+
+def covered_sharded(fc, cutoff: float, winsize: int, threshold: float,
+                    tie_delta: float) -> Optional[Coverage]:
+    """The fused route of a FusedCov over its mesh: K2 (K4 for
+    dictionary-form TGLS) per shard over its rows and its loci with W
+    loci of halo on the left and W-1 on the right; each piece keeps the
+    covered plane of the own loci, the coverage of the locus before them
+    and the flags of the own window starts (_dispatch_fused,
+    garlic_tpu/ops/device_win.py:599, per shard).  None for float-form
+    TGLS: the caller takes the split path, as device_win.py:634-637
+    does.  A chromosome shorter than the window has no windows and so
+    nothing covered."""
+    c, W = fc.chrom, winsize
+    if fc.use_gl and c.gl_codes is None:
+        return None
+    I, L = c.nind, c.nloci
+    nwin = L - W + 1
+    if nwin <= 0:
+        dev = fc.mesh.first
+        z = torch.zeros((I, 0), dtype=torch.uint8, device=dev)
+        return Coverage([_Piece(torch.zeros((I, L), dtype=torch.uint8,
+                                            device=dev), z, z, None, 0, 0)],
+                        I, L, 0)
+    miss = _missing(c, fc.centro, W, fc.max_gap)
+    pk = cuda_lod.packed_host(c)
+    pieces = [covered_shard(fc, sh, pk, miss, cutoff, W, threshold,
+                            tie_delta)
+              for sh in shard_blocks(I, L, fc.mesh, W) if sh.live]
+    return Coverage(pieces, I, L, nwin)
+
+
+def covered_shard(fc, sh: Shard, pk: np.ndarray, miss: np.ndarray,
+                  cutoff: float, winsize: int, threshold: float,
+                  tie_delta: float) -> _Piece:
+    """One shard's K2 (K4) launch of covered_sharded: pk, the
+    chromosome's packed codes, miss its full_window_missing mask."""
+    W, L = winsize, fc.chrom.nloci
+    a, b = sh.block(W, W - 1, L)
+    inp = _shard_inputs(_Block(fc.chrom, pk, sh.r0, sh.r1, a, b), W,
+                        fc.error, fc.use_gl, miss[a:b - W + 1], sh.device)
+    cov, susw, above = (cuda_lod.covered_terms if fc.use_gl
+                        else cuda_lod.covered)(*inp, W, cutoff, threshold,
+                                               tie_delta)
+    o = sh.c0 - a
+    return _Piece(cov[:, o:o + sh.n], susw[:, o:o + sh.nw],
+                  above[:, o:o + sh.nw], cov[:, o - 1] if sh.c0 else None,
+                  sh.r0, sh.c0)
+
+
+def shard_holdings(c, winsize: int, planes: bool, mesh) -> dict:
+    """Bytes each device holds for chromosome c between its dispatch and
+    its fetch, summed over the shards it holds (a device listed twice
+    counts both): the fused route's three u8 planes over each shard's
+    block (planes: covered over its loci, suspect and above over its
+    window starts), else the f32 windows of its own starts.  Transient
+    inputs and the coverage program's temporaries are not counted: the
+    other half of the budget is theirs, as in garlic_tpu's gate."""
+    W = winsize
+    out = {}
+    for sh in shard_blocks(c.nind, c.nloci, mesh, W):
+        if not sh.live:
+            continue
+        if planes:
+            a, b = sh.block(W, W - 1, c.nloci)
+            byt = float(sh.rows) * ((b - a) + 2 * max(b - a - W + 1, 1))
+        else:
+            byt = 4.0 * sh.rows * max(sh.nw, 1)
+        out[sh.device] = out.get(sh.device, 0.0) + byt
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase II and Phase IV reductions
+# ---------------------------------------------------------------------------
+
+def _split(n: int, mesh):
+    """(device, start, stop) of each shard of n points over every device
+    of the mesh, dp-major, empty shards left out."""
+    devs = mesh.devices.reshape(-1)
+    per = -(-n // len(devs))
+    return [(dev, k * per, min(n, (k + 1) * per))
+            for k, dev in enumerate(devs) if k * per < n]
+
+
+def gauss_transform_sharded(sources, targets, h, mesh) -> np.ndarray:
+    """sum_j exp(-(x_j - t)^2 / h^2) at each target, as per-shard partial
+    transforms (ops/kde.gauss_sums, on each shard's device) added on the
+    mesh's first device in shard order: the Phase-II reduction.  Returns
+    the raw transform (no 1/n weighting) as [M] float64.
+
+    Adapted from garlic_tpu/parallel/engine.py:250: no 1e30 sentinels
+    and no power-of-two bucket, each shard's sources as they are."""
+    from ..ops.kde import gauss_sums
+    sources = np.asarray(sources)
+    n = int(sources.shape[0])
+    if n == 0:
+        return np.zeros(int(np.asarray(targets).shape[0]), dtype=np.float64)
+    acc = None
+    for dev, lo, hi in _split(n, mesh):
+        part = gauss_sums(sources[lo:hi], targets, h, dev).to(mesh.first)
+        acc = part if acc is None else acc + part
+    return acc.cpu().numpy()
+
+
+def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
+                    precision: float = 1e-5):
+    """Phase-IV GMM-EM over the mesh: the lengths split over every shard,
+    each f64 iteration's packed sums added on the mesh's first device in
+    shard order (ops/gmm.fit_em), with fit_gmm's convergence test and
+    FloatingPointError on a collapsed component.  CUDA runs f64, so
+    there is no host-EM fallback.
+
+    Adapted from garlic_tpu/parallel/engine.py:309: a host loop over the
+    shards' E-steps in place of a while_loop of psums, and no verbose
+    line (select_size_classes prints it)."""
+    from ..ops.gmm import fit_em
+    x = np.ascontiguousarray(x, dtype=np.float64)
+    shards = [torch.from_numpy(x[lo:hi]).to(dev)
+              for dev, lo, hi in _split(x.shape[0], mesh)]
+    return fit_em(shards, k, w0, mu0, var0, mesh.first, max_iter, precision)
+
+
+# ---------------------------------------------------------------------------
+# The weighted path
+# ---------------------------------------------------------------------------
+
+def _add(acc, part: torch.Tensor, device) -> torch.Tensor:
+    """acc + part on `device`, in place; part itself when acc is None."""
+    part = part.to(device)
+    return part if acc is None else acc.add_(part)
+
+
+def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
+                    ) -> dict:
+    """The LD band over the mesh: {(d, s): [nw, W] f32, the band rows of
+    shard (d, s)'s own window starts, on its device} (calcLDData's
+    per-chromosome step, garlic_tpu/ops/device_wlod.py:159): pair counts
+    over the LD subsample's rows (all rows when sub_idx is None), HR^2
+    marginals over the full panel (unphased) or r^2 from the first-copy
+    bits and the allele frequencies (phased).
+
+    For each sp column, every dp shard uploads the 2-bit codes of its
+    rows over the column's loci plus the next W-1 and counts, as int32
+    over row chunks sized by the device budget, its LD-subsample rows'
+    pairs (and, unphased, the homozygosity marginals over all its rows);
+    the counts are summed over dp on the column's first device, so the
+    pair band of the own loci is the 1x1 mesh's bit for bit.  The band
+    assembly reads the pair band W-1 loci to the right, copied from the
+    right neighbours' devices, and its rows go to every dp shard of the
+    column.
+
+    Adapted from garlic_tpu/parallel/engine.py:575: int32 counts in
+    place of the f32 psum, the column halo from the host panel, and a
+    right halo of the pair band in place of the row halos of (S, D)."""
+    W = winsize
+    I, L = chrom.nind, chrom.nloci
+    shards = shard_blocks(I, L, mesh, W)
+    n_dp, n_sp = mesh.shape[AXIS_DP], mesh.shape[AXIS_SP]
+    pk = cuda_lod.packed_host(chrom)
+    sub = None if sub_idx is None else np.asarray(sub_idx, dtype=np.int64)
+    pair = {}   # s -> pair band [W, n] of the column's own loci
+    for s in range(n_sp):
+        col = [sh for sh in shards if sh.s == s]
+        head = col[0]
+        if head.n <= 0:
+            continue
+        a, b = head.block(0, W - 1, L)
+        dev0 = head.device
+        T = X = tot = hom = None  # the column's sums, on dev0
+        for sh in col:  # dp order
+            if not sh.rows:
+                continue
+            pkd = cuda_lod._upload(pk[sh.r0:sh.r1, a // 4:(b + 3) // 4],
+                                   sh.device)
+            C = dw._row_chunks(sh.rows, hbm_budget(sh.device), b - a,
+                               dw._COUNT_BYTES)
+            fc = (np.asarray(chrom.first_copy[sh.r0:sh.r1, a:b], dtype=bool)
+                  if phased else None)
+            pks = pkd
+            if sub is not None:  # the subsample's rows of this shard
+                rows = sub[(sub >= sh.r0) & (sub < sh.r1)] - sh.r0
+                pks = pkd.index_select(0, cuda_lod._upload(rows, sh.device))
+                fc = None if fc is None else fc[rows]
+            t, x = dw._pair_counts_chunked(pks, fc, b - a, W, C)
+            T, X = _add(T, t, dev0), _add(X, x, dev0)
+            if not phased:
+                t, h = dw._hom_counts_chunked(pkd, b - a, C)
+                tot, hom = _add(tot, t, dev0), _add(hom, h, dev0)
+        hf = freq = None
+        if phased:
+            freq = cuda_lod._upload(
+                np.asarray(chrom.freq[a:b], dtype=np.float32), dev0)
+        else:
+            hf = dw._hom_freq_from_counts(tot, hom)
+        P = dw._pair_band(T, X, hf, freq, W)
+        pair[s] = P[:, head.c0 - a:head.c0 - a + head.n]
+    bands = {}
+    for s in pair:
+        head = shards[s]
+        dev0 = head.device
+        if head.nw <= 0:
+            band = torch.empty((0, W), dtype=torch.float32, device=dev0)
+        else:
+            stop = min(L, head.c1 + W - 1)
+            parts = [pair[s]]
+            for s2 in range(s + 1, n_sp):  # the right halo
+                nb = shards[s2]
+                if s2 in pair and stop > nb.c0:
+                    parts.append(pair[s2][:, :stop - nb.c0].to(dev0))
+            P = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            band = dw._assemble_band(P, W)[:, :head.nw].T
+        for d in range(n_dp):
+            bands[(d, s)] = band.to(mesh.devices[d, s])
+    return bands
+
+
+def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
+                         max_gap: int, use_gl: bool, mu: float, M: int,
+                         mesh) -> DeviceWin:
+    """Weighted Phase I over the mesh, given ld_band_sharded's bands ->
+    DeviceWin with its tie_scale (calcwLOD, src/garlic-roh.cpp:144-277;
+    garlic_tpu/ops/device_wlod.py:613, :698, :729).
+
+    Each shard sums its own window starts, win[:, l] = sum_j
+    score[:, l+j] * (1 / LD[l][j]), one product then one add per j, left
+    to right from 0 (ops/device_wlod._wlod_windows_dev), over the scores
+    of its rows and of its loci plus the next W-1: gathered on the
+    device from the per-class table (scalar error, in row chunks sized
+    by the device budget) or the host's f64 TGLS score plane shipped as
+    f32.  The tie scale is the max over the shards (a pmax).
+
+    Adapted from garlic_tpu/parallel/engine.py:769: the score halo from
+    the host panel in place of ppermute, no padding."""
+    from ..ops.lod import window_missing_mask
+    from ..ops.wlod import wlod_scores
+    W = winsize
+    I, L = chrom.nind, chrom.nloci
+    shards = shard_blocks(I, L, mesh, W)
+    nwin = max(L - W + 1, 0)
+    pk = cuda_lod.packed_host(chrom)
+    if use_gl:
+        score = wlod_scores(chrom, None, True, mu, M).astype(np.float32)
+        miss = window_missing_mask(chrom.positions, W, max_gap,
+                                   centro.start(chrom.chrom),
+                                   centro.end(chrom.chrom)).astype(np.uint8)
+    elif nwin > 0:
+        aux = dw._weighted_aux(chrom, centro, W, error, max_gap, mu, M)
+    blocks, scales = {}, []
+    for sh in shards:
+        if not sh.live:
+            continue
+        dev = sh.device
+        win = torch.empty((sh.rows, max(sh.nw, 0)), dtype=torch.float32,
+                          device=dev)
+        if sh.nw > 0:
+            a, b = sh.block(0, W - 1, L)
+            o = sh.c0 - a
+            inv_ld = 1.0 / bands[(sh.d, sh.s)]
+            if use_gl:
+                sc = cuda_lod._upload(score[sh.r0:sh.r1, sh.c0:b], dev)
+                _, t = dw._wlod_windows_dev(
+                    sc, inv_ld, cuda_lod._upload(miss[sh.c0:sh.w1], dev), W,
+                    out=win)
+                scales.append(t.to(mesh.first))
+            else:
+                pkb = cuda_lod._upload(pk[sh.r0:sh.r1, a // 4:(b + 3) // 4],
+                                       dev)
+                ax = cuda_lod._upload(aux[:, a:b], dev)
+                C = dw._row_chunks(sh.rows, hbm_budget(dev), b - a,
+                                   dw._WINDOW_BYTES)
+                for r in range(0, sh.rows, C):
+                    sc = dw._wlod_score_from_table(
+                        cuda_lod.decode_2bit(pkb[r:r + C], b - a), ax[:4])
+                    _, t = dw._wlod_windows_dev(
+                        sc[:, o:], inv_ld, ax[4, o:o + sh.nw], W,
+                        out=win[r:r + C])
+                    scales.append(t.to(mesh.first))
+        blocks[(sh.d, sh.s)] = win
+    tie_scale = torch.stack(scales).amax() if scales else None
+    return DeviceWin(nind=I, nloci=L, nwin=nwin, shards=shards,
+                     blocks=blocks, tie_scale=tie_scale)

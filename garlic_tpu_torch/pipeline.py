@@ -1,6 +1,6 @@
 """End-to-end ROH-calling pipeline of the port.
 
-Counterpart of garlic_tpu/pipeline.py for single-device TPED runs, with
+Counterpart of garlic_tpu/pipeline.py for single-host TPED runs, with
 or without a --tgls per-genotype error file, --phased first copies, a
 --map genetic map (--weighted LD-weighted LOD, --cm lengths): load (with
 the --tpu-panel-cache sidecars) -> allele frequencies -> monomorphic
@@ -23,8 +23,13 @@ half the device budget, Phase I streams: one chromosome at a time is
 made, counted and dropped.  Phase II pools the exact engine's f64
 windows on both engines (the fast engine through _exact_thinned_samples
 and the pool cache), so the .kde x column is the same on both.
-Multi-device (--tpu-mesh over several devices) and multi-host runs exit
-1 with one stderr line pointing to `python -m garlic_tpu`; nothing runs
+The fast engine runs over a parallel.mesh.Mesh driven from this one
+process (parallel/engine.py): --tpu-mesh DPxSP (or auto) lays it over
+several devices of this host, else it is the 1x1 mesh over one device;
+individuals over dp, loci over sp, the kernels per shard, the Phase-II
+transform and the Phase-IV EM reduced over the shards, so every mesh
+gives the 1x1 mesh's outputs.  Multi-host runs exit 1
+with one stderr line pointing to `python -m garlic_tpu`; nothing runs
 silently on another path.  The package imports nothing of garlic_tpu:
 the host code it shares with it is its own copy (cli, io/, core/,
 native/, ops/).
@@ -35,7 +40,7 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import numpy as np
 
@@ -52,6 +57,7 @@ from .ops import ld as ld_ops
 from .ops import lod as lod_ops
 from .ops import wiggle as wiggle_ops
 from .ops import wlod as wlod_ops
+from .parallel.mesh import factor_devices, make_mesh
 from .version import OUTPUT_COMPAT_VERSION
 
 AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
@@ -73,40 +79,18 @@ def _unported(args: ParsedArgs) -> Optional[str]:
     return None
 
 
-def factor_devices(n: int, max_sp: int = 4) -> Tuple[int, int]:
-    """Pick a (dp, sp) factorization of n devices: dp (individuals) is
-    the primary axis, sp only grows when dp alone cannot use them.
+def _resolve_mesh(spec: str, devices: list):
+    """Parse 'DPxSP' (or 'auto': factor all the devices) and build the
+    Mesh over `devices`; no spec (or a 1-device one) is the 1x1 mesh
+    over the first device.  A malformed spec, or one larger than the
+    device count, raises CLIError with garlic_tpu's message.
 
-    Copy of garlic_tpu/parallel/mesh.py:30."""
-    sp = 1
-    for cand in range(min(max_sp, n), 0, -1):
-        if n % cand == 0:
-            sp = cand
-            break
-    return n // sp, sp
-
-
-def _device_count(device) -> int:
-    """Devices a --tpu-mesh spec may span: the visible CUDA devices, or 1
-    for a CPU run."""
-    import torch
-    if torch.device(device).type == "cpu":
-        return 1
-    return torch.cuda.device_count()
-
-
-def _resolve_mesh(spec: str, ndev: int):
-    """Parse 'DPxSP' (or 'auto': factor all ndev devices) into (dp, sp),
-    or None for one device.  A malformed spec, or one larger than ndev,
-    raises CLIError with garlic_tpu's message.
-
-    Adapted from garlic_tpu/pipeline.py:55, with make_mesh's size check
-    (garlic_tpu/parallel/mesh.py:56-57) and no jax mesh built."""
-    if spec in ("none", "", "1", "1x1"):
-        return None
+    Adapted from garlic_tpu/pipeline.py:55: the devices are the run's
+    (run_main's `device`), and one device is a mesh too."""
+    ndev = len(devices)
+    if spec in ("none", "", "1", "1x1") or (spec == "auto" and ndev <= 1):
+        return make_mesh(1, 1, devices)
     if spec == "auto":
-        if ndev <= 1:
-            return None
         n_dp, n_sp = factor_devices(ndev)
     else:
         try:
@@ -118,7 +102,7 @@ def _resolve_mesh(spec: str, ndev: int):
                            "(expected DPxSP, e.g. 4x2, or auto)")
     if n_dp * n_sp > ndev:
         raise CLIError(f"ERROR: mesh {n_dp}x{n_sp} exceeds {ndev} devices")
-    return None if n_dp * n_sp == 1 else (n_dp, n_sp)
+    return make_mesh(n_dp, n_sp, devices)
 
 
 def _resolve_engine(name: str) -> str:
@@ -137,9 +121,12 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     """Entry point; returns the process exit status (the reference's
     codes, including 0 on a CLI parse failure, src/garlic-main.cpp:31-32).
 
-    device: where the fast engine runs; None means CUDA, and a fast (or
-    auto) run without a CUDA device exits 1 and names --tpu-engine exact.
-    The CPU tests pass "cpu"."""
+    device: where the fast engine runs: a device, or a list of devices
+    that --tpu-mesh spans (a device may repeat: its shards then share
+    it; without --tpu-mesh the run takes the first); None means every
+    visible CUDA device, and a fast (or auto) run without one exits 1
+    and names --tpu-engine exact.  The CPU tests pass "cpu", or
+    ["cpu"] * 8 for meshes."""
     log = RunLog()
     try:
         args = cli.parse_command_line(argv)
@@ -157,11 +144,11 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     except CLIError as e:
         print(str(e), file=sys.stderr)
         return -1
-    dev = None
+    mesh = None
     if engine == "fast":
-        from .runtime import resolve_device
+        from .runtime import resolve_devices
         try:
-            dev = resolve_device(device)
+            devices = resolve_devices(device)
         except RuntimeError as e:
             print(f"ERROR: {cli.ARG_ENGINE} {args[cli.ARG_ENGINE]} needs a "
                   f"CUDA device: {e}; run {cli.ARG_ENGINE} exact on the CPU",
@@ -169,20 +156,15 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
             return 1
     # garlic_tpu resolves --tpu-mesh on the fast engine only, after
     # --freq-only has returned (pipeline.py:382-393): a spec it would
-    # refuse is logged there by _run_impl; one that spans several devices
-    # is refused here, before any output
+    # refuse is logged there by _run_impl
     mesh_err = None
     if engine == "fast" and not args[cli.ARG_FREQ_ONLY]:
         try:
-            mesh = _resolve_mesh(args[cli.ARG_MESH], _device_count(dev))
+            mesh = _resolve_mesh(args[cli.ARG_MESH], devices)
         except CLIError as e:
-            mesh, mesh_err = None, str(e)
-        if mesh is not None:
-            print(_not_ported_msg(f"{cli.ARG_MESH} over {mesh[0]}x{mesh[1]} "
-                                  "devices"), file=sys.stderr)
-            return 1
+            mesh_err = str(e)
     try:
-        return _run(args, argv, prog, log, engine, dev, mesh_err)
+        return _run(args, argv, prog, log, engine, mesh_err, mesh)
     finally:
         log.close()
 
@@ -194,7 +176,7 @@ class _PhaseII:
     log: RunLog
     rng: np.random.Generator
     engine: str
-    device: object = None  # the fast engine's torch device
+    mesh: object = None  # the fast engine's parallel.mesh.Mesh
     # (winsize, step, rows) -> the exact f64 pooled samples; set on fast
     # runs, so the bandwidth, the grid and the .kde x column are the
     # exact engine's
@@ -239,10 +221,10 @@ class _FreqWriter:
 
 # copy of garlic_tpu/pipeline.py:154
 def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-         engine: str, device, mesh_err: Optional[str] = None) -> int:
+         engine: str, mesh_err: Optional[str] = None, mesh=None) -> int:
     fw = _FreqWriter()
     try:
-        rc = _run_impl(args, argv, prog, log, fw, engine, device, mesh_err)
+        rc = _run_impl(args, argv, prog, log, fw, engine, mesh_err, mesh)
     finally:
         werr = fw.finish()
     if werr is not None:
@@ -255,8 +237,8 @@ def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 # outside it were refused by _unported); the validation and .log lines are
 # kept verbatim so the .log matches the JAX package's
 def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-              fw: _FreqWriter, engine: str, device,
-              mesh_err: Optional[str] = None) -> int:
+              fw: _FreqWriter, engine: str,
+              mesh_err: Optional[str] = None, mesh=None) -> int:
     outfile = args[cli.ARG_OUTFILE]
     log.init(outfile)
     log.log(" ".join([prog] + list(argv)))
@@ -437,7 +419,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     seed = args[cli.ARG_SEED]
     rng = np.random.default_rng(None if seed < 0 else seed)
     from .runtime import PhaseProfiler
-    prof = PhaseProfiler(args[cli.ARG_PROFILE], device)
+    prof = PhaseProfiler(args[cli.ARG_PROFILE],
+                         None if mesh is None else mesh.first)
 
     if freq_only_flag:
         tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
@@ -529,7 +512,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     if (auto_winsize and weighted) or auto_overlap_frac:
         variant_density = density.calc_density(num_loci, ds.chroms, centro)
 
-    st = _PhaseII(log=log, rng=rng, engine=engine, device=device)
+    st = _PhaseII(log=log, rng=rng, engine=engine, mesh=mesh)
     if engine == "fast" and not weighted:
         # Phase II pools the exact engine's f64 rolling windows (the f32
         # device windows would shift the nrd0 bandwidth and with it every
@@ -604,7 +587,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
                         ds.chroms, wq, stp, error, max_gap, use_gl,
                         centro, weighted=True, mu=mu, M=M, phased=phased,
                         sub_idx=sub_idx))
-        win_by_chr = _calc_wlod_windows(engine, device, ds, centro, winsize,
+        win_by_chr = _calc_wlod_windows(engine, mesh, ds, centro, winsize,
                                         error, max_gap, use_gl, mu, M,
                                         phased, sub_idx)
     else:
@@ -623,7 +606,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             fused_args = (lod_cutoff,
                           assembly.overlap_threshold(overlap_frac, winsize),
                           _tie_band(ds.chroms, winsize, error, use_gl))
-        win_by_chr = _calc_lod_windows(engine, device, ds, centro, winsize,
+        win_by_chr = _calc_lod_windows(engine, mesh, ds, centro, winsize,
                                        error, max_gap, use_gl, fused,
                                        fused_args)
     # the freq writer keeps running through Phase III; _run's finally
@@ -697,9 +680,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     if auto_bounds:
         print(f"Fitting {nclust}-component GMM for size classification")
         try:
-            bound_sizes, _ = gmm.select_size_classes(
-                lengths, nclust, log,
-                device=device if engine == "fast" else None)
+            bound_sizes, _ = gmm.select_size_classes(lengths, nclust, log,
+                                                     mesh=mesh)
         except Exception as e:
             # The reference aborts inside GSL here (collapsed component /
             # root bracket failure); we fail cleanly instead.
@@ -725,37 +707,41 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
 
 # garlic_tpu/pipeline.py:936 for the port's engines
-def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
+def _calc_lod_windows(engine: str, mesh, ds, centro, winsize: int,
                       error: float, max_gap: int, use_gl: bool,
                       fused: bool = False, fused_args=None,
                       ind_idx: Optional[np.ndarray] = None):
     """calcLODWindows (src/garlic-roh.cpp:279-309).
 
-    fused: FusedCov entries for assembly (K2, or K4 for dictionary-form
-    TGLS); fused_args = (cutoff, threshold, tie_delta) enqueues each
-    chromosome's kernel immediately.  The split fast path (K1, or K3 for
-    TGLS) keeps every window matrix on the device.  When what the fast
-    chromosomes hold on the device at once would exceed half the
-    device-memory budget (_device_holding), Phase I streams as
+    mesh: the fast engine's Mesh (None on the exact engine); each
+    chromosome's shards run over it (parallel/engine.py).  fused:
+    FusedCov entries for assembly (K2, or K4 for dictionary-form TGLS);
+    fused_args = (cutoff, threshold, tie_delta) enqueues each
+    chromosome's kernels immediately.  The split fast path (K1, or K3
+    for TGLS) keeps every window block on its device.  When what the
+    fast chromosomes' shards hold on some device at once would exceed
+    half that device's budget (_device_holdings), Phase I streams as
     garlic_tpu's does (pipeline.py:953-972,999-1004): split entries
     become LazyWin thunks and fused ones are not pre-enqueued, so
     assembly makes, fetches and drops one chromosome at a time.
     ind_idx: the rows to compute (the winsize searches'
     --kde-subsample individuals)."""
     from .core.pbar import Bar
+    from .parallel import engine as par
     print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
     streaming = False
     if engine == "fast":
         from .runtime import hbm_budget
-        budget = 0.5 * hbm_budget(device)
-        est = sum(_device_holding(c, winsize, use_gl, fused)
-                  for c in ds.chroms)
-        streaming = est > budget
-        if streaming:
-            print(f"[garlic-tpu-torch] Phase I device holdings ~"
-                  f"{est / 1e9:.1f} GB exceed half the {2 * budget / 1e9:.1f}"
-                  " GB device budget; streaming per chromosome",
-                  file=sys.stderr)
+        held = _device_holdings(ds.chroms, winsize, use_gl, fused, mesh)
+        for dev, est in held.items():
+            budget = 0.5 * hbm_budget(dev)
+            if est > budget:
+                streaming = True
+                print(f"[garlic-tpu-torch] Phase I device holdings ~"
+                      f"{est / 1e9:.1f} GB exceed half the "
+                      f"{2 * budget / 1e9:.1f} GB device budget; streaming "
+                      "per chromosome", file=sys.stderr)
+                break
     out = []
     for c in ds.chroms:
         print(f"{c.chrom}    ", file=sys.stderr, end="")
@@ -766,7 +752,7 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
             c = _subset_chrom(c, ind_idx)
         if engine == "fast" and fused:
             fc = device_win.FusedCov(c, centro, winsize, error, max_gap,
-                                     device, use_gl, stream=streaming)
+                                     mesh, use_gl, stream=streaming)
             if fused_args is not None and not streaming:
                 fc.handle = device_win.covered_dispatch(
                     fc, fused_args[0], winsize, fused_args[1],
@@ -775,13 +761,13 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
             bar.advance(c.nind)
         elif engine == "fast" and streaming:
             out.append(device_win.LazyWin(
-                (lambda c=c: device_win.lod_windows_device(
-                    c, centro, winsize, error, max_gap, device, use_gl)),
+                (lambda c=c: par.lod_windows_sharded(
+                    c, centro, winsize, error, max_gap, mesh, use_gl)),
                 nind=c.nind, nloci=c.nloci))
             bar.advance(c.nind)
         elif engine == "fast":
-            out.append(device_win.lod_windows_device(
-                c, centro, winsize, error, max_gap, device, use_gl))
+            out.append(par.lod_windows_sharded(c, centro, winsize, error,
+                                               max_gap, mesh, use_gl))
             bar.advance(c.nind)
         else:
             out.append(lod_ops.calc_lod_windows(c, centro, winsize, error,
@@ -790,38 +776,42 @@ def _calc_lod_windows(engine: str, device, ds, centro, winsize: int,
     return out
 
 
-def _device_holding(c, winsize: int, use_gl: bool, fused: bool) -> float:
-    """Bytes one fast chromosome holds on the device between its dispatch
-    and its fetch: the three u8 planes of K2/K4 (covered [I, L], suspect
-    and above [I, nwin]) on the fused route, else the f32 window matrix
-    [I, nwin] of K1/K3 (a float-form TGLS chromosome takes that route
-    inside covered_dispatch).  Transient inputs and the coverage
-    program's temporaries are not counted: the other half of the budget
-    is theirs, as in garlic_tpu's gate."""
-    nwin = max(c.nloci - winsize + 1, 1)
-    if fused and not (use_gl and c.gl_codes is None):
-        return float(c.nind) * (c.nloci + 2 * nwin)
-    return 4.0 * c.nind * nwin
+def _device_holdings(chroms, winsize: int, use_gl: bool, fused: bool,
+                     mesh) -> dict:
+    """Bytes each device of the mesh holds at once when every fast
+    chromosome is resident (parallel.engine.shard_holdings; a device
+    listed twice holds both of its shards): the three u8 planes of K2/K4
+    on the fused route, else the f32 windows of K1/K3 (a float-form TGLS
+    chromosome takes that route inside covered_dispatch)."""
+    from .parallel.engine import shard_holdings
+    out = {}
+    for c in chroms:
+        planes = fused and not (use_gl and c.gl_codes is None)
+        for dev, b in shard_holdings(c, winsize, planes, mesh).items():
+            out[dev] = out.get(dev, 0.0) + b
+    return out
 
 
-# the weighted Phase-I loop of garlic_tpu/pipeline.py:707-735 on one device
-def _calc_wlod_windows(engine: str, device, ds, centro, winsize: int,
+# the weighted Phase-I loop of garlic_tpu/pipeline.py:707-735
+def _calc_wlod_windows(engine: str, mesh, ds, centro, winsize: int,
                        error: float, max_gap: int, use_gl: bool, mu: float,
                        M: int, phased: bool, sub_idx):
     """calcwLOD per chromosome (src/garlic-roh.cpp:134-277): the fast
-    engine's DeviceWin (ops/device_wlod.py, with its tie_scale), or the
-    exact engine's f64 LD band and window matrix on the host."""
+    engine's DeviceWin over its mesh, with its tie_scale (the band of
+    parallel.engine.ld_band_sharded, the windows of wlod_windows_sharded,
+    garlic_tpu/pipeline.py:713-722), or the exact engine's f64 LD band
+    and window matrix on the host."""
     from .core.pbar import Bar
-    from .ops import device_wlod
+    from .parallel import engine as par
     print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
     out = []
     for c in ds.chroms:
         print(f"{c.chrom}    ", file=sys.stderr, end="")
         bar = Bar(total=c.nind)
         if engine == "fast":
-            out.append(device_wlod.weighted_windows_device(
-                c, centro, winsize, error, max_gap, use_gl, mu, M, phased,
-                sub_idx, device))
+            ld = par.ld_band_sharded(c, winsize, phased, sub_idx, mesh)
+            out.append(par.wlod_windows_sharded(c, centro, ld, winsize, error,
+                                                max_gap, use_gl, mu, M, mesh))
             bar.advance(c.nind)
         else:
             ldm = ld_ops.calc_ld(c, winsize, phased, sub_idx, engine="exact")
@@ -988,17 +978,17 @@ def _exact_thinned_wsamples(chroms, centro, winsize: int, error,
     return np.concatenate(parts) if parts else np.zeros(0)
 
 
-# garlic_tpu/pipeline.py:1663 without the hybrid (compute_kde_hybrid),
-# in-graph (compute_kde_wins) and mesh branches, which the port does not
-# carry (ops/kde.py)
+# garlic_tpu/pipeline.py:1663 without the hybrid (compute_kde_hybrid) and
+# in-graph (compute_kde_wins) branches, which the port does not carry
+# (ops/kde.py)
 def _compute_kde_for(st: _PhaseII, win_by_chr, step: int, ind_idx, log,
                      exact=None):
     """Phase-II dispatch.  exact=(winsize, rows) on the fast engine: pool
     the exact f64 samples on the host (or replay them from the pool
     cache), so the bandwidth, the grid and the .kde x column match the
-    exact engine bit for bit, then run the transform on the device.  The
-    exact engine pools its own f64 window matrices and transforms on the
-    host."""
+    exact engine bit for bit, then run the transform over the fast
+    engine's mesh.  The exact engine pools its own f64
+    window matrices and transforms on the host."""
     if exact is not None and st.exact_sampler is not None:
         wq, rows = exact
         grid = None
@@ -1012,7 +1002,7 @@ def _compute_kde_for(st: _PhaseII, win_by_chr, step: int, ind_idx, log,
             samples = st.exact_sampler(wq, step, rows)
             if rows is None and st.pool_cache is not None:
                 grid = st.pool_cache.store(wq, step, samples)
-        return kde.compute_kde(samples, log, device=st.device, grid=grid)
+        return kde.compute_kde(samples, log, grid=grid, mesh=st.mesh)
     samples = convert.win_to_samples(win_by_chr, step, ind_idx=ind_idx)
     return kde.compute_kde(samples, log)
 
@@ -1172,7 +1162,9 @@ def _select_winsize_from_list(st: _PhaseII, ds, centro, multi: List[int],
     return None, 0
 
 
-# garlic_tpu/pipeline.py:1875 without the mesh and per-host branches
+# garlic_tpu/pipeline.py:1875 without the per-host branches: the fast
+# engine makes no device windows here, so its mesh only runs the
+# transform (_compute_kde_for)
 def _explore_winsizes(st: _PhaseII, ds, centro, multi: List[int],
                       error: float, use_gl: bool, max_gap: int,
                       kde_subsample: int, outfile: str, weighted: bool,

@@ -11,20 +11,31 @@ import torch
 DEFAULT_HBM_BUDGET = 8 * 1024 ** 3  # bytes; CPU runs have no device memory
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device the fast engine runs on.  None means CUDA and raises
-    when no CUDA device is present: the fast engine never drops silently
-    to the CPU (the CPU tests ask for it explicitly with "cpu")."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available")
-        device = "cuda"
+def _checked(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available")
     if dev.type not in ("cuda", "cpu"):
         raise RuntimeError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_devices(device=None) -> list:
+    """The fast engine's devices, for its mesh to span: None means every
+    visible CUDA device, and raises when there is none (the fast engine
+    never drops silently to the CPU; the CPU tests ask for it explicitly
+    with "cpu"); a list, each of its entries (a device may repeat); else
+    the one device."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available")
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise RuntimeError("an empty device list")
+        return [_checked(d) for d in device]
+    return [_checked(device)]
 
 
 class PhaseProfiler:

@@ -148,10 +148,18 @@ def test_fast_engine_without_cuda_raises(api_dir, monkeypatch):
 
 
 def test_mesh_is_not_ported(api_dir):
+    """The call this test once saw refused: call_roh(mesh=...) now shards
+    K1 over the mesh (here two CPU devices) and gives the single-device
+    calls (tests/test_torch_mesh.py holds it to garlic_tpu's mesh calls);
+    an unknown engine still raises."""
+    from garlic_tpu_torch.parallel.mesh import make_mesh
     ds, _, _ = _panels(api_dir)
-    with pytest.raises(NotImplementedError, match="python -m garlic_tpu"):
-        api.call_roh(ds, winsize=60, engine="fast", device="cpu",
-                     mesh=object())
+    cut = _gap_cutoff(ds)
+    got = api.call_roh(ds, winsize=60, cutoff=cut, bounds=BOUNDS,
+                       engine="fast", mesh=make_mesh(2, 1, ["cpu", "cpu"]))
+    assert len(got.to_rows()) >= 10
+    _same_result(got, api.call_roh(ds, winsize=60, cutoff=cut, bounds=BOUNDS,
+                                   engine="fast", device="cpu"))
     with pytest.raises(ValueError, match="unknown engine"):
         api.call_roh(ds, winsize=60, engine="auto")
 

@@ -44,7 +44,8 @@ from garlic_tpu_torch import pipeline as port_pipeline
 from garlic_tpu_torch.io import poolcache
 from garlic_tpu_torch.io import tped as port_tped
 from garlic_tpu_torch.ops import cuda_lod, gmm, kde
-from garlic_tpu_torch.ops import device_win as port_dw
+from garlic_tpu_torch.parallel import engine as port_engine
+from garlic_tpu_torch.parallel.mesh import make_mesh
 from garlic_tpu_torch.pipeline import run_main as port_main
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -52,6 +53,7 @@ from util import (diff_logs, make_panel, read_text, write_tgls,  # noqa: E402
                   write_tped)
 
 AUTO = ["--build", "hg18", "--error", "0.001"]
+ONE = make_mesh(1, 1, ["cpu"])  # the fast engine's 1x1 mesh on the CPU
 Y_TOL = 1e-5  # max |dy| / max y, fast engine against exact
 
 
@@ -142,7 +144,7 @@ def test_gauss_transform_matches_garlic_tpu(monkeypatch, n, block):
     x = np.concatenate([rng.normal(-3, 1.0, n // 2),
                         rng.normal(2, 0.7, n - n // 2)])
     h, targets, _ = gt_kde._kde_grid(x)
-    got = kde.gauss_transform(x, targets, h, "cpu")
+    got = port_engine.gauss_transform_sharded(x, targets, h, ONE) * (1.0 / n)
     np.testing.assert_allclose(
         got, gt_kde.gauss_transform(x, targets, h, device=True), rtol=1e-5)
     np.testing.assert_allclose(
@@ -157,10 +159,11 @@ def test_compute_kde_grid_is_garlic_tpus(device):
     against garlic_tpu's f32 transform on the device one."""
     rng = np.random.default_rng(2)
     x = np.concatenate([rng.normal(-4, 1, 12000), rng.normal(3, 2, 5000)])
+    mesh = None if device is None else make_mesh(1, 1, [device])
     want = gt_kde.compute_kde(x, device=device is not None)
-    got = kde.compute_kde(x, device=device)
+    got = kde.compute_kde(x, mesh=mesh)
     h, mn, mx = gt_kde.nrd0(x), float(x.min()), float(x.max())
-    replay = kde.compute_kde(x, device=device, grid=poolcache.PoolEntry(
+    replay = kde.compute_kde(x, mesh=mesh, grid=poolcache.PoolEntry(
         None, x.size, h, mn, mx).grid())
     for kr in (got, replay):
         assert np.array_equal(kr.x, want.x)
@@ -182,15 +185,15 @@ def _init(x, k=3):
 
 
 def test_fit_gmm_device_matches_host_and_sharded_em():
-    """fit_gmm_device on CPU tensors against the host EM and against
-    garlic_tpu's fit_gmm_sharded on a 1x1 JAX-CPU mesh."""
+    """The port's fit_gmm_sharded on the 1x1 CPU mesh against the host
+    EM and against garlic_tpu's fit_gmm_sharded on a 1x1 JAX-CPU mesh."""
     import jax
     from garlic_tpu.parallel.engine import fit_gmm_sharded
     from garlic_tpu.parallel.mesh import make_mesh
     x = _mixture()
     assert x.size >= 4096
     w0, mu0, var0 = _init(x)
-    dev = gmm.fit_gmm_device(x, 3, w0, mu0, var0, "cpu")
+    dev = port_engine.fit_gmm_sharded(x, 3, w0, mu0, var0, ONE)
     host = gt_gmm.fit_gmm(x, 3, w0, mu0, var0)
     mesh = make_mesh(n_dp=1, n_sp=1, devices=jax.devices()[:1])
     sharded = fit_gmm_sharded(x, 3, w0, mu0, var0, mesh)
@@ -215,7 +218,7 @@ def test_select_size_classes_log_lines_and_bounds(above):
     assert (x.size >= 4096) == above
     lh, lp = _Log(), _Log()
     b_host, r_host = gt_gmm.select_size_classes(x, 3, log=lh, device=False)
-    b_port, r_port = gmm.select_size_classes(x, 3, log=lp, device="cpu")
+    b_port, r_port = gmm.select_size_classes(x, 3, log=lp, mesh=ONE)
     assert lp.lines == lh.lines and len(lh.lines) == 15
     assert r_port.iterations == r_host.iterations
     for bh, bp in zip(b_host, b_port):
@@ -227,7 +230,7 @@ def test_select_size_classes_log_lines_and_bounds(above):
 def test_fit_gmm_device_collapse_raises():
     x = np.full(50, 1000.0)  # zero variance (tests/test_phase24.py:191)
     with pytest.raises(FloatingPointError):
-        gmm.fit_gmm_device(x, 3, *_init(x), "cpu")
+        port_engine.fit_gmm_sharded(x, 3, *_init(x), ONE)
 
 
 # ---------------------------------------------------------------------------
@@ -373,8 +376,8 @@ def _same_outputs(wd, out, ref, bed=True):
 
 @pytest.fixture
 def split_routes(monkeypatch):
-    """Counts the split path's Phase I (lod_windows_device) and the fused
-    dispatch (_dispatch_fused) of the port's fast engine."""
+    """Counts the split path's Phase I (lod_windows_sharded) and the fused
+    dispatch (covered_sharded) of the port's fast engine."""
     seen = {"split": 0, "fused": 0}
 
     def counting(name, fn):
@@ -383,10 +386,10 @@ def split_routes(monkeypatch):
             return fn(*a, **k)
         return f
 
-    monkeypatch.setattr(port_dw, "lod_windows_device",
-                        counting("split", port_dw.lod_windows_device))
-    monkeypatch.setattr(port_dw, "_dispatch_fused",
-                        counting("fused", port_dw._dispatch_fused))
+    monkeypatch.setattr(port_engine, "lod_windows_sharded",
+                        counting("split", port_engine.lod_windows_sharded))
+    monkeypatch.setattr(port_engine, "covered_sharded",
+                        counting("fused", port_engine.covered_sharded))
     return seen
 
 
@@ -561,7 +564,7 @@ def test_gmm_failure_exits_1_like_garlic_tpu(tmp_path):
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    return make_mesh(1, 1, ["cuda"])
 
 
 @pytest.mark.gpu
@@ -570,7 +573,8 @@ def test_gauss_transform_on_card_matches_host(cuda_device):
     x = np.concatenate([rng.normal(-3, 1, 600_000), rng.normal(2, 1, 9)])
     h, targets, _ = gt_kde._kde_grid(x)
     np.testing.assert_allclose(
-        kde.gauss_transform(x, targets, h, cuda_device),
+        port_engine.gauss_transform_sharded(x, targets, h, cuda_device)
+        * (1.0 / x.size),
         gt_kde.gauss_transform(x, targets, h, device=False),
         rtol=5e-4, atol=1e-7)
 
@@ -579,7 +583,7 @@ def test_gauss_transform_on_card_matches_host(cuda_device):
 def test_fit_gmm_device_on_card_matches_host(cuda_device):
     x = _mixture()
     w0, mu0, var0 = _init(x)
-    dev = gmm.fit_gmm_device(x, 3, w0, mu0, var0, cuda_device)
+    dev = port_engine.fit_gmm_sharded(x, 3, w0, mu0, var0, cuda_device)
     host = gt_gmm.fit_gmm(x, 3, w0, mu0, var0)
     assert dev.iterations == host.iterations
     for a, b in ((dev.weights, host.weights), (dev.means, host.means),

@@ -17,6 +17,8 @@ from garlic_tpu.core.types import MISSING, ChromData
 from garlic_tpu.ops import device_win as jax_dw
 from garlic_tpu_torch.ops import cuda_lod
 from garlic_tpu_torch.ops import device_win as dw
+from garlic_tpu_torch.parallel import engine
+from garlic_tpu_torch.parallel.mesh import make_mesh
 
 sys.path.insert(0, os.path.dirname(__file__))
 from util import make_panel  # noqa: E402
@@ -29,6 +31,18 @@ def _win(I, L, W, seed):
     win = (rng.standard_normal((I, nwin)) * 2).astype(np.float32)
     win[:, rng.random(nwin) < 0.1] = MISSING
     return win
+
+
+# the 1x1 mesh over the CPU: the plain versions of the kernels
+ONE = make_mesh(1, 1, ["cpu"])
+
+
+def _dwin(win, I, L, W):
+    """The port's DeviceWin of an [I, nwin] window matrix on the 1x1
+    mesh."""
+    return dw.DeviceWin(nind=I, nloci=L, nwin=win.shape[1],
+                        shards=engine.shard_blocks(I, L, ONE, W),
+                        blocks={(0, 0): torch.from_numpy(win)})
 
 
 def _triples(susw):
@@ -49,7 +63,7 @@ def test_covered_packed_matches_garlic_tpu(seed, cutoff, delta):
     win[1, 40] = cutoff + delta / 2
     win[4, 200] = cutoff - delta / 2
     a = jax_dw.DeviceWin(win=jnp.asarray(win), nind=I, nloci=L, nwin=nwin)
-    b = dw.DeviceWin(win=torch.from_numpy(win), nind=I, nloci=L, nwin=nwin)
+    b = _dwin(win, I, L, W)
     pa, sa, wa = jax_dw.covered_packed(a, cutoff, W, 3.0, tie_delta=delta)
     pb, sb, wb = dw.covered_packed(b, cutoff, W, 3.0, tie_delta=delta)
     assert pb.shape == pa.shape == (I, (L + 7) // 8)
@@ -65,7 +79,7 @@ def test_device_win_to_numpy_matches_garlic_tpu():
     win = _win(I, L, W, 5)
     nwin = win.shape[1]
     a = jax_dw.DeviceWin(win=jnp.asarray(win), nind=I, nloci=L, nwin=nwin)
-    b = dw.DeviceWin(win=torch.from_numpy(win), nind=I, nloci=L, nwin=nwin)
+    b = _dwin(win, I, L, W)
     np.testing.assert_array_equal(b.to_numpy(), a.to_numpy())
     np.testing.assert_array_equal(b[3], a.to_numpy()[3])
     assert b.shape == (I, L)
@@ -107,7 +121,7 @@ def test_fused_dispatch_matches_garlic_tpu(monkeypatch):
         delta))
     before = dict(cuda_lod.LAUNCHES)
     b = dw.covered_fetch(dw.covered_dispatch(
-        dw.FusedCov(chrom, centro, W, 0.001, 200000, "cpu"), cutoff, W, thr,
+        dw.FusedCov(chrom, centro, W, 0.001, 200000, ONE), cutoff, W, thr,
         delta))
     assert cuda_lod.LAUNCHES == before  # CPU tensors: the plain K2
     I = chrom.nind  # garlic_tpu pads rows to a multiple of 32
@@ -123,10 +137,11 @@ def test_split_and_fused_paths_agree():
     (one window-sum routine for every W, W > 64 included)."""
     chrom, centro = _chrom(10, 1500, seed=4)
     for W in (40, 90):
-        win = dw.lod_windows_device(chrom, centro, W, 0.001, 200000, "cpu")
+        win = engine.lod_windows_sharded(chrom, centro, W, 0.001, 200000,
+                                         ONE)
         split = dw.covered_packed(win, 0.5, W, W / 4, 0.02)
         fused = dw.covered_packed(
-            dw.FusedCov(chrom, centro, W, 0.001, 200000, "cpu"), 0.5, W,
+            dw.FusedCov(chrom, centro, W, 0.001, 200000, ONE), 0.5, W,
             W / 4, 0.02)
         np.testing.assert_array_equal(split[0], fused[0])
         np.testing.assert_array_equal(split[1], fused[1])
@@ -145,9 +160,9 @@ def test_chromosome_shorter_than_window_covers_nothing(L):
                           genotypes=chrom.genotypes[:, :0],
                           freq=chrom.freq[:0])
     W = 40
-    win = dw.lod_windows_device(chrom, centro, W, 0.001, 200000, "cpu")
+    win = engine.lod_windows_sharded(chrom, centro, W, 0.001, 200000, ONE)
     assert win.nwin == 0 and (win.to_numpy() == MISSING).all()
-    for src in (win, dw.FusedCov(chrom, centro, W, 0.001, 200000, "cpu")):
+    for src in (win, dw.FusedCov(chrom, centro, W, 0.001, 200000, ONE)):
         packed, sus, (si, _, _) = dw.covered_packed(src, 0.5, W, 10.0, 0.1)
         assert packed.shape == (4, (L + 7) // 8) and not packed.any()
         assert not sus.any() and si.size == 0
@@ -160,10 +175,11 @@ def test_fused_dispatch_on_card_matches_cpu():
     chrom, centro = _chrom(40, 20000, seed=6)
     W = 60
     got = dw.covered_packed(
-        dw.FusedCov(chrom, centro, W, 0.001, 200000, "cuda"), 1.5, W, 15.0,
+        dw.FusedCov(chrom, centro, W, 0.001, 200000,
+                    make_mesh(1, 1, ["cuda"])), 1.5, W, 15.0,
         0.01)
     want = dw.covered_packed(
-        dw.FusedCov(chrom, centro, W, 0.001, 200000, "cpu"), 1.5, W, 15.0,
+        dw.FusedCov(chrom, centro, W, 0.001, 200000, ONE), 1.5, W, 15.0,
         0.01)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])

@@ -155,7 +155,7 @@ def test_copies_cover_the_host_modules():
                 "ops/density.py", "ops/wiggle.py", "ops/brent.py",
                 "ops/kde.py", "ops/gmm.py", "ops/device_win.py", "ops/ld.py",
                 "ops/wlod.py", "native/build.py", "ops/convert.py", "api.py",
-                "pipeline.py"):
+                "pipeline.py", "parallel/mesh.py", "parallel/engine.py"):
         assert rel in rels, rel
 
 
@@ -195,13 +195,18 @@ def test_adapted_definitions_name_a_source_definition(path):
     ("ops/device_win.py", ("is_device_win", "LazyWin", "is_lazy_win"), ()),
     ("ops/convert.py", ("win_to_samples",), ()),
     ("api.py", ("ROHResult",), ("load_panel", "call_roh")),
-    ("pipeline.py", ("factor_devices",), ("_resolve_mesh",)),
-], ids=["device_win", "convert", "api", "pipeline"])
+    ("pipeline.py", (), ("_resolve_mesh",)),
+    ("parallel/mesh.py", ("factor_devices",), ("make_mesh",)),
+    ("parallel/engine.py", ("check_halo_fits", "full_window_missing"),
+     ("lod_windows_sharded", "gauss_transform_sharded", "fit_gmm_sharded",
+      "ld_band_sharded", "wlod_windows_sharded")),
+], ids=["device_win", "convert", "api", "pipeline", "parallel_mesh",
+        "parallel_engine"])
 def test_streaming_and_api_definitions_are_held_to_their_sources(
         rel, names, adapted):
-    """The definitions of the streaming and API slice: the copies are
-    held to their code by test_copied_definitions_are_garlic_tpus, the
-    adapted ones to a garlic_tpu definition of the same name."""
+    """The definitions of the streaming, API and mesh slices: the copies
+    are held to their code by test_copied_definitions_are_garlic_tpus,
+    the adapted ones to a garlic_tpu definition of the same name."""
     path = os.path.join(PORT, rel)
     copies = {n for n, _, _, _ in _copied(path)}
     assert set(names) <= copies, set(names) - copies

@@ -21,7 +21,6 @@ sys.path.insert(0, os.path.dirname(__file__))
 from util import (diff_logs, make_panel, read_text, write_tgls,  # noqa: E402
                   write_tped)
 
-from garlic_tpu_torch import pipeline as port_pipeline  # noqa: E402
 from garlic_tpu_torch.ops import cuda_lod  # noqa: E402
 from garlic_tpu_torch.pipeline import run_main as port_main  # noqa: E402
 
@@ -252,22 +251,25 @@ def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
 
 
 # --weighted, --cm and --phased run now: tests/test_torch_wlod.py holds
-# them to garlic_tpu's runs, with a real map and TGLS file.  A --tpu-mesh
-# over several devices is refused where that many are visible (on the
-# CPU one is: there 2x1 exceeds the count, as in test_mesh_spec_...).
+# them to garlic_tpu's runs, with a real map and TGLS file.  The last
+# configuration this test saw refused, a --tpu-mesh over several
+# devices, runs too (tests/test_torch_mesh.py holds every configuration
+# to garlic_tpu's mesh runs): here 2x1 over two CPU devices gives the
+# outputs of one device and of garlic_tpu's 2x1 mesh.
 @pytest.mark.parametrize("extra,names", [
     (["--tpu-mesh", "2x1"], "--tpu-mesh"),
 ])
-def test_unported_configuration_exits_1(panel_dir, capsys, monkeypatch,
-                                        extra, names):
-    monkeypatch.setattr(port_pipeline, "_device_count", lambda dev: 2)
-    rc = _run(port_main, panel_dir,
-              _base(panel_dir) + extra + ["--out", "refused"], device="cpu")
-    err = capsys.readouterr().err.strip().splitlines()
-    assert rc == 1
-    assert len(err) == 1 and names in err[0]
-    assert "not yet ported" in err[0] and "python -m garlic_tpu" in err[0]
-    assert not os.path.exists(f"{panel_dir}/refused.log")
+def test_unported_configuration_exits_1(panel_dir, capsys, extra, names):
+    wd, base = panel_dir, _base(panel_dir) + ["--tpu-engine", "fast"]
+    assert _run(port_main, wd, base + ["--out", "dev1"], device="cpu") == 0
+    before = dict(cuda_lod.LAUNCHES)
+    assert _run(port_main, wd, base + extra + ["--out", "m21"],
+                device=["cpu", "cpu"]) == 0
+    assert "not yet ported" not in capsys.readouterr().err, names
+    assert cuda_lod.LAUNCHES == before  # CPU tensors: plain versions
+    assert _run(jax_main, wd, base + extra + ["--out", "jm21"]) == 0
+    _same_outputs(wd, "m21", "dev1")
+    _same_outputs(wd, "m21", "jm21")
 
 
 def test_multihost_env_is_refused_and_streaming_runs(panel_dir,

@@ -30,6 +30,8 @@ import torch
 from garlic_tpu_torch import pipeline as port_pipeline
 from garlic_tpu_torch.ops import cuda_lod
 from garlic_tpu_torch.ops import device_win as port_dw
+from garlic_tpu_torch.parallel import engine as port_engine
+from garlic_tpu_torch.parallel.mesh import make_mesh
 from garlic_tpu_torch.pipeline import run_main as port_main
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -37,6 +39,7 @@ from util import (diff_logs, make_panel, read_text, write_tgls,  # noqa: E402
                   write_tped)
 
 BUDGET = "1000"  # bytes: every fast run of these panels streams
+ONE = make_mesh(1, 1, ["cpu"])  # the fast engine's 1x1 mesh on the CPU
 Y_TOL = 1e-5
 COMMON = ["--build", "hg18", "--winsize", "60", "--error", "0.001",
           "--kde-subsample", "0"]
@@ -91,13 +94,13 @@ class _Live:
     """Counts, through monkeypatched device_win entry points, the coverage
     handles between covered_dispatch and covered_fetch and the DeviceWin
     window matrices alive at once (a weakref finalizer per matrix), and
-    the split Phase I calls (lod_windows_device)."""
+    the split Phase I calls (lod_windows_sharded)."""
 
     def __init__(self, monkeypatch):
         self.handles, self.wins = set(), [0]
         self.max_handles = self.max_wins = self.split = 0
         dispatch, fetch = port_dw.covered_dispatch, port_dw.covered_fetch
-        split = port_dw.lod_windows_device
+        split = port_engine.lod_windows_sharded
 
         def counted_dispatch(*a, **k):
             h = dispatch(*a, **k)
@@ -120,7 +123,8 @@ class _Live:
 
         monkeypatch.setattr(port_dw, "covered_dispatch", counted_dispatch)
         monkeypatch.setattr(port_dw, "covered_fetch", counted_fetch)
-        monkeypatch.setattr(port_dw, "lod_windows_device", counted_split)
+        monkeypatch.setattr(port_engine, "lod_windows_sharded",
+                            counted_split)
 
     def _drop(self):
         self.wins[0] -= 1
@@ -210,6 +214,13 @@ def test_streamed_run_matches_resident_and_garlic_tpu(stream_dir, name,
                                    rtol=1e-5)
 
 
+def _holding(c, W, use_gl, fused):
+    """What the gate counts for chromosome c on the 1x1 CPU mesh."""
+    held = port_pipeline._device_holdings([c], W, use_gl, fused, ONE)
+    assert list(held) == [torch.device("cpu")]
+    return held[torch.device("cpu")]
+
+
 def test_gate_counts_each_route(stream_dir):
     """What the gate sums per chromosome: the u8 planes on the fused
     route, the f32 window matrix on the split route and for a float-form
@@ -221,15 +232,14 @@ def test_gate_counts_each_route(stream_dir):
     c = chroms[0]
     I, L, W = c.nind, c.nloci, 60
     nwin = L - W + 1
-    assert port_pipeline._device_holding(c, W, False, True) == \
-        I * (L + 2 * nwin)
-    assert port_pipeline._device_holding(c, W, False, False) == 4 * I * nwin
+    assert _holding(c, W, False, True) == I * (L + 2 * nwin)
+    assert _holding(c, W, False, False) == 4 * I * nwin
     for gl_type, fused_route in (("GQ", True), ("GL", False)):
         ds, _ = port_tped.load_tped(f"{stream_dir}/p.tped.gz")
         tgls.read_tgls(f"{stream_dir}/{gl_type}.tgls.gz", ds.chroms, I,
                        gl_type, None)
         c = filters.filter_monomorphic(ds.chroms)[0][0]
-        assert port_pipeline._device_holding(c, W, True, True) == (
+        assert _holding(c, W, True, True) == (
             I * (L + 2 * nwin) if fused_route else 4 * I * nwin)
 
 
@@ -241,10 +251,8 @@ def test_budget_between_the_routes_streams_only_the_split_one(
     from garlic_tpu_torch.io import tped as port_tped
     ds, _ = port_tped.load_tped(f"{stream_dir}/p.tped.gz")
     chroms, _ = filters.filter_monomorphic(ds.chroms)
-    planes = sum(port_pipeline._device_holding(c, 60, False, True)
-                 for c in chroms)
-    wins = sum(port_pipeline._device_holding(c, 60, False, False)
-               for c in chroms)
+    planes = sum(_holding(c, 60, False, True) for c in chroms)
+    wins = sum(_holding(c, 60, False, False) for c in chroms)
     assert planes < wins
     monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", str(planes + wins))
     wd = stream_dir

@@ -27,7 +27,7 @@ import torch
 from garlic_tpu.core.types import MISSING, ChromData
 from garlic_tpu.io.tgls import convert_gl
 from garlic_tpu_torch.ops import cuda_lod
-from garlic_tpu_torch.ops import device_win as port_dw
+from garlic_tpu_torch.parallel import engine as port_engine
 from garlic_tpu_torch.ops.lod import window_missing_mask
 from garlic_tpu_torch.pipeline import run_main as port_main
 
@@ -256,8 +256,8 @@ def _same_outputs(wd, out, ref):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Spies on the port's routes: _dispatch_fused's results (None: split
-    path), lod_windows_device's use_gl flags, and the K3/K4 wrapper
+    """Spies on the port's routes: covered_sharded's results (None: split
+    path), lod_windows_sharded's use_gl flags, and the K3/K4 wrapper
     calls."""
     seen = {"fused": [], "split_gl": [], "window_sums": 0,
             "covered_terms": 0}
@@ -278,9 +278,10 @@ def routes(monkeypatch):
             return fn(*a, **k)
         return f
 
-    orig_fused, orig_split = port_dw._dispatch_fused, port_dw.lod_windows_device
-    monkeypatch.setattr(port_dw, "_dispatch_fused", spy_fused)
-    monkeypatch.setattr(port_dw, "lod_windows_device", spy_split)
+    orig_fused = port_engine.covered_sharded
+    orig_split = port_engine.lod_windows_sharded
+    monkeypatch.setattr(port_engine, "covered_sharded", spy_fused)
+    monkeypatch.setattr(port_engine, "lod_windows_sharded", spy_split)
     for name in ("window_sums", "covered_terms"):
         monkeypatch.setattr(cuda_lod, name,
                             counting(name, getattr(cuda_lod, name)))
@@ -291,7 +292,7 @@ def routes(monkeypatch):
 def test_pinned_tgls_run_matches_garlic_tpu(tgls_dir, monkeypatch, routes,
                                             gl_type):
     """GQ (dictionary form): K4 fused, as covered_pallas_gl_codes_raw.
-    GL (float form): _dispatch_fused declines and K3 feeds the split
+    GL (float form): covered_sharded declines and K3 feeds the split
     coverage program, as lod_windows_pallas_gl_raw."""
     wd, base = tgls_dir, _base(tgls_dir, gl_type)
     tag = gl_type.lower()

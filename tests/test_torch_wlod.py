@@ -30,9 +30,26 @@ from util import (diff_logs, make_panel, read_text, write_map_scaffold,  # noqa:
 from garlic_tpu_torch.core.types import MISSING, ChromData  # noqa: E402
 from garlic_tpu_torch.io import genmap  # noqa: E402
 from garlic_tpu_torch.ops import device_wlod, ld, wlod  # noqa: E402
+from garlic_tpu_torch.parallel import engine as port_engine  # noqa: E402
+from garlic_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from garlic_tpu_torch.pipeline import run_main as port_main  # noqa: E402
 
 ERR, GAP, MU, M = 0.001, 200000, 1e-9, 7
+
+
+def _band(c, W, phased, sub, device="cpu"):
+    """The port's LD band [nwin, W] on the 1x1 mesh over `device`."""
+    return port_engine.ld_band_sharded(c, W, phased, sub,
+                                       make_mesh(1, 1, [device]))[(0, 0)]
+
+
+def _weighted(c, centro, W, use_gl, phased, sub, device="cpu"):
+    """The port's weighted Phase I (LD band, then wLOD windows) on the
+    1x1 mesh over `device`: a DeviceWin with its tie_scale."""
+    mesh = make_mesh(1, 1, [device])
+    return port_engine.wlod_windows_sharded(
+        c, centro, port_engine.ld_band_sharded(c, W, phased, sub, mesh), W,
+        ERR, GAP, use_gl, MU, M, mesh)
 
 
 class _Centro:
@@ -88,7 +105,7 @@ def test_ld_band_matches_garlic_tpu(phased, subsample):
     W = 17
     nwin = c.nloci - W + 1
     sub = _sub(c.nind, subsample)
-    got = device_wlod.ld_band_device(c, W, phased, sub, "cpu").numpy()
+    got = _band(c, W, phased, sub).numpy()
     want = np.asarray(gt_dwlod.ld_band_device(cg, W, phased, sub))[:nwin]
     assert got.shape == (nwin, W)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -105,7 +122,7 @@ def _check_tie_scale(c, W, phased, sub, use_gl, got, want):
     garlic_tpu's two-step route takes the marginals from the host's
     f64)."""
     score = wlod.wlod_scores(c, ERR, use_gl, MU, M).astype(np.float32)
-    inv = (1.0 / device_wlod.ld_band_device(c, W, phased, sub, "cpu")).numpy()
+    inv = (1.0 / _band(c, W, phased, sub)).numpy()
     nwin = c.nloci - W + 1
     tmax = max(float(np.abs(score[:, j:j + nwin] * inv[:, j]).max())
                for j in range(W))
@@ -116,8 +133,7 @@ def _check_tie_scale(c, W, phased, sub, use_gl, got, want):
 def _window_case(c, cg, W, phased, sub, use_gl=False):
     from garlic_tpu.ops import device_wlod as gt_dwlod
     centro = _Centro(int(c.positions[200]), int(c.positions[230]))
-    got = device_wlod.weighted_windows_device(
-        c, centro, W, ERR, GAP, use_gl, MU, M, phased, sub, "cpu")
+    got = _weighted(c, centro, W, use_gl, phased, sub)
     want = gt_dwlod.weighted_windows_device(cg, centro, W, ERR, GAP, use_gl,
                                             MU, M, phased, sub)
     return centro, got, want
@@ -149,7 +165,7 @@ def test_weighted_windows_match_garlic_tpu(phased, subsample):
 
 def test_tgls_two_step_route_matches_garlic_tpu():
     """A per-genotype error plane: the host's f64 scores ship as f32 and
-    the window program runs over them (wlod_windows_device); the same
+    the window program runs over them (wlod_windows_sharded); the same
     tolerances as the scalar-error route."""
     c, cg = _chroms(I=21, L=500, seed=8)
     W = 11
@@ -174,9 +190,8 @@ def test_chunked_route_bit_identical(phased, subsample, monkeypatch):
 
     def run():
         calls = dict(device_wlod.CALLS)
-        dw = device_wlod.weighted_windows_device(
-            c, centro, W, ERR, GAP, False, MU, M, phased, sub, "cpu")
-        band = device_wlod.ld_band_device(c, W, phased, sub, "cpu")
+        dw = _weighted(c, centro, W, False, phased, sub)
+        band = _band(c, W, phased, sub)
         return dw, band, device_wlod.CALLS["wlod_windows"] - \
             calls["wlod_windows"]
 
@@ -184,7 +199,7 @@ def test_chunked_route_bit_identical(phased, subsample, monkeypatch):
     monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", "2e4")
     chunked, band2, n2 = run()
     assert (n1, n2) == (1, 4)  # 30 rows in chunks of 8
-    assert torch.equal(one.win, chunked.win)
+    assert torch.equal(one.blocks[(0, 0)], chunked.blocks[(0, 0)])
     assert torch.equal(one.tie_scale, chunked.tie_scale)
     assert torch.equal(band1, band2)
 
@@ -543,7 +558,7 @@ def test_native_phased_parse_matches_the_python_reader(wpanel):
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    return "cuda"
 
 
 def _port_chrom(I, L, seed):
@@ -559,8 +574,8 @@ def test_ld_band_on_card_equals_cpu(cuda_device, phased):
     order: the card's band equals the CPU's bit for bit."""
     c = _port_chrom(60, 20000, 21)
     sub = np.arange(0, 60, 3)
-    cpu = device_wlod.ld_band_device(c, 60, phased, sub, "cpu")
-    gpu = device_wlod.ld_band_device(c, 60, phased, sub, cuda_device)
+    cpu = _band(c, 60, phased, sub)
+    gpu = _band(c, 60, phased, sub, cuda_device)
     assert torch.equal(gpu.cpu(), cpu)
 
 
@@ -569,12 +584,9 @@ def test_ld_band_on_card_equals_cpu(cuda_device, phased):
 def test_weighted_windows_on_card_equal_cpu(cuda_device, phased):
     c = _port_chrom(50, 20000, 22)
     centro = _Centro(int(c.positions[5000]), int(c.positions[5100]))
-    cpu = device_wlod.weighted_windows_device(c, centro, 60, ERR, GAP, False,
-                                              MU, M, phased, None, "cpu")
-    gpu = device_wlod.weighted_windows_device(c, centro, 60, ERR, GAP, False,
-                                              MU, M, phased, None,
-                                              cuda_device)
-    assert torch.equal(gpu.win.cpu(), cpu.win)
+    cpu = _weighted(c, centro, 60, False, phased, None)
+    gpu = _weighted(c, centro, 60, False, phased, None, cuda_device)
+    assert torch.equal(gpu.blocks[(0, 0)].cpu(), cpu.blocks[(0, 0)])
     assert torch.equal(gpu.tie_scale.cpu(), cpu.tie_scale)
 
 
@@ -588,14 +600,12 @@ def test_chunked_route_on_card_equals_one_chunk(cuda_device, phased,
     sub = np.arange(0, 40, 2)
 
     def run():
-        return device_wlod.weighted_windows_device(
-            c, _Centro(), 60, ERR, GAP, False, MU, M, phased, sub,
-            cuda_device)
+        return _weighted(c, _Centro(), 60, False, phased, sub, cuda_device)
 
     one = run()
     monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", "2e7")
     chunked = run()
-    assert torch.equal(one.win, chunked.win)
+    assert torch.equal(one.blocks[(0, 0)], chunked.blocks[(0, 0)])
     assert torch.equal(one.tie_scale, chunked.tie_scale)
 
 
