@@ -129,7 +129,25 @@ Phases (any failure raises and exits non-zero, printing no result):
    - with more than one card visible, `python -m garlic_tpu_torch
      --tpu-mesh auto` over them in a subprocess, its BED against phase
      4's; with one, a line that says runs over distinct cards did not
-     happen.
+     happen;
+9. two processes on the one card (garlic_tpu_torch/parallel/
+   multihost.py): each run is two `python -m garlic_tpu_torch`
+   subprocesses joined by the three GARLIC_TPU_* variables (a gloo
+   process group on 127.0.0.1), each process driving cuda:0:
+   - bench.py's pinned, automatic, GQ TGLS and --weighted runs, warm,
+     over --tpu-mesh 2x1 (each process loads and launches its own 100
+     rows: sharded input), and the GL TGLS run of phase 4 and phase 7's
+     --raw-lod run over 1x2 (not dp-aligned: each process loads the
+     whole panel and launches its own sp cell): process 0's outputs and
+     process 1's (.proc1) .roh.bed, .freq.gz, .log (and .kde, and the
+     raw text) equal to the single-process runs of phases 4-7; each
+     child's launch counters (its --tpu-profile line) show its kernel
+     run on every chromosome in both processes, and count in the kernels
+     line; each process's profiled wall beside phase 8's 2x1 or 1x2
+     run, its device-memory peak, and the bytes, calls and seconds of
+     its exchanges by tag;
+   - entry(): K2 on the card against its plain version, and
+     dryrun_multichip(4) over ["cuda:0"] * 4.
 Every run prints its --tpu-profile phase split.
 
 The line before the last is {"kernels": [...]} (launches summed over the
@@ -205,6 +223,8 @@ RAWLOD_STREAM_PANEL = dict(nind=20, nloci_per_chr=(25_000, 25_000), seed=9,
                            spacing_mean=4000)
 # phase 8: the meshes laid on the one card, (dp, sp)
 MESHES = ((2, 1), (1, 2), (2, 2))
+# phase 9: a child process's time limit, seconds
+CHILD_TIMEOUT = 300
 
 
 def say(*a):
@@ -236,6 +256,7 @@ class _Chrom:
         self.genotypes = genotypes
         self.geno_is_packed_only = False
         self.nind, self.nloci = genotypes.shape
+        self.nind_global, self.row0 = self.nind, 0  # the whole panel
         obs = genotypes >= 0
         self.freq = (np.where(obs, genotypes, 0).sum(0)
                      / np.maximum(2 * obs.sum(0), 1)).astype(np.float64)
@@ -322,6 +343,7 @@ def phase_environment():
     say(f"native host library "
         f"{os.path.relpath(native.build.loaded_path, REPO)}: g++ build and "
         f"load {time.perf_counter() - t0:.3f}s")
+    return smi
 
 
 def _random_chrom(I, L, W, seed):
@@ -814,8 +836,10 @@ class _MainPath:
             f"{ref}")
 
     def kde_files(self, label):
+        """The .kde suffixes of run `label` (not its .procN runs')."""
         base = self.out(label)
-        return sorted(p[len(base):] for p in glob.glob(base + ".*SNPs.kde"))
+        return sorted(p[len(base):] for p in glob.glob(base + ".*SNPs.kde")
+                      if ".proc" not in p[len(base):])
 
     def same_kde(self, labels, ref, y_tol=None):
         """Every .kde: x byte-identical; y within y_tol * max y."""
@@ -997,7 +1021,7 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     shutil.copy(tped, atped)  # a fresh name: the cold run parses
     base = ["--tped", atped, "--tfam", tfam] + AUTO_FLAGS
     pools, fits = [], []
-    sampler = pipeline._exact_thinned_samples
+    sampler = pipeline._exact_thinned_samples_sharded
     select = gmm.select_size_classes
 
     def counting_sampler(*a, **k):
@@ -1008,7 +1032,7 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
         fits.append((np.array(lengths, dtype=np.float64), mesh))
         return select(lengths, nclust, log, mesh=mesh)
 
-    pipeline._exact_thinned_samples = counting_sampler
+    pipeline._exact_thinned_samples_sharded = counting_sampler
     gmm.select_size_classes = recording_select
     try:
         for label, engine, calls in (("auto_fast_cold", "fast", 1),
@@ -1023,7 +1047,7 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
                                      f"{len(pools) - n0} times, expected "
                                      f"{calls}")
     finally:
-        pipeline._exact_thinned_samples = sampler
+        pipeline._exact_thinned_samples_sharded = sampler
         gmm.select_size_classes = select
     fast = ("auto_fast_cold", "auto_fast_warm")
     mp.same(fast, "auto_exact")
@@ -1697,6 +1721,143 @@ def phase_mesh(mp, nchrom, chrom, centro, configs, peaks):
     return err
 
 
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _two_processes(argv, label):
+    """`python -m garlic_tpu_torch argv` as ranks 0 and 1 of a process
+    group on this host, both on the card; their stderr goes to files
+    under WORK.  Returns (wall seconds until both ended, [stderr text of
+    each]); any exit but 0 raises, and a child still running after
+    CHILD_TIMEOUT seconds is killed, with its peer."""
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, GARLIC_TPU_COORD=f"127.0.0.1:{port}",
+                       GARLIC_TPU_NUM_PROCS="2",
+                       GARLIC_TPU_PROC_ID=str(rank))
+            err = open(os.path.join(WORK, f"{label}.{rank}.stderr"), "w+")
+            logs.append(err)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "garlic_tpu_torch"] + argv, cwd=REPO,
+                env=env, stdout=subprocess.DEVNULL, stderr=err))
+        rcs = [p.wait(timeout=CHILD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for err in logs:
+        err.seek(0)
+        texts.append(err.read())
+        err.close()
+    if rcs != [0, 0]:
+        raise AssertionError(f"{label}: exits {rcs}:\n"
+                             + "\n".join(t[-2000:] for t in texts))
+    return wall, texts
+
+
+def _child_profile(text):
+    """(launches, device-memory peak in bytes, {tag: (calls, bytes,
+    seconds)}, profiled TOTAL seconds) from a child's --tpu-profile
+    lines."""
+    launches = json.loads(re.search(r"^\[profile\] launches (\{.*\})$",
+                                     text, flags=re.M).group(1))
+    peak = int(re.search(r"^\[profile\] device-memory peak (\d+) bytes",
+                         text, flags=re.M).group(1))
+    ex = {m[0]: (int(m[1]), int(m[2]), float(m[3])) for m in re.findall(
+        r"exchange (\S+): (\d+) calls, (\d+) bytes, ([0-9.]+)s", text)}
+    return launches, peak, ex, _profile_total(text)
+
+
+def _profile_total(text):
+    """A run's profiled TOTAL seconds (its --tpu-profile line)."""
+    return float(re.search(r"^\[profile\]\s+TOTAL\s+([0-9.]+)s", text,
+                           flags=re.M).group(1))
+
+
+def phase_multiprocess(mp, nchrom, configs):
+    """Two processes on the one card (see the module docstring, phase
+    9).  configs: name -> (flags, single-device run, kernel or program
+    of its route, .kde written, mesh spec)."""
+    import torch
+    from garlic_tpu_torch import entry
+    from garlic_tpu_torch.ops import cuda_lod
+    say("== phase 9: two processes on the one card (GARLIC_TPU_COORD / "
+        "NUM_PROCS / PROC_ID, a gloo process group)")
+    t0 = time.perf_counter()
+    for name, (argv, ref, kernel, kde, spec) in configs.items():
+        label = f"mp_{name}_{spec}"
+        wall, texts = _two_processes(
+            argv + ["--tpu-engine", "fast", "--tpu-mesh", spec, "--out",
+                    mp.out(label)], label)
+        mp.walls[label] = wall
+        sharded = spec == "2x1"
+        for rank, text in enumerate(texts):
+            holds = f"sharded input: process {rank} holds individuals"
+            if (holds in text) != sharded:
+                raise AssertionError(f"{label}: process {rank} sharded "
+                                     f"{holds in text}, expected {sharded}")
+            launches, peak, ex, total = _child_profile(text)
+            say(f"  {label} process {rank}: launches {launches}")
+            for k in mp.launches:
+                mp.launches[k] += launches[k]
+            if launches[kernel] < nchrom:
+                raise AssertionError(f"{label}: process {rank} ran {kernel} "
+                                     f"{launches[kernel]} times, expected "
+                                     f">= {nchrom}")
+            one = mp.stderr.get(f"mesh_{name}_{spec}")
+            beside = (f" (phase 8's one-process {spec} run "
+                      f"{_profile_total(one):.3f}s)" if one else "")
+            split = re.findall(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s", text,
+                               flags=re.M)
+            say("    profile (s): " + ", ".join(f"{k} {v}" for k, v in split))
+            say(f"    profiled wall {total:.3f}s{beside}; device-memory "
+                f"peak {peak / 1e6:.1f} MB; exchanges: " + "; ".join(
+                    f"{tag} {c} calls {b} bytes {sec:.4f}s"
+                    for tag, (c, b, sec) in sorted(ex.items())))
+        say(f"  {label}: both processes ended after {wall:.3f}s (startup "
+            "included)")
+        labels = (label, label + ".proc1")
+        mp.same(labels, ref)
+        mp.same_log(labels, ref)
+        if kde:
+            mp.same_kde(labels, ref, Y_TOL)
+        for sfx in (sorted(glob.glob(mp.out(ref) + ".POP1.*.raw.lod."
+                                     "windows.gz"))):
+            sfx = sfx[len(mp.out(ref)):]
+            for k in labels:
+                if _read(mp.out(k) + sfx) != _read(mp.out(ref) + sfx):
+                    raise AssertionError(f"{k}{sfx}: raw values differ")
+            say(f"  {label}{sfx}: raw values byte-identical to {ref}'s on "
+                "both processes")
+    fn, args = entry.entry()
+    n0 = cuda_lod.LAUNCHES["covered"]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = fn(*(a.cpu() for a in args))
+    if cuda_lod.LAUNCHES["covered"] != n0 + 1 or not all(
+            torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("entry(): K2 differs from its plain version")
+    t1 = time.perf_counter()
+    entry.dryrun_multichip(4, ["cuda:0"] * 4)
+    torch.cuda.synchronize()
+    say(f"  entry(): K2 on the card equal to its plain version; "
+        f"dryrun_multichip(4) over ['cuda:0'] * 4 in "
+        f"{time.perf_counter() - t1:.3f}s")
+    say(f"  phase 9: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJaxPackage())
     import torch
@@ -1709,7 +1870,7 @@ def main() -> int:
     os.makedirs(WORK)
     t_start = time.perf_counter()
     try:
-        phase_environment()
+        smi = phase_environment()
         t0 = time.perf_counter()
         panel = make_panel(**BENCH_PANEL)
         say(f"bench panel {BENCH_PANEL['nind']} x "
@@ -1755,6 +1916,14 @@ def main() -> int:
                               {k: peaks[f"{k}_resident_0"]
                                for k in ("pinned", "auto", "gq")})
         del chrom
+        rawst = os.path.join(WORK, "rawst")
+        phase_multiprocess(mp, nchrom, {
+            **{k: (*configs[k], "2x1")
+               for k in ("pinned", "auto", "gq", "weighted")},
+            "gl": (*configs["gl"], "1x2"),
+            "rawlod": (["--tped", rawst + ".tped.gz", "--tfam",
+                        rawst + ".tfam", "--raw-lod"] + FLAGS,
+                       "rawlod_resident", "lod_windows", False, "1x2")})
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))
@@ -1762,6 +1931,7 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     say(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
+    say(smi)  # the card's name and power limit, again beside the results
     # max |diff| against the plain version (phase 2) and, for K1/K3's
     # shards, against the single-device launch (phase 8)
     kernels = [{"name": k, "route": "cuda", "source": SOURCE,

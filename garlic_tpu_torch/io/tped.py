@@ -1,10 +1,11 @@
 """TPED loading and the --freq-only streaming path for the port.
 
 Copies of garlic_tpu/io/tped.py: the native C++ parser's assembly, the
-pure-Python reader and the --freq-only stream as they are; load_tped for
-single-process loads, which ask the native parser for 2-bit codes
-(unphased) or int8 genotypes with the first-copy bits (--phased), writing
-a cold run's sidecar through io/panelcache.py here.
+pure-Python reader, peek_nind and the --freq-only stream as they are;
+load_tped, which asks the native parser for 2-bit codes (unphased) or
+int8 genotypes with the first-copy bits (--phased), writing a cold run's
+sidecar through io/panelcache.py here, or for one process's column
+range of individuals (col_range) on a multi-process run.
 Each function names its source line.
 """
 
@@ -115,6 +116,20 @@ def _parse_line(line: str, tped_missing: str, col_range=None):
         return chrom, name, gpos, ppos, geno, fc, nalleles, total, one_allele
     return (chrom, name, gpos, ppos, geno, fc, nalleles, total, one_allele,
             num_part, den_part)
+
+
+def peek_nind(tpedfile: str) -> int:
+    """Individual count from the first non-blank TPED line (cheap even on
+    gz: only the head of the stream inflates) — used to compute per-host
+    column ranges before the sharded parse.
+
+    Copy of garlic_tpu/io/tped.py:116."""
+    with _open_maybe_gz(tpedfile) as fin:
+        for line in fin:
+            fields = line.split()
+            if fields:
+                return max((len(fields) - 4) // 2, 0)
+    return 0
 
 
 def _finish_chrom(log, chrom, names, gposs, pposs, alleles, genos, fcs, freqs,
@@ -244,21 +259,26 @@ def _assemble_from_native(native, phased: bool, auto_freq: bool, log):
     return ds, num_loci
 
 
-# copy of garlic_tpu/io/tped.py:128 for single-process loads: unphased
-# genotypes parsed to 2-bit codes (packed_geno=True), phased ones to int8
-# with the first-copy bits
+# copy of garlic_tpu/io/tped.py:128: unphased genotypes parsed to 2-bit
+# codes (packed_geno=True), phased ones to int8 with the first-copy bits
 def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
               auto_freq: bool = True, log=None,
               rng: Optional[np.random.Generator] = None,
               panel_cache: bool = False,
-              phased: bool = False) -> Tuple[Dataset, int]:
+              phased: bool = False, col_range=None) -> Tuple[Dataset, int]:
     """Load a TPED file into a Dataset. Returns (dataset, total_loci).
 
     Mirrors loadTPEDData (src/garlic-data.cpp:10-177). Frequency
     resampling draws `nresample` Bernoulli(freq) trials
     (src/garlic-data.cpp:142-148) from the given generator.  phased
     keeps the first-copy bits (--phased); a sidecar without them is a
-    miss."""
+    miss.
+
+    col_range=(c0, c1): per-host sharded input — store only genotype
+    columns [c0, c1) (chrom.nind_total/row0 record the global layout and
+    chrom.freq_num/freq_den carry partial count planes for the freq
+    sum).  Resampling is deferred to the caller in this mode (it applies
+    to the summed global freq)."""
     if not os.path.exists(tpedfile):
         if log is not None:
             log.err("ERROR: Failed to open", tpedfile)
@@ -267,7 +287,8 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
     from_cache = False
     if panel_cache:
         native = panelcache.load_cache(tpedfile, want_fc=phased,
-                                       tped_missing=tped_missing)
+                                       tped_missing=tped_missing,
+                                       col_range=col_range)
         from_cache = native is not None
         if from_cache:
             print(f"Loaded panel cache {panelcache.cache_path(tpedfile)}",
@@ -276,7 +297,7 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
         try:
             from ..native import parse_tped_native
             native = parse_tped_native(tpedfile, tped_missing,
-                                       want_fc=phased)
+                                       want_fc=phased, col_range=col_range)
         except Exception:
             native = None
 
@@ -284,7 +305,9 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
         ds, num_loci = _assemble_from_native(native, phased, auto_freq, log)
         if panel_cache:
             ds.panel_cache_file = panelcache.cache_path(tpedfile)
-        if panel_cache and not from_cache:
+        if panel_cache and not from_cache and col_range is None:
+            # range-mode parses hold only a column slice: never write the
+            # (full-panel) sidecar from one
             digs = panelcache.save_cache(
                 tpedfile, native,
                 ds.nind if ds.ind_ids else
@@ -297,9 +320,9 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
                     c.geno2b_digest = d
     else:
         ds, num_loci = _load_tped_python(tpedfile, tped_missing, phased,
-                                         auto_freq, log)
+                                         auto_freq, log, col_range=col_range)
 
-    if auto_freq and nresample > 0:
+    if auto_freq and nresample > 0 and col_range is None:
         if rng is None:
             rng = np.random.default_rng()
         for c in ds.chroms:

@@ -81,6 +81,18 @@ def _load():
         lib.gt_tped_open.restype = ctypes.c_void_p
         lib.gt_tped_open.argtypes = [ctypes.c_char_p, ctypes.c_char,
                                      ctypes.c_int]
+        lib.gt_tped_open_range.restype = ctypes.c_void_p
+        lib.gt_tped_open_range.argtypes = [ctypes.c_char_p, ctypes.c_char,
+                                           ctypes.c_int, ctypes.c_int64,
+                                           ctypes.c_int64]
+        lib.gt_tped_nind_total.restype = ctypes.c_int64
+        lib.gt_tped_nind_total.argtypes = [ctypes.c_void_p]
+        lib.gt_tped_col0.restype = ctypes.c_int64
+        lib.gt_tped_col0.argtypes = [ctypes.c_void_p]
+        lib.gt_tped_copy_counts.restype = ctypes.c_int
+        lib.gt_tped_copy_counts.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double)]
         lib.gt_tped_nchrom.restype = ctypes.c_int
         lib.gt_tped_nchrom.argtypes = [ctypes.c_void_p]
         lib.gt_tped_nind.restype = ctypes.c_int64
@@ -338,27 +350,38 @@ def get_native_max_threads() -> int:
     return int(lib.gt_get_max_threads()) if lib is not None else 1
 
 
-def parse_tped_native(path: str, missing: str,
-                      want_fc: bool = False) -> Optional[List[dict]]:
+def parse_tped_native(path: str, missing: str, want_fc: bool = False,
+                      col_range=None) -> Optional[List[dict]]:
     """Parse a TPED via the C++ parser.  Returns per-chromosome dicts or
-    None if the native library is unavailable (callers fall back): the
-    full-panel branches of garlic_tpu's parse_tped_native.  Unphased
-    (want_fc=False): genotypes emitted straight as 2-bit codes (fused
-    transpose+pack, the int8 matrix never exists; want_packed=True
+    None if the native library is unavailable (callers fall back).
+    Unphased (want_fc=False): genotypes emitted straight as 2-bit codes
+    (fused transpose+pack, the int8 matrix never exists; want_packed=True
     there).  Phased (want_fc=True): int8 genotypes and the first-copy
     bits (want_fc=True, want_packed=False there).
+    col_range=(col0, col1) stores only that genotype column slice
+    (per-host sharded input): allele coding stays full-row exact and each
+    chromosome dict additionally carries partial 'freq_num'/'freq_den'
+    count planes over the stored range plus 'nind_total'/'row0'.
 
-    Adapted from garlic_tpu/native/build.py:369."""
+    Adapted from garlic_tpu/native/build.py:369: the two genotype forms
+    chosen by want_fc alone."""
     lib = _load()
     if lib is None:
         return None
-    h = lib.gt_tped_open(path.encode(), missing.encode()[0:1] or b"0",
-                         1 if want_fc else 0)
+    if col_range is None:
+        h = lib.gt_tped_open(path.encode(), missing.encode()[0:1] or b"0",
+                             1 if want_fc else 0)
+    else:
+        h = lib.gt_tped_open_range(
+            path.encode(), missing.encode()[0:1] or b"0",
+            1 if want_fc else 0, int(col_range[0]), int(col_range[1]))
     if not h:
         raise IOError(f"native TPED parse failed for {path}")
     try:
         nchrom = lib.gt_tped_nchrom(h)
         nind = lib.gt_tped_nind(h)
+        nind_total = lib.gt_tped_nind_total(h)
+        row0 = lib.gt_tped_col0(h)
         out = []
         for c in range(nchrom):
             L = lib.gt_tped_nloci(h, c)
@@ -394,6 +417,16 @@ def parse_tped_native(path: str, missing: str,
                     rb,
                     freq.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
                     names_buf)
+            fnum = fden = None
+            if col_range is not None:
+                fnum = np.empty(L, dtype=np.float64)
+                fden = np.empty(L, dtype=np.float64)
+                ok = lib.gt_tped_copy_counts(
+                    h, c,
+                    fnum.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                    fden.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+                if not ok:
+                    fnum = fden = None
             from ..core.types import LocusNames
             out.append({
                 "chrom": name,
@@ -404,10 +437,10 @@ def parse_tped_native(path: str, missing: str,
                 "geno2b": geno2b,
                 "first_copy": fc.view(np.bool_) if fc is not None else None,
                 "freq": freq,
-                "freq_num": None,
-                "freq_den": None,
-                "nind_total": int(nind),
-                "row0": 0,
+                "freq_num": fnum,
+                "freq_den": fden,
+                "nind_total": int(nind_total),
+                "row0": int(row0),
                 "names": LocusNames(names_buf.raw[:nsz]),
             })
         return out

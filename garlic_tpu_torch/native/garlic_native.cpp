@@ -1,7 +1,7 @@
 // Native host kernels of garlic_tpu_torch: a copy of
 // garlic_tpu/native/garlic_native.cpp holding only the entry points the
-// port calls (the TPU link's repacking and the int8 / column-range TPED
-// exports are left out); the code of each is unchanged.
+// port calls (the TPU link's repacking is left out); the code of each is
+// unchanged.
 //
 // 1. Streaming gzip TPED parser with the reference's exact allele-coding
 //    semantics (first non-missing character becomes the '1' allele; a
@@ -590,6 +590,22 @@ void *gt_tped_open(const char *path, char missing, int want_fc) {
 int gt_tped_nchrom(void *hv) { return (int)((TpedHandle *)hv)->chroms.size(); }
 // STORED genotype columns (== the full panel except in column-range mode).
 int64_t gt_tped_nind(void *hv) { return ((TpedHandle *)hv)->nstore; }
+// Individuals in the FILE (the full panel width).
+int64_t gt_tped_nind_total(void *hv) { return ((TpedHandle *)hv)->nind; }
+int64_t gt_tped_col0(void *hv) { return ((TpedHandle *)hv)->col0; }
+
+// Column-range mode only: per-locus partial '1'-allele numerators and
+// observed-allele denominators over the stored range (integers as f64; a
+// psum over hosts reproduces loadTPEDData's full freq exactly,
+// src/garlic-data.cpp:109-160).  Returns 0 when unavailable (full parse).
+int gt_tped_copy_counts(void *hv, int c, double *num, double *den) {
+  TpedHandle *h = (TpedHandle *)hv;
+  ChromBlock &b = h->chroms[c];
+  if (b.freq_num.size() != b.positions.size()) return 0;
+  memcpy(num, b.freq_num.data(), b.freq_num.size() * sizeof(double));
+  memcpy(den, b.freq_den.data(), b.freq_den.size() * sizeof(double));
+  return 1;
+}
 
 int64_t gt_tped_nloci(void *hv, int c) {
   return (int64_t)((TpedHandle *)hv)->chroms[c].positions.size();

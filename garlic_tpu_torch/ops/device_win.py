@@ -22,6 +22,10 @@ run per shard (parallel/engine.py):
 Either way the coverage handle holds one _Piece per shard, each on its
 device; covered_fetch fetches each piece's edge payload and stitches
 them, in locus order, into the packed rows of the whole chromosome.
+Across processes (parallel/multihost.py) each process holds the pieces
+and window blocks of its own cells: covered_fetch gathers every
+process's payloads, so each assembles every row, and the window
+accessors gather the blocks they read.
 
 In streaming mode a split chromosome is a LazyWin (a thunk that makes
 its DeviceWin) and a fused one a FusedCov with stream set: assembly
@@ -54,16 +58,19 @@ class DeviceWin:
     counterpart of device_win.py:30 in an exactly sized, sharded layout):
     shards, the layout (parallel.engine.shard_blocks); blocks[(d, s)],
     the [rows, nw] windows of shard (d, s)'s rows and own window starts
-    on its device, MISSING where the window is masked.  Accessors present
-    the reference's [nind, nloci] MISSING-tailed view.  tie_scale: the
-    weighted paths' f32 scalar (max finite |term|) on the mesh's first
-    device, which scales the tie band in covered_dispatch."""
+    on its device, MISSING where the window is masked; blocks holds this
+    process's cells (Shard.live), and the accessors gather the others'.
+    Accessors present the reference's [nind, nloci] MISSING-tailed view.
+    tie_scale: the weighted paths' f32 scalar (max finite |term|) on the
+    mesh's first device, which scales the tie band in covered_dispatch.
+    group: the mesh's multihost.Group (None: one process)."""
     nind: int
     nloci: int
     nwin: int
     shards: list
     blocks: dict
     tie_scale: torch.Tensor = None
+    group: object = None
 
     @property
     def shape(self):
@@ -84,29 +91,64 @@ class DeviceWin:
         return [(sh, self.blocks[(sh.d, sh.s)]) for sh in self.shards
                 if sh.live]
 
+    def _gather(self, cols, tag: str) -> list:
+        """[(shard, host f32 array)] of every cell that holds rows and
+        loci, on whichever process, in shard order: the columns
+        range(*cols(sh)) of its [rows, nw] block (one allgather of every
+        process's slices when the mesh spans processes)."""
+        mine = [(sh, win[:, slice(*cols(sh))].cpu().numpy())
+                for sh, win in self._live()]
+        if self.group is None or self.group.size == 1:
+            return mine
+        flat = np.concatenate([a.reshape(-1) for _, a in mine]
+                              + [np.zeros(0, dtype=np.float32)])
+        got = self.group.allgather_varlen(flat, tag)
+        out, at = [], [0] * len(got)
+        for sh in self.shards:
+            if not sh.present:
+                continue
+            k = len(range(*cols(sh)))
+            o = at[sh.owner]
+            out.append((sh, got[sh.owner][o:o + sh.rows * k]
+                        .reshape(sh.rows, k)))
+            at[sh.owner] = o + sh.rows * k
+        return out
+
     def to_numpy(self) -> np.ndarray:
         if not hasattr(self, "_host"):
             host = np.full((self.nind, self.nloci), float(MISSING))
-            for sh, win in self._live():
-                host[sh.r0:sh.r1, sh.c0:sh.w1] = win.cpu().numpy()
+            for sh, win in self._gather(lambda sh: (0, sh.nw), "windows"):
+                host[sh.r0:sh.r1, sh.c0:sh.w1] = win
             self._host = host
         return self._host
 
     def thinned(self, step: int) -> np.ndarray:
         """win[:, ::step] in f64 on the host (see thinned_block)."""
         out = np.empty((self.nind, -(-self.nwin // step)))
-        for sh, win in self._live():
-            k0 = -(-sh.c0 // step)  # the shard's first start on the grid
-            part = win[:, k0 * step - sh.c0::step].cpu().numpy()
+
+        def cols(sh):  # from the shard's first start on the grid
+            return (-(-sh.c0 // step) * step - sh.c0, max(sh.nw, 0), step)
+        for sh, part in self._gather(cols, "windows"):
+            k0 = -(-sh.c0 // step)
             out[sh.r0:sh.r1, k0:k0 + part.shape[1]] = part
         return out
 
-    def _window_cols(self, d: int, lo: int, hi: int, device):
+    def _window_cols(self, d: int, lo: int, hi: int, device, tails=None):
         """Windows of starts [lo, hi) of row block d on `device`, copied
-        from the shards that own them."""
-        parts = [win[:, max(lo, sh.c0) - sh.c0:min(hi, sh.w1) - sh.c0]
-                 .to(device) for sh, win in self._live()
-                 if sh.d == d and min(hi, sh.w1) > max(lo, sh.c0)]
+        from the shards that own them; tails: {(d, s): (first start,
+        host array)} of other processes' cells (coverage's exchange)."""
+        held = dict(self._live())
+        parts = []
+        for sh in self.shards:
+            a, b = max(lo, sh.c0), min(hi, sh.w1)
+            if sh.d != d or b <= a or not sh.present:
+                continue
+            if sh.own:
+                parts.append(held[sh][:, a - sh.c0:b - sh.c0].to(device))
+            else:
+                t0, tail = tails[(sh.d, sh.s)]
+                parts.append(torch.from_numpy(
+                    np.ascontiguousarray(tail[:, a - t0:b - t0])).to(device))
         if not parts:
             rows = next(sh.rows for sh in self.shards if sh.d == d)
             return torch.empty((rows, 0), dtype=torch.float32, device=device)
@@ -117,17 +159,27 @@ class DeviceWin:
         """Enqueue the plain-torch coverage program (see covered_dispatch)
         per shard, over its own window starts with the W windows left of
         them from its left neighbours (the coverage of its first locus
-        and of the one before it)."""
+        and of the one before it).  When a row block's cells belong to
+        several processes, every cell's last W windows are gathered
+        first (the left neighbours of another process's cells)."""
+        tails = None
+        if any(len({sh.owner for sh in self.shards
+                    if sh.d == d and sh.present}) > 1
+               for d in {sh.d for sh in self.shards}):
+            def cols(sh):
+                return (max(0, sh.nw - winsize), max(sh.nw, 0))
+            tails = {(sh.d, sh.s): (sh.c0 + cols(sh)[0], win)
+                     for sh, win in self._gather(cols, "window-halo")}
         pieces = []
         for sh, _ in self._live():
             lo = max(0, sh.c0 - winsize)
             hi = max(lo, min(sh.c1, self.nwin))
-            win = self._window_cols(sh.d, lo, hi, sh.device)
+            win = self._window_cols(sh.d, lo, hi, sh.device, tails)
             pieces.append(_coverage(win, lo, sh.c0, sh.n, sh.nw, cutoff,
                                     threshold,
                                     self.tie_band(tie_delta, sh.device),
                                     winsize, sh.r0))
-        return Coverage(pieces, self.nind, self.nloci, self.nwin)
+        return Coverage(pieces, self.nind, self.nloci, self.nwin, self.group)
 
     def tie_band(self, tie_delta, device):
         """The tie band on `device`: tie_delta, times the device scalar
@@ -206,7 +258,7 @@ class FusedCov:
 
     @property
     def nind(self) -> int:
-        return self.chrom.nind
+        return self.chrom.nind_global
 
     @property
     def nloci(self) -> int:
@@ -255,11 +307,13 @@ class _Piece:
 @dataclass
 class Coverage:
     """A covered_dispatch handle: the pieces of one chromosome
-    [nind, nloci] (nwin window starts), one per shard."""
+    [nind, nloci] (nwin window starts), one per shard this process owns;
+    group: the mesh's multihost.Group (None: one process)."""
     pieces: list
     nind: int
     nloci: int
     nwin: int
+    group: object = None
 
 
 def _coverage(win: torch.Tensor, first: int, c0: int, n: int, nw: int,
@@ -394,30 +448,44 @@ def covered_fetch(handle: Coverage):
     for a covered_dispatch handle (covered_fetch, device_win.py:724).
     Each piece's payload is fetched and its indices moved to the
     chromosome's rows and columns; the pieces of several shards are then
-    merged into row-major order."""
+    merged into row-major order.  Across processes every process's
+    payloads are gathered first (each behind its piece's r0, c0, rows,
+    n, nw and length), so every process gets every row."""
     I, L, nwin = handle.nind, handle.nloci, handle.nwin
+    got = [(p.r0, p.c0, p.cov.shape[0], p.cov.shape[1], p.susw.shape[1],
+            _edges_payload(p.cov, p.susw, p.above, p.prev))
+           for p in handle.pieces]
+    if handle.group is not None and handle.group.size > 1:
+        flat = np.concatenate([np.concatenate([[*g[:5], g[5].size], g[5]])
+                               for g in got] + [np.zeros(0, np.int64)])
+        got = []
+        for buf in handle.group.allgather_varlen(flat.astype(np.int64),
+                                                 "edges"):
+            o = 0
+            while o < buf.size:
+                r0, c0, rows, n, nw, k = (int(v) for v in buf[o:o + 6])
+                got.append((r0, c0, rows, n, nw, buf[o + 6:o + 6 + k]))
+                o += 6 + k
     last = np.zeros(I, dtype=bool)
     sus = np.zeros(I, dtype=bool)
     none = np.zeros(0, dtype=np.int64)  # a chromosome with no piece
     edges, sidx, sside = [none], [none], [none.astype(bool)]
-    for p in handle.pieces:
-        rows, n = p.cov.shape
-        nw = max(p.susw.shape[1], 1)
-        m = _edges_payload(p.cov, p.susw, p.above, p.prev)
+    for r0, c0, rows, n, nw, m in got:
+        nw = max(nw, 1)
         nedge, nsusw = int(m[0]), int(m[1])
         o = 2
-        if p.c0 + n == L:
-            last[p.r0:p.r0 + rows] = m[o:o + rows].astype(bool)
-        sus[p.r0:p.r0 + rows] |= m[o + rows:o + 2 * rows].astype(bool)
+        if c0 + n == L:
+            last[r0:r0 + rows] = m[o:o + rows].astype(bool)
+        sus[r0:r0 + rows] |= m[o + rows:o + 2 * rows].astype(bool)
         o += 2 * rows
         s = m[o:o + nsusw]
-        sidx.append((p.r0 + s // nw) * max(nwin, 1) + p.c0 + s % nw)
+        sidx.append((r0 + s // nw) * max(nwin, 1) + c0 + s % nw)
         sside.append(m[o + nsusw:o + 2 * nsusw].astype(bool))
         o += 2 * nsusw
         e = m[o:o + nedge]
-        edges.append((p.r0 + e // max(n, 1)) * L + p.c0 + e % max(n, 1))
+        edges.append((r0 + e // max(n, 1)) * L + c0 + e % max(n, 1))
     edges, sidx, sside = (np.concatenate(x) for x in (edges, sidx, sside))
-    if len(handle.pieces) > 1:
+    if len(got) > 1:
         edges.sort()
         order = np.argsort(sidx, kind="stable")
         sidx, sside = sidx[order], sside[order]

@@ -132,7 +132,8 @@ def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
 
 def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
            var0: np.ndarray, device, max_iter: int = 1000,
-           precision: float = 1e-5) -> GMMResult:
+           precision: float = 1e-5, n: int = None,
+           reduce=None) -> GMMResult:
     """GMM-EM in f64 over the f64 tensors `shards` (the points, split over
     devices), the parameters on `device`.
 
@@ -142,17 +143,22 @@ def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
     parameters.  The loop stops on |ll - last_ll| <= precision (conv),
     on non-finite parameters (bad, raised below) or at max_iter, and
     last_ll keeps its value on the iteration that stops, as the
-    while_loop's carry of garlic_tpu/parallel/engine.py:374-397 does."""
-    n = sum(int(x.shape[0]) for x in shards)
+    while_loop's carry of garlic_tpu/parallel/engine.py:374-397 does.
+    n: the number of points (the shards' when None); reduce: maps the
+    shards' sums to every shard's of the run, in order and on `device`
+    (a run over several processes holds only its own shards)."""
+    if n is None:
+        n = sum(int(x.shape[0]) for x in shards)
     w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(device)
                   for a in (w0, mu0, var0))
     last_ll = ll = -np.finfo(np.float64).max
     it, done = 0, False
     while not done and it < max_iter:
+        parts = [_em_stats(x, w.to(x.device), mu.to(x.device),
+                           var.to(x.device)) for x in shards]
         s = None
-        for x in shards:
-            d = x.device
-            part = _em_stats(x, w.to(d), mu.to(d), var.to(d)).to(device)
+        for part in (reduce(parts) if reduce is not None
+                     else [p.to(device) for p in parts]):
             s = part if s is None else s + part
         s0, s1, s2 = s[:k], s[k:2 * k], s[2 * k:3 * k]
         w, mu = s0 / float(n), s1 / s0

@@ -34,8 +34,14 @@ and the uploads are blocking copies from pageable host memory).
 
 Computed halos (window columns, pair-band columns, the tie scale) are
 device-to-device copies; on one card they are copies within it.
-Allele frequencies are not sharded: a single-host run holds the whole
-panel, so they come from the host load.
+
+Across processes (parallel/multihost.py) each process launches only the
+cells of the mesh it owns (Shard.live), over the rows it holds: the
+whole panel, or its own dp rows (chrom.row0 onwards) on a per-process
+load.  The float partials of Phase II and IV are gathered from every
+process and added in shard order on each (so their bits are the one
+process's); the LD pair counts and the allele-frequency counts, exact
+integers, are summed by all_reduce, and the tie scale is a max.
 """
 
 from __future__ import annotations
@@ -88,7 +94,10 @@ def full_window_missing(positions: np.ndarray, winsize: int, max_gap: int,
 @dataclass(frozen=True)
 class Shard:
     """Cell (d, s) of the mesh for one chromosome: rows [r0, r1), its own
-    loci [c0, c1) and own window starts [c0, w1), on `device`."""
+    loci [c0, c1) and own window starts [c0, w1), on `device`; owner:
+    the rank of the process that launches it, own: whether that is this
+    process; row0: the first row of the host panel it is sliced from (a
+    per-process load holds rows row0..)."""
     d: int
     s: int
     device: torch.device
@@ -97,6 +106,9 @@ class Shard:
     c0: int
     c1: int
     w1: int
+    owner: int = 0
+    own: bool = True
+    row0: int = 0
 
     @property
     def rows(self) -> int:
@@ -111,8 +123,23 @@ class Shard:
         return self.w1 - self.c0
 
     @property
-    def live(self) -> bool:
+    def present(self) -> bool:
+        """The cell holds rows and loci (on whichever process)."""
         return self.rows > 0 and self.n > 0
+
+    @property
+    def live(self) -> bool:
+        """This process launches the cell, which holds rows and loci."""
+        return self.own and self.present
+
+    @property
+    def h0(self) -> int:
+        """The cell's first row in the host panel."""
+        return self.r0 - self.row0
+
+    @property
+    def h1(self) -> int:
+        return self.r1 - self.row0
 
     def block(self, left: int, right: int, nloci: int):
         """(a, b): the loci [a, b) of the own range with `left` loci of
@@ -124,14 +151,17 @@ class Shard:
                 min(nloci, self.c1 + right))
 
 
-def shard_blocks(nind: int, nloci: int, mesh, winsize: int) -> List[Shard]:
+def shard_blocks(nind: int, nloci: int, mesh, winsize: int,
+                 row0: int = 0) -> List[Shard]:
     """Every cell of `mesh` for an [nind, nloci] chromosome, dp-major.
     The layout is garlic_tpu's: each axis is rounded up to a multiple of
     its mesh axis (pad_for_mesh, garlic_tpu/parallel/engine.py:862), so
     each shard's slot is ceil(nind / dp) rows by ceil(nloci / sp) loci;
     nothing is padded, so the last shards of an axis are short, or
     empty.  A mesh with sp > 1 must hold winsize-1 loci per shard
-    (check_halo_fits)."""
+    (check_halo_fits).  row0: the first row of this process's host
+    panel, rows row0.. of the nind (0 when it holds them all): the
+    extents of pad_local_for_mesh (:886), with no pad rows."""
     n_dp, n_sp = mesh.shape[AXIS_DP], mesh.shape[AXIS_SP]
     per_i, per_l = -(-nind // n_dp), -(-nloci // n_sp)
     if n_sp > 1:
@@ -145,15 +175,16 @@ def shard_blocks(nind: int, nloci: int, mesh, winsize: int) -> List[Shard]:
             c0 = min(s * per_l, nloci)
             c1 = min(c0 + per_l, nloci)
             out.append(Shard(d, s, mesh.devices[d, s], r0, r1, c0, c1,
-                             max(c0, min(c1, nwin))))
+                             max(c0, min(c1, nwin)), int(mesh.owner[d, s]),
+                             mesh.owns(d, s), row0))
     return out
 
 
 class _Block:
-    """Rows [r0, r1) and loci [a, b) of a chromosome (a a multiple of 4),
-    with what cuda_lod's input builders read of a chromosome: the 2-bit
-    codes (a byte slice of pk, the chromosome's packed codes), freq and
-    the TGLS error plane."""
+    """Rows [r0, r1) of the host panel and loci [a, b) of a chromosome
+    (a a multiple of 4), with what cuda_lod's input builders read of a
+    chromosome: the 2-bit codes (a byte slice of pk, the chromosome's
+    packed codes), freq and the TGLS error plane."""
 
     geno_is_packed_only = True
 
@@ -209,11 +240,10 @@ def lod_windows_sharded(chrom, centro, winsize: int, error: float,
     Adapted from garlic_tpu/parallel/engine.py:449 and its step,
     make_sharded_lod_fn (:498): a kernel launch per shard in place of a
     jitted shard_map step and of the XLA window sums, halos from the
-    host panel in place of ppermute, no padding, and no per-host
-    column-range load."""
+    host panel in place of ppermute, and no padding."""
     W = winsize
-    I, L = chrom.nind, chrom.nloci
-    shards = shard_blocks(I, L, mesh, W)
+    I, L = chrom.nind_global, chrom.nloci
+    shards = shard_blocks(I, L, mesh, W, chrom.row0)
     miss = _missing(chrom, centro, W, max_gap)
     pk = cuda_lod.packed_host(chrom)
     blocks = {}
@@ -225,14 +255,14 @@ def lod_windows_sharded(chrom, centro, winsize: int, error: float,
                               device=sh.device)
         else:
             a, b = sh.block(0, W - 1, L)
-            inp = _shard_inputs(_Block(chrom, pk, sh.r0, sh.r1, a, b), W,
+            inp = _shard_inputs(_Block(chrom, pk, sh.h0, sh.h1, a, b), W,
                                 error, use_gl, miss[a:b - W + 1], sh.device)
             win = (cuda_lod.window_sums if use_gl
                    else cuda_lod.lod_windows)(*inp, W)
             win = win[:, sh.c0 - a:sh.c0 - a + sh.nw]
         blocks[(sh.d, sh.s)] = win
     return DeviceWin(nind=I, nloci=L, nwin=max(L - W + 1, 0), shards=shards,
-                     blocks=blocks)
+                     blocks=blocks, group=mesh.group)
 
 
 def covered_sharded(fc, cutoff: float, winsize: int, threshold: float,
@@ -245,24 +275,21 @@ def covered_sharded(fc, cutoff: float, winsize: int, threshold: float,
     garlic_tpu/ops/device_win.py:599, per shard).  None for float-form
     TGLS: the caller takes the split path, as device_win.py:634-637
     does.  A chromosome shorter than the window has no windows and so
-    nothing covered."""
+    no piece: nothing is covered."""
     c, W = fc.chrom, winsize
     if fc.use_gl and c.gl_codes is None:
         return None
-    I, L = c.nind, c.nloci
+    I, L = c.nind_global, c.nloci
     nwin = L - W + 1
+    group = fc.mesh.group
     if nwin <= 0:
-        dev = fc.mesh.first
-        z = torch.zeros((I, 0), dtype=torch.uint8, device=dev)
-        return Coverage([_Piece(torch.zeros((I, L), dtype=torch.uint8,
-                                            device=dev), z, z, None, 0, 0)],
-                        I, L, 0)
+        return Coverage([], I, L, 0, group)
     miss = _missing(c, fc.centro, W, fc.max_gap)
     pk = cuda_lod.packed_host(c)
     pieces = [covered_shard(fc, sh, pk, miss, cutoff, W, threshold,
                             tie_delta)
-              for sh in shard_blocks(I, L, fc.mesh, W) if sh.live]
-    return Coverage(pieces, I, L, nwin)
+              for sh in shard_blocks(I, L, fc.mesh, W, c.row0) if sh.live]
+    return Coverage(pieces, I, L, nwin, group)
 
 
 def covered_shard(fc, sh: Shard, pk: np.ndarray, miss: np.ndarray,
@@ -272,7 +299,7 @@ def covered_shard(fc, sh: Shard, pk: np.ndarray, miss: np.ndarray,
     chromosome's packed codes, miss its full_window_missing mask."""
     W, L = winsize, fc.chrom.nloci
     a, b = sh.block(W, W - 1, L)
-    inp = _shard_inputs(_Block(fc.chrom, pk, sh.r0, sh.r1, a, b), W,
+    inp = _shard_inputs(_Block(fc.chrom, pk, sh.h0, sh.h1, a, b), W,
                         fc.error, fc.use_gl, miss[a:b - W + 1], sh.device)
     cov, susw, above = (cuda_lod.covered_terms if fc.use_gl
                         else cuda_lod.covered)(*inp, W, cutoff, threshold,
@@ -286,14 +313,15 @@ def covered_shard(fc, sh: Shard, pk: np.ndarray, miss: np.ndarray,
 def shard_holdings(c, winsize: int, planes: bool, mesh) -> dict:
     """Bytes each device holds for chromosome c between its dispatch and
     its fetch, summed over the shards it holds (a device listed twice
-    counts both): the fused route's three u8 planes over each shard's
-    block (planes: covered over its loci, suspect and above over its
-    window starts), else the f32 windows of its own starts.  Transient
-    inputs and the coverage program's temporaries are not counted: the
-    other half of the budget is theirs, as in garlic_tpu's gate."""
+    counts both; the cells of other processes are theirs): the fused
+    route's three u8 planes over each shard's block (planes: covered
+    over its loci, suspect and above over its window starts), else the
+    f32 windows of its own starts.  Transient inputs and the coverage
+    program's temporaries are not counted: the other half of the budget
+    is theirs, as in garlic_tpu's gate."""
     W = winsize
     out = {}
-    for sh in shard_blocks(c.nind, c.nloci, mesh, W):
+    for sh in shard_blocks(c.nind_global, c.nloci, mesh, W, c.row0):
         if not sh.live:
             continue
         if planes:
@@ -310,18 +338,42 @@ def shard_holdings(c, winsize: int, planes: bool, mesh) -> dict:
 # ---------------------------------------------------------------------------
 
 def _split(n: int, mesh):
-    """(device, start, stop) of each shard of n points over every device
-    of the mesh, dp-major, empty shards left out."""
+    """(device, start, stop, owner) of each shard of n points over every
+    device of the mesh, dp-major, empty shards left out; owner: the rank
+    of the process that computes it."""
     devs = mesh.devices.reshape(-1)
+    owner = mesh.owner.reshape(-1)
     per = -(-n // len(devs))
-    return [(dev, k * per, min(n, (k + 1) * per))
+    return [(dev, k * per, min(n, (k + 1) * per), int(owner[k]))
             for k, dev in enumerate(devs) if k * per < n]
+
+
+def _gathered(parts: list, owners: list, width: int, mesh, tag: str
+              ) -> list:
+    """Every shard's [width] f64 partial, in shard order, on the mesh's
+    first device: this process's own `parts` (its shards in order) and,
+    across processes, every other process's, gathered as host arrays in
+    one allgather (owners: each shard's owner rank, so every process
+    knows how many partials each sends).  The mesh is laid
+    process-major, so the processes' shards in rank order are the
+    shards in order."""
+    group, device = mesh.group, mesh.first
+    if group.size == 1:
+        return [p.to(device) for p in parts]
+    counts = [owners.count(r) for r in range(group.size)]
+    mine = np.zeros((max(counts), width), dtype=np.float64)
+    if parts:
+        mine[:len(parts)] = torch.stack(parts).cpu().numpy()
+    return [torch.from_numpy(row.copy()).to(device)
+            for r, block in enumerate(group.allgather(mine, tag))
+            for row in block[:counts[r]]]
 
 
 def gauss_transform_sharded(sources, targets, h, mesh) -> np.ndarray:
     """sum_j exp(-(x_j - t)^2 / h^2) at each target, as per-shard partial
     transforms (ops/kde.gauss_sums, on each shard's device) added on the
-    mesh's first device in shard order: the Phase-II reduction.  Returns
+    mesh's first device in shard order: the Phase-II reduction (across
+    processes, every shard's partial added on every process).  Returns
     the raw transform (no 1/n weighting) as [M] float64.
 
     Adapted from garlic_tpu/parallel/engine.py:250: no 1e30 sentinels
@@ -329,11 +381,14 @@ def gauss_transform_sharded(sources, targets, h, mesh) -> np.ndarray:
     from ..ops.kde import gauss_sums
     sources = np.asarray(sources)
     n = int(sources.shape[0])
+    M = int(np.asarray(targets).shape[0])
     if n == 0:
-        return np.zeros(int(np.asarray(targets).shape[0]), dtype=np.float64)
+        return np.zeros(M, dtype=np.float64)
+    split = _split(n, mesh)
+    parts = [gauss_sums(sources[lo:hi], targets, h, dev)
+             for dev, lo, hi, r in split if r == mesh.group.rank]
     acc = None
-    for dev, lo, hi in _split(n, mesh):
-        part = gauss_sums(sources[lo:hi], targets, h, dev).to(mesh.first)
+    for part in _gathered(parts, [r for *_, r in split], M, mesh, "kde"):
         acc = part if acc is None else acc + part
     return acc.cpu().numpy()
 
@@ -342,7 +397,8 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
                     precision: float = 1e-5):
     """Phase-IV GMM-EM over the mesh: the lengths split over every shard,
     each f64 iteration's packed sums added on the mesh's first device in
-    shard order (ops/gmm.fit_em), with fit_gmm's convergence test and
+    shard order (ops/gmm.fit_em; across processes, every shard's sums
+    gathered each iteration), with fit_gmm's convergence test and
     FloatingPointError on a collapsed component.  CUDA runs f64, so
     there is no host-EM fallback.
 
@@ -351,9 +407,69 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
     line (select_size_classes prints it)."""
     from ..ops.gmm import fit_em
     x = np.ascontiguousarray(x, dtype=np.float64)
+    split = _split(x.shape[0], mesh)
     shards = [torch.from_numpy(x[lo:hi]).to(dev)
-              for dev, lo, hi in _split(x.shape[0], mesh)]
-    return fit_em(shards, k, w0, mu0, var0, mesh.first, max_iter, precision)
+              for dev, lo, hi, r in split if r == mesh.group.rank]
+    owners = [r for *_, r in split]
+    return fit_em(shards, k, w0, mu0, var0, mesh.first, max_iter, precision,
+                  n=x.shape[0],
+                  reduce=lambda parts: _gathered(parts, owners, 3 * k + 1,
+                                                 mesh, "em"))
+
+
+# ---------------------------------------------------------------------------
+# Allele frequencies across processes
+# ---------------------------------------------------------------------------
+
+def _freq_from_counts(num: np.ndarray, den: np.ndarray) -> np.ndarray:
+    """num / den in f64 where den > 0, else 0 (loadTPEDData's
+    nalleles / total, src/garlic-data.cpp:109-160)."""
+    num = num.astype(np.float64)
+    den = den.astype(np.float64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(den > 0, num / den, 0.0)
+
+
+def allele_freq_counts_sharded(num, den, mesh) -> np.ndarray:
+    """Global allele frequencies from each process's partial count
+    planes (the [L] '1'-allele and observed-allele counts over the rows
+    it parsed, integer-valued f64 from the column-range parser): the
+    counts summed exactly over the processes, then one division, so the
+    frequencies are the full parse's bit for bit.
+
+    Adapted from garlic_tpu/parallel/engine.py:169: an int64 all_reduce
+    over the process group in place of a psum over dp."""
+    counts = np.stack([np.asarray(num), np.asarray(den)]).astype(np.int64)
+    counts = mesh.group.sum_int(counts, "freq")
+    return _freq_from_counts(counts[0], counts[1])
+
+
+def allele_freq_sharded(geno, mesh) -> np.ndarray:
+    """Allele frequencies of an [I, L] int8 genotype panel (-9 missing)
+    over the mesh: each shard this process owns counts the '1' alleles
+    (g copies of it per genotype g in {0, 1, 2}) and the observed alleles
+    (2 per called genotype) of its rows and loci on its device, in int64;
+    the counts are summed over dp and over the processes, then divided
+    once in f64.  Returns [L] f64.
+
+    Adapted from garlic_tpu/parallel/engine.py:131: exact integer counts
+    and an f64 division in place of the f32 psum of _freq_block."""
+    geno = np.asarray(geno)
+    I, L = geno.shape
+    counts = np.zeros((2, L), dtype=np.int64)
+    for sh in shard_blocks(I, L, mesh, 1):
+        if not sh.live:
+            continue
+        g = torch.from_numpy(np.ascontiguousarray(
+            geno[sh.r0:sh.r1, sh.c0:sh.c1])).to(sh.device)
+        valid = g >= 0
+        counts[0, sh.c0:sh.c1] += torch.where(
+            valid, g, torch.zeros_like(g)).sum(0, dtype=torch.int64).cpu(
+            ).numpy()
+        counts[1, sh.c0:sh.c1] += 2 * valid.sum(0, dtype=torch.int64).cpu(
+            ).numpy()
+    counts = mesh.group.sum_int(counts, "freq")
+    return _freq_from_counts(counts[0], counts[1])
 
 
 # ---------------------------------------------------------------------------
@@ -366,62 +482,93 @@ def _add(acc, part: torch.Tensor, device) -> torch.Tensor:
     return part if acc is None else acc.add_(part)
 
 
+def _column_counts(chrom, pk, col, a: int, b: int, W: int, phased: bool,
+                   sub, dev0):
+    """The pair counts (T, X) int32 [W, b-a] of the LD subsample's rows
+    and, unphased, the homozygosity counts (tot, hom) int32 [b-a] over
+    all rows, of this process's cells of one sp column (`col`, dp
+    order), summed on dev0; zeros when it owns none of them."""
+    T = X = tot = hom = None
+    for sh in col:  # dp order
+        if not sh.live:
+            continue
+        pkd = cuda_lod._upload(pk[sh.h0:sh.h1, a // 4:(b + 3) // 4],
+                               sh.device)
+        C = dw._row_chunks(sh.rows, hbm_budget(sh.device), b - a,
+                           dw._COUNT_BYTES)
+        fc = (np.asarray(chrom.first_copy[sh.h0:sh.h1, a:b], dtype=bool)
+              if phased else None)
+        pks = pkd
+        if sub is not None:  # the subsample's rows of this shard
+            rows = sub[(sub >= sh.r0) & (sub < sh.r1)] - sh.r0
+            pks = pkd.index_select(0, cuda_lod._upload(rows, sh.device))
+            fc = None if fc is None else fc[rows]
+        t, x = dw._pair_counts_chunked(pks, fc, b - a, W, C)
+        T, X = _add(T, t, dev0), _add(X, x, dev0)
+        if not phased:
+            t, h = dw._hom_counts_chunked(pkd, b - a, C)
+            tot, hom = _add(tot, t, dev0), _add(hom, h, dev0)
+    if T is None:
+        T = torch.zeros((W, b - a), dtype=torch.int32, device=dev0)
+        X = torch.zeros_like(T)
+        tot = hom = None if phased else torch.zeros(
+            b - a, dtype=torch.int32, device=dev0)
+    return T, X, tot, hom
+
+
 def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
                     ) -> dict:
     """The LD band over the mesh: {(d, s): [nw, W] f32, the band rows of
-    shard (d, s)'s own window starts, on its device} (calcLDData's
-    per-chromosome step, garlic_tpu/ops/device_wlod.py:159): pair counts
-    over the LD subsample's rows (all rows when sub_idx is None), HR^2
-    marginals over the full panel (unphased) or r^2 from the first-copy
-    bits and the allele frequencies (phased).
+    shard (d, s)'s own window starts, on its device}, for the cells this
+    process owns (calcLDData's per-chromosome step,
+    garlic_tpu/ops/device_wlod.py:159): pair counts over the LD
+    subsample's rows (all rows when sub_idx is None), HR^2 marginals
+    over the full panel (unphased) or r^2 from the first-copy bits and
+    the allele frequencies (phased).
 
     For each sp column, every dp shard uploads the 2-bit codes of its
     rows over the column's loci plus the next W-1 and counts, as int32
     over row chunks sized by the device budget, its LD-subsample rows'
     pairs (and, unphased, the homozygosity marginals over all its rows);
-    the counts are summed over dp on the column's first device, so the
-    pair band of the own loci is the 1x1 mesh's bit for bit.  The band
-    assembly reads the pair band W-1 loci to the right, copied from the
-    right neighbours' devices, and its rows go to every dp shard of the
-    column.
+    the counts are summed over dp on the column's first device, and
+    across processes by an exact all_reduce, so the pair band of the own
+    loci is the 1x1 mesh's bit for bit.  The band assembly reads the
+    pair band W-1 loci to the right, copied from the right neighbours'
+    devices, and its rows go to every dp shard of the column.  A process
+    that owns no cell of a column still makes the column's pair band,
+    from the summed counts, on its first device: its left neighbour's
+    halo may need it (sp across processes), so the halo is recomputed
+    there, never sent.
 
     Adapted from garlic_tpu/parallel/engine.py:575: int32 counts in
     place of the f32 psum, the column halo from the host panel, and a
     right halo of the pair band in place of the row halos of (S, D)."""
     W = winsize
-    I, L = chrom.nind, chrom.nloci
-    shards = shard_blocks(I, L, mesh, W)
-    n_dp, n_sp = mesh.shape[AXIS_DP], mesh.shape[AXIS_SP]
+    I, L = chrom.nind_global, chrom.nloci
+    shards = shard_blocks(I, L, mesh, W, chrom.row0)
+    n_sp = mesh.shape[AXIS_SP]
+    group = mesh.group
     pk = cuda_lod.packed_host(chrom)
     sub = None if sub_idx is None else np.asarray(sub_idx, dtype=np.int64)
-    pair = {}   # s -> pair band [W, n] of the column's own loci
+    pair, home = {}, {}  # s -> pair band [W, n] of the column's own loci
     for s in range(n_sp):
         col = [sh for sh in shards if sh.s == s]
         head = col[0]
         if head.n <= 0:
             continue
         a, b = head.block(0, W - 1, L)
-        dev0 = head.device
-        T = X = tot = hom = None  # the column's sums, on dev0
-        for sh in col:  # dp order
-            if not sh.rows:
-                continue
-            pkd = cuda_lod._upload(pk[sh.r0:sh.r1, a // 4:(b + 3) // 4],
-                                   sh.device)
-            C = dw._row_chunks(sh.rows, hbm_budget(sh.device), b - a,
-                               dw._COUNT_BYTES)
-            fc = (np.asarray(chrom.first_copy[sh.r0:sh.r1, a:b], dtype=bool)
-                  if phased else None)
-            pks = pkd
-            if sub is not None:  # the subsample's rows of this shard
-                rows = sub[(sub >= sh.r0) & (sub < sh.r1)] - sh.r0
-                pks = pkd.index_select(0, cuda_lod._upload(rows, sh.device))
-                fc = None if fc is None else fc[rows]
-            t, x = dw._pair_counts_chunked(pks, fc, b - a, W, C)
-            T, X = _add(T, t, dev0), _add(X, x, dev0)
+        mine = [sh for sh in col if sh.own]
+        dev0 = home[s] = mine[0].device if mine else mesh.first
+        T, X, tot, hom = _column_counts(chrom, pk, col, a, b, W, phased,
+                                        sub, dev0)
+        if group.size > 1:  # exact int32 sums over the processes
+            T, X = (torch.from_numpy(group.sum_int(t.cpu().numpy(),
+                                                   "ld-pairs")).to(dev0)
+                    for t in (T, X))
             if not phased:
-                t, h = dw._hom_counts_chunked(pkd, b - a, C)
-                tot, hom = _add(tot, t, dev0), _add(hom, h, dev0)
+                th = group.sum_int(torch.stack([tot, hom]).cpu().numpy(),
+                                   "ld-hom")
+                tot, hom = (torch.from_numpy(v.copy()).to(dev0) for v in th)
         hf = freq = None
         if phased:
             freq = cuda_lod._upload(
@@ -433,7 +580,10 @@ def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
     bands = {}
     for s in pair:
         head = shards[s]
-        dev0 = head.device
+        cells = [sh for sh in shards if sh.s == s and sh.own]
+        if not cells:
+            continue
+        dev0 = home[s]
         if head.nw <= 0:
             band = torch.empty((0, W), dtype=torch.float32, device=dev0)
         else:
@@ -445,8 +595,8 @@ def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
                     parts.append(pair[s2][:, :stop - nb.c0].to(dev0))
             P = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
             band = dw._assemble_band(P, W)[:, :head.nw].T
-        for d in range(n_dp):
-            bands[(d, s)] = band.to(mesh.devices[d, s])
+        for sh in cells:
+            bands[(sh.d, s)] = band.to(sh.device)
     return bands
 
 
@@ -463,15 +613,16 @@ def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
     of its rows and of its loci plus the next W-1: gathered on the
     device from the per-class table (scalar error, in row chunks sized
     by the device budget) or the host's f64 TGLS score plane shipped as
-    f32.  The tie scale is the max over the shards (a pmax).
+    f32.  The tie scale is the max over the shards (a pmax), and over
+    the processes.
 
     Adapted from garlic_tpu/parallel/engine.py:769: the score halo from
     the host panel in place of ppermute, no padding."""
     from ..ops.lod import window_missing_mask
     from ..ops.wlod import wlod_scores
     W = winsize
-    I, L = chrom.nind, chrom.nloci
-    shards = shard_blocks(I, L, mesh, W)
+    I, L = chrom.nind_global, chrom.nloci
+    shards = shard_blocks(I, L, mesh, W, chrom.row0)
     nwin = max(L - W + 1, 0)
     pk = cuda_lod.packed_host(chrom)
     if use_gl:
@@ -493,13 +644,13 @@ def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
             o = sh.c0 - a
             inv_ld = 1.0 / bands[(sh.d, sh.s)]
             if use_gl:
-                sc = cuda_lod._upload(score[sh.r0:sh.r1, sh.c0:b], dev)
+                sc = cuda_lod._upload(score[sh.h0:sh.h1, sh.c0:b], dev)
                 _, t = dw._wlod_windows_dev(
                     sc, inv_ld, cuda_lod._upload(miss[sh.c0:sh.w1], dev), W,
                     out=win)
                 scales.append(t.to(mesh.first))
             else:
-                pkb = cuda_lod._upload(pk[sh.r0:sh.r1, a // 4:(b + 3) // 4],
+                pkb = cuda_lod._upload(pk[sh.h0:sh.h1, a // 4:(b + 3) // 4],
                                        dev)
                 ax = cuda_lod._upload(aux[:, a:b], dev)
                 C = dw._row_chunks(sh.rows, hbm_budget(dev), b - a,
@@ -513,5 +664,11 @@ def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
                     scales.append(t.to(mesh.first))
         blocks[(sh.d, sh.s)] = win
     tie_scale = torch.stack(scales).amax() if scales else None
+    if mesh.group.size > 1:  # the max over the processes' scales
+        t = np.array([-np.inf if tie_scale is None else
+                      float(tie_scale)], dtype=np.float32)
+        t = float(mesh.group.max(t, "tie-scale")[0])
+        tie_scale = None if t == -np.inf else torch.tensor(
+            t, dtype=torch.float32, device=mesh.first)
     return DeviceWin(nind=I, nloci=L, nwin=nwin, shards=shards,
-                     blocks=blocks, tie_scale=tie_scale)
+                     blocks=blocks, tie_scale=tie_scale, group=mesh.group)

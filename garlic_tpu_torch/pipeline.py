@@ -23,16 +23,18 @@ half the device budget, Phase I streams: one chromosome at a time is
 made, counted and dropped.  Phase II pools the exact engine's f64
 windows on both engines (the fast engine through _exact_thinned_samples
 and the pool cache), so the .kde x column is the same on both.
-The fast engine runs over a parallel.mesh.Mesh driven from this one
-process (parallel/engine.py): --tpu-mesh DPxSP (or auto) lays it over
-several devices of this host, else it is the 1x1 mesh over one device;
-individuals over dp, loci over sp, the kernels per shard, the Phase-II
-transform and the Phase-IV EM reduced over the shards, so every mesh
-gives the 1x1 mesh's outputs.  Multi-host runs exit 1
-with one stderr line pointing to `python -m garlic_tpu`; nothing runs
-silently on another path.  The package imports nothing of garlic_tpu:
-the host code it shares with it is its own copy (cli, io/, core/,
-native/, ops/).
+The fast engine runs over a parallel.mesh.Mesh (parallel/engine.py):
+--tpu-mesh DPxSP (or auto) lays it over several devices, else it is the
+1x1 mesh over one device; individuals over dp, loci over sp, the kernels
+per shard, the Phase-II transform and the Phase-IV EM reduced over the
+shards, so every mesh gives the 1x1 mesh's outputs.  With the
+GARLIC_TPU_COORD / NUM_PROCS / PROC_ID variables the run is one of
+several cooperating processes (parallel/multihost.py: a gloo process
+group): the mesh spans every process's devices, each process launches
+its own cells, a dp-aligned layout loads only the process's own rows,
+and process N > 0 writes <out>.procN.*, every process the whole BED.
+The package imports nothing of garlic_tpu: the host code it shares
+with it is its own copy (cli, io/, core/, native/, ops/).
 """
 
 from __future__ import annotations
@@ -57,38 +59,34 @@ from .ops import ld as ld_ops
 from .ops import lod as lod_ops
 from .ops import wiggle as wiggle_ops
 from .ops import wlod as wlod_ops
+from .parallel import multihost
 from .parallel.mesh import factor_devices, make_mesh
 from .version import OUTPUT_COMPAT_VERSION
 
 AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
 
-_MULTIHOST_ENV = ("GARLIC_TPU_COORD", "GARLIC_TPU_NUM_PROCS",
-                  "GARLIC_TPU_PROC_ID")
 
-
-def _not_ported_msg(what: str) -> str:
-    return (f"ERROR: {what} is not yet ported to garlic_tpu_torch; "
-            "run it with python -m garlic_tpu")
-
-
-def _unported(args: ParsedArgs) -> Optional[str]:
-    """The first requested configuration outside the port, or None."""
-    if any(os.environ.get(v) for v in _MULTIHOST_ENV):
-        return _not_ported_msg("a multi-host run ("
-                               + "/".join(_MULTIHOST_ENV) + ")")
-    return None
-
-
-def _resolve_mesh(spec: str, devices: list):
+def _resolve_mesh(spec: str, devices: list, group=None):
     """Parse 'DPxSP' (or 'auto': factor all the devices) and build the
     Mesh over `devices`; no spec (or a 1-device one) is the 1x1 mesh
     over the first device.  A malformed spec, or one larger than the
-    device count, raises CLIError with garlic_tpu's message.
+    device count, raises CLIError with garlic_tpu's message.  group: the
+    run's multihost.Group; over several processes the device count is
+    every process's (one allgather of the counts, which make_mesh then
+    lays out) and a mesh of more than one device spans them, while no
+    spec leaves each process on its own 1x1 mesh, as garlic_tpu's
+    single-device processes.
 
     Adapted from garlic_tpu/pipeline.py:55: the devices are the run's
     (run_main's `device`), and one device is a mesh too."""
-    ndev = len(devices)
-    if spec in ("none", "", "1", "1x1") or (spec == "auto" and ndev <= 1):
+    if spec in ("none", "", "1", "1x1"):
+        return make_mesh(1, 1, devices)
+    counts = [len(devices)]
+    if group is not None and group.size > 1:
+        counts = group.allgather(np.array(counts, dtype=np.int64),
+                                 "mesh")[:, 0]
+    ndev = int(sum(counts))
+    if spec == "auto" and ndev <= 1:
         return make_mesh(1, 1, devices)
     if spec == "auto":
         n_dp, n_sp = factor_devices(ndev)
@@ -102,7 +100,9 @@ def _resolve_mesh(spec: str, devices: list):
                            "(expected DPxSP, e.g. 4x2, or auto)")
     if n_dp * n_sp > ndev:
         raise CLIError(f"ERROR: mesh {n_dp}x{n_sp} exceeds {ndev} devices")
-    return make_mesh(n_dp, n_sp, devices)
+    if n_dp * n_sp == 1:
+        return make_mesh(1, 1, devices)
+    return make_mesh(n_dp, n_sp, devices, group, counts)
 
 
 def _resolve_engine(name: str) -> str:
@@ -126,7 +126,10 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     it; without --tpu-mesh the run takes the first); None means every
     visible CUDA device, and a fast (or auto) run without one exits 1
     and names --tpu-engine exact.  The CPU tests pass "cpu", or
-    ["cpu"] * 8 for meshes."""
+    ["cpu"] * 8 for meshes.  On a multi-process run (the three
+    GARLIC_TPU_* variables) `device` is this process's list.  A set of
+    the variables that is incomplete, or a process group that does not
+    form, exits 1 with one ERROR line."""
     log = RunLog()
     try:
         args = cli.parse_command_line(argv)
@@ -135,10 +138,26 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
         return 0
     if args is None:  # --help
         return 0
-    msg = _unported(args)
-    if msg is not None:
-        print(msg, file=sys.stderr)
+    try:
+        group = multihost.initialize_from_env()
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
         return 1
+    except RuntimeError as e:
+        print(f"ERROR: the process group did not form: {e}",
+              file=sys.stderr)
+        return 1
+    try:
+        return _main(args, argv, prog, log, device, group)
+    finally:
+        log.close()
+        group.close()
+
+
+def _main(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
+          device, group) -> int:
+    """run_main once the process group (of one process, or several) is
+    formed."""
     try:
         engine = _resolve_engine(args[cli.ARG_ENGINE])
     except CLIError as e:
@@ -160,13 +179,10 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     mesh_err = None
     if engine == "fast" and not args[cli.ARG_FREQ_ONLY]:
         try:
-            mesh = _resolve_mesh(args[cli.ARG_MESH], devices)
+            mesh = _resolve_mesh(args[cli.ARG_MESH], devices, group)
         except CLIError as e:
             mesh_err = str(e)
-    try:
-        return _run(args, argv, prog, log, engine, mesh_err, mesh)
-    finally:
-        log.close()
+    return _run(args, argv, prog, log, engine, mesh_err, mesh, group)
 
 
 # garlic_tpu/pipeline.py:36 (PipelineState) for one process
@@ -221,10 +237,11 @@ class _FreqWriter:
 
 # copy of garlic_tpu/pipeline.py:154
 def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-         engine: str, mesh_err: Optional[str] = None, mesh=None) -> int:
+         engine: str, mesh_err: Optional[str], mesh, group) -> int:
     fw = _FreqWriter()
     try:
-        rc = _run_impl(args, argv, prog, log, fw, engine, mesh_err, mesh)
+        rc = _run_impl(args, argv, prog, log, fw, engine, mesh_err, mesh,
+                       group)
     finally:
         werr = fw.finish()
     if werr is not None:
@@ -233,13 +250,17 @@ def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     return rc
 
 
-# garlic_tpu/pipeline.py:171-930 restricted to the port (configurations
-# outside it were refused by _unported); the validation and .log lines are
-# kept verbatim so the .log matches the JAX package's
+# garlic_tpu/pipeline.py:171-930 with the port's engines and mesh; the
+# validation and .log lines are kept verbatim so the .log matches the JAX
+# package's
 def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-              fw: _FreqWriter, engine: str,
-              mesh_err: Optional[str] = None, mesh=None) -> int:
+              fw: _FreqWriter, engine: str, mesh_err: Optional[str], mesh,
+              group) -> int:
     outfile = args[cli.ARG_OUTFILE]
+    # secondary processes write <out>.procN, so co-located processes do
+    # not race on one file (pipeline.py:179-183)
+    if group.rank > 0:
+        outfile = outfile + f".proc{group.rank}"
     log.init(outfile)
     log.log(" ".join([prog] + list(argv)))
     log.log("Output file basename:", outfile)
@@ -417,10 +438,19 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
     use_gl = False
     seed = args[cli.ARG_SEED]
-    rng = np.random.default_rng(None if seed < 0 else seed)
+    eff_seed = None if seed < 0 else seed
+    if eff_seed is None and group.size > 1:
+        # process 0 draws the run seed and broadcasts it: every process
+        # must draw the same --kde-subsample / --ld-subsample indices and
+        # --resample binomials (pipeline.py:358-372)
+        local = np.zeros(1, dtype=np.int32)
+        if group.rank == 0:
+            local[0] = np.random.default_rng().integers(0, 2 ** 31 - 1)
+        eff_seed = int(group.broadcast(local, "seed")[0]) & 0x7FFFFFFF
+    rng = np.random.default_rng(eff_seed)
     from .runtime import PhaseProfiler
     prof = PhaseProfiler(args[cli.ARG_PROFILE],
-                         None if mesh is None else mesh.first)
+                         None if mesh is None else mesh.first, group)
 
     if freq_only_flag:
         tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
@@ -429,6 +459,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     if mesh_err is not None:  # garlic_tpu/pipeline.py:388-393
         log.err(mesh_err)
         return -1
+    col_range = _col_range(mesh, tpedfile)
 
     # ---------------- Datafile reading ----------------
     centro = Centromere(build, centromere_file, cli.DEFAULT_CENTROMERE_FILE,
@@ -438,7 +469,12 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         # fast engine uploads as they are; phased: int8 and first copies
         ds, num_loci = tped.load_tped(
             tpedfile, tped_missing, nresample, auto_freq, log, rng,
-            panel_cache=args[cli.ARG_PANEL_CACHE], phased=phased)
+            panel_cache=args[cli.ARG_PANEL_CACHE], phased=phased,
+            col_range=col_range)
+        if col_range is not None and auto_freq:
+            _global_freq(ds, mesh, nresample, rng)
+        if os.environ.get("GT_LOAD_STATS"):
+            _load_stats(ds)
         log.log("Total loci:", num_loci)
         ds.ind_ids, ds.pop = tfam.read_tfam(tfamfile, log)
         num_ind = ds.nind
@@ -451,7 +487,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
         if tglsfile != cli.DEFAULT_TGLS:
             tgls.read_tgls(tglsfile, ds.chroms, num_ind, gl_type, log,
-                           panel_cache=bool(args[cli.ARG_PANEL_CACHE]))
+                           panel_cache=bool(args[cli.ARG_PANEL_CACHE]),
+                           col_range=col_range)
             use_gl = True
 
         scaffolds = None
@@ -513,15 +550,26 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         variant_density = density.calc_density(num_loci, ds.chroms, centro)
 
     st = _PhaseII(log=log, rng=rng, engine=engine, mesh=mesh)
+    # the processes among which the panel's rows are split: the run's on
+    # a per-process load, else this process alone, which holds them all.
+    # Every process takes the same exchanges: col_range was decided
+    # identically on each before the parse (pipeline.py:606-612)
+    row_group = group if col_range is not None else multihost.Group()
     if engine == "fast" and not weighted:
         # Phase II pools the exact engine's f64 rolling windows (the f32
         # device windows would shift the nrd0 bandwidth and with it every
         # .kde x value), so no device window matrix is needed for it;
         # assembly keeps the device kernels and the tie patrol
-        # (pipeline.py:600-634)
-        st.exact_sampler = lambda wq, step, rows: _exact_thinned_samples(
-            ds.chroms, centro, wq, error, max_gap, use_gl, step, rows)
-        if ds.panel_cache_file is not None and nresample == 0:
+        # (pipeline.py:600-634).  A per-process load pools its own rows
+        # and gathers them in rank order, the global row order.
+        st.exact_sampler = \
+            lambda wq, step, rows: _exact_thinned_samples_sharded(
+                ds.chroms, centro, wq, error, max_gap, use_gl, step, rows,
+                row_group)
+        # never across processes: a hit on one and a miss on another
+        # would split their exchanges (pipeline.py:621-629)
+        if group.size == 1 and ds.panel_cache_file is not None \
+                and nresample == 0:
             from .io.poolcache import PoolCache, pool_key
             st.pool_cache = PoolCache(
                 ds.panel_cache_file,
@@ -539,7 +587,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     elif winsize_explore:
         _explore_winsizes(st, ds, centro, multi_winsizes, error, use_gl,
                           max_gap, kde_subsample, outfile, weighted, M, mu,
-                          phased, thin, ld_subsample)
+                          phased, thin, ld_subsample, row_group)
         return 0
     elif auto_winsize:
         if not weighted:
@@ -574,12 +622,14 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         if engine == "fast":
             # Phase II pools the exact f64 thinned wLOD samples; the pair
             # band memoizes into wpair_cache, which the weighted tie
-            # patrol shares (pipeline.py:678-706)
+            # patrol shares (pipeline.py:678-706); a per-process load
+            # pools its own rows against the summed global pair band
             st.exact_sampler = \
                 lambda wq, step, rows: _exact_thinned_wsamples(
                     ds.chroms, centro, wq, error, max_gap, use_gl, step,
-                    rows, mu, M, phased, sub_idx, wpair_cache)
-            if ds.panel_cache_file is not None and nresample == 0:
+                    rows, mu, M, phased, sub_idx, wpair_cache, row_group)
+            if group.size == 1 and ds.panel_cache_file is not None \
+                    and nresample == 0:
                 from .io.poolcache import PoolCache, pool_key
                 st.pool_cache = PoolCache(
                     ds.panel_cache_file,
@@ -643,12 +693,14 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     # Tie patrol (fast engine): windows inside the f32 error band around
     # the cutoff are re-derived in f64 on the host and flipped rows get
     # their coverage recomputed with the exact engine, so the fast BED is
-    # the exact engine's by construction (pipeline.py:800-835).
+    # the exact engine's by construction (pipeline.py:800-835).  Each
+    # process verifies the suspect rows it holds and the results are
+    # gathered (_owned_row_patrol; one process holds them all).
     tie_delta, exact_cover, exact_window = 0.0, None, None
     if engine == "fast" and weighted:
         tie_delta, exact_cover, exact_window = _weighted_patrol(
             ds, centro, winsize, error, max_gap, use_gl, mu, M, phased,
-            sub_idx, wpair_cache, overlap_frac, lod_cutoff)
+            sub_idx, wpair_cache, overlap_frac, lod_cutoff, row_group)
     elif engine == "fast":
         tie_delta = _tie_band(ds.chroms, winsize, error, use_gl)
 
@@ -669,6 +721,9 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         def exact_window(ci, rows, wins, sides):
             return _exact_window_flips(ds.chroms[ci], rows, wins, sides,
                                        winsize, error, use_gl, lod_cutoff)
+
+        exact_cover, exact_window = _owned_row_patrol(
+            ds, row_group, exact_cover, exact_window)
 
     roh_by_ind, lengths = assembly.assemble_roh(
         win_by_chr, ds.chroms, ds.ind_ids, centro, lod_cutoff, winsize,
@@ -742,6 +797,9 @@ def _calc_lod_windows(engine: str, mesh, ds, centro, winsize: int,
                       f"{2 * budget / 1e9:.1f} GB device budget; streaming "
                       "per chromosome", file=sys.stderr)
                 break
+        # one mode for every process: streaming reorders the exchanges
+        # of assembly (dispatch and fetch chromosome by chromosome)
+        streaming = mesh.group.any(streaming, "gate")
     out = []
     for c in ds.chroms:
         print(f"{c.chrom}    ", file=sys.stderr, end="")
@@ -763,7 +821,7 @@ def _calc_lod_windows(engine: str, mesh, ds, centro, winsize: int,
             out.append(device_win.LazyWin(
                 (lambda c=c: par.lod_windows_sharded(
                     c, centro, winsize, error, max_gap, mesh, use_gl)),
-                nind=c.nind, nloci=c.nloci))
+                nind=c.nind_global, nloci=c.nloci))
             bar.advance(c.nind)
         elif engine == "fast":
             out.append(par.lod_windows_sharded(c, centro, winsize, error,
@@ -822,16 +880,25 @@ def _calc_wlod_windows(engine: str, mesh, ds, centro, winsize: int,
     return out
 
 
-# the weighted tie patrol of garlic_tpu/pipeline.py:836-893 for one process
+# the weighted tie patrol of garlic_tpu/pipeline.py:836-893
 def _weighted_patrol(ds, centro, winsize: int, error: float, max_gap: int,
                      use_gl: bool, mu: float, M: int, phased: bool, sub_idx,
-                     wpair_cache: dict, overlap_frac: float, cutoff: float):
+                     wpair_cache: dict, overlap_frac: float, cutoff: float,
+                     group):
     """(tie_delta, exact_cover, exact_window) of a weighted fast run.
     1/LD can amplify terms arbitrarily, so the band's scale rides each
     DeviceWin as a device scalar (tie_scale, max finite |term|) and
     tie_delta is only the 256 * eps32 * W factor (the margin of
     _tie_band).  The reference's wLOD windows are fresh sums, so the
-    per-window f64 verification is its exact value."""
+    per-window f64 verification is its exact value.  group: the
+    processes among which the rows are split (one process when it holds
+    them all): each process verifies the suspects of its own rows, the
+    suspect windows' band rows from pair counts summed over the
+    processes (_exact_wlod_window_flips), and recomputes the flipped
+    rows it holds over the whole chromosome's band, made from pair
+    counts summed the same way (_wpair_band; _owned_row_patrol gathers
+    the rows).  Both are exchanges every process makes, owning suspect
+    rows or not."""
     bands = {}
 
     def band(ci):
@@ -839,12 +906,13 @@ def _weighted_patrol(ds, centro, winsize: int, error: float, max_gap: int,
             # the exact band from the pair band the Phase-II sampler may
             # already have memoized (calc_ld(engine="exact") ==
             # assemble_ld_exact(pair_ld))
-            P = _wpair_band(ds.chroms, ci, winsize, phased, sub_idx,
-                            wpair_cache)
-            bands[ci] = ld_ops.assemble_ld_exact(P, winsize)
+            bands[ci] = ld_ops.assemble_ld_exact(
+                _wpair_band(ds.chroms, ci, winsize, phased, sub_idx,
+                            wpair_cache, group), winsize)
         return bands[ci]
 
     def exact_cover(ci, rows):
+        band(ci)  # an exchange on a per-process load: always first
         thr = assembly.overlap_threshold(overlap_frac, winsize)
         rows = np.asarray(rows, dtype=np.int64)
         out = []
@@ -860,9 +928,169 @@ def _weighted_patrol(ds, centro, winsize: int, error: float, max_gap: int,
     def exact_window(ci, rows, wins, sides):
         return _exact_wlod_window_flips(
             ds.chroms[ci], rows, wins, sides, winsize, error, use_gl, mu, M,
-            phased, sub_idx, cutoff, P=wpair_cache.get((ci, winsize)))
+            phased, sub_idx, cutoff, P=wpair_cache.get((ci, winsize)),
+            group=group)
 
+    exact_cover = _owned_row_patrol(ds, group, exact_cover, None)[0]
     return 256.0 * 2.0 ** -23 * winsize, exact_cover, exact_window
+
+
+def _col_range(mesh, tpedfile: str):
+    """This process's (c0, c1) of the individuals when it loads only its
+    own rows, else None: on a fast run whose mesh spans processes in a
+    dp-aligned layout (multihost.dp_layout_aligned), decided before the
+    parse from the mesh and the file's width, identically on every
+    process, with its stderr line; a panel too small for process 0 to
+    hold fewer than all rows is loaded whole by every process.
+
+    garlic_tpu/pipeline.py:398-432 inline there; the range here comes
+    from multihost.host_individual_range over the mesh."""
+    if mesh is None or mesh.group.size == 1:
+        return None
+    # a missing file falls through to load_tped's logged ERROR
+    if not (multihost.dp_layout_aligned(mesh) and os.path.exists(tpedfile)):
+        return None
+    from .parallel.mesh import AXIS_DP
+    nind_file = tped.peek_nind(tpedfile)
+    n_dp = mesh.shape[AXIS_DP]
+    per = -(-max(nind_file, 1) // n_dp) * n_dp // mesh.group.size
+    # per >= nind would hand process 0 the whole panel while the others
+    # hold parts: their exchanges would no longer match
+    if nind_file <= 0 or per >= nind_file:
+        return None
+    col_range = multihost.host_individual_range(nind_file, mesh)
+    print(f"[garlic-tpu-torch] sharded input: process {mesh.group.rank} "
+          f"holds individuals [{col_range[0]}, {col_range[1]}) of "
+          f"{nind_file}", file=sys.stderr)
+    return col_range
+
+
+def _global_freq(ds, mesh, nresample: int, rng) -> None:
+    """The allele frequencies of a per-process load, for the whole panel:
+    the count planes summed over the processes and divided once
+    (parallel.engine.allele_freq_counts_sharded).  A warm sidecar holds
+    the global frequencies and no planes; the processes first gather
+    which of them hold planes, and when any holds none every process
+    takes the frequencies of the lowest such rank.  Then --resample
+    draws on the global frequencies with the common seed.
+
+    garlic_tpu/pipeline.py:445-489 inline there."""
+    from .parallel.engine import allele_freq_counts_sharded
+    group = mesh.group
+    have_counts = all(c.freq_num is not None for c in ds.chroms)
+    flags = group.allgather(np.array([1 if have_counts else 0],
+                                     dtype=np.int32), "freq")[:, 0]
+    if flags.all():
+        for c in ds.chroms:
+            c.freq = allele_freq_counts_sharded(c.freq_num, c.freq_den, mesh)
+            c.freq_num = c.freq_den = None
+    else:
+        src = int(np.flatnonzero(flags == 0)[0])
+        for c in ds.chroms:
+            plane = (np.zeros(c.nloci, dtype=np.float64) if have_counts
+                     else np.asarray(c.freq, dtype=np.float64))
+            c.freq = group.allgather(plane, "freq")[src]
+            c.freq_num = c.freq_den = None
+    if nresample > 0:
+        for c in ds.chroms:
+            # deferred from load_tped: resample the GLOBAL freq
+            # (src/garlic-data.cpp:142-148)
+            counts = rng.binomial(nresample, np.clip(c.freq, 0.0, 1.0))
+            c.freq = counts.astype(np.float64) / float(nresample)
+
+
+def _load_stats(ds) -> None:
+    """GT_LOAD_STATS: the rows and genotype bytes this process loaded and
+    its peak RSS so far, on stderr (garlic_tpu/pipeline.py:497-510)."""
+    import resource
+    tot = rows = 0
+    for c in ds.chroms:
+        rows = max(rows, c.nind)
+        for a in (c._geno, c._geno2b, c.first_copy):
+            if a is not None:
+                tot += a.nbytes
+    print(f"[garlic-tpu-torch] load-stats: rows={rows} geno_bytes={tot} "
+          f"maxrss_kb={resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}",
+          file=sys.stderr)
+
+
+def _owned_row_patrol(ds, group, cover_local, window_local):
+    """Tie-patrol wrappers over the rows split among `group` (a process
+    that holds them all is a group of one): suspect rows index the
+    GLOBAL individual axis but each host only holds
+    [row0, row0 + nind); every host f64-verifies the rows it owns and the
+    per-row results merge with a rank-ordered allgather-OR (suspect sets
+    are tiny — bytes, not matrices).  The merged result is identical on
+    every process, so each one applies the same repairs to its gathered
+    coverage.  Both call the local function on every process, owning
+    suspect rows or not: the weighted ones make exchanges of their own
+    (the weighted run verifies its windows itself and passes no
+    window_local).
+
+    Adapted from garlic_tpu/pipeline.py:1275: the Group's exchanges in
+    place of process_allgather."""
+
+    def exact_cover(ci, rows):
+        # gather only each host's OWNED rows, bit-packed
+        c = ds.chroms[ci]
+        r0, nown = c.row0, c.nind
+        L = c.nloci
+        rb = (L + 7) // 8
+        rows = np.asarray(rows, dtype=np.int64)
+        owned = (rows >= r0) & (rows < r0 + nown)
+        cov = cover_local(ci, rows[owned] - r0)
+        cov_own = np.packbits(cov, axis=1, bitorder="little") \
+            if owned.any() else np.zeros((0, rb), dtype=np.uint8)
+        om = group.allgather(owned.astype(np.uint8), "patrol").astype(bool)
+        allp = group.allgather_varlen(cov_own.reshape(-1), "patrol")
+        out_p = np.zeros((rows.size, rb), dtype=np.uint8)
+        for r in range(group.size):
+            idx = np.flatnonzero(om[r])
+            out_p[idx] = allp[r].reshape(-1, rb)[:idx.size]
+        return np.unpackbits(out_p, axis=1,
+                             bitorder="little")[:, :L].astype(bool)
+
+    def exact_window(ci, rows, wins, sides):
+        c = ds.chroms[ci]
+        r0, nown = c.row0, c.nind
+        rows = np.asarray(rows, dtype=np.int64)
+        owned = (rows >= r0) & (rows < r0 + nown)
+        flips = np.zeros(rows.size, dtype=bool)
+        flips[owned] = window_local(
+            ci, rows[owned] - r0, np.asarray(wins)[owned],
+            np.asarray(sides)[owned])
+        return group.allgather(flips.astype(np.uint8),
+                               "patrol").any(axis=0)
+
+    return exact_cover, exact_window
+
+
+def _exact_thinned_samples_sharded(chroms, centro, winsize: int,
+                                   error: float, max_gap: int, use_gl: bool,
+                                   step: int, rows, group) -> np.ndarray:
+    """The Phase-II sampler of the fast engine's unweighted runs:
+    _exact_thinned_samples over the rows split among `group` (one
+    process when it holds them all): each process pools the exact f64
+    thinned samples of the requested rows it holds, then the
+    per-chromosome pools concatenate across ranks — rank r holds global
+    rows [r*per, (r+1)*per), so rank-order concatenation reproduces the
+    reference's exact chrom-major/row-major pooling order.  The pools'
+    lengths differ per process: a variable-length gather, f64 kept.
+
+    Adapted from garlic_tpu/pipeline.py:1620: the Group's exchange in
+    place of process_allgather."""
+    out = []
+    for c in chroms:
+        r0, nown = c.row0, c.nind
+        if rows is None:
+            local_rows = None  # all locally-held rows, in order
+        else:
+            rr = np.asarray(rows, dtype=np.int64)
+            local_rows = rr[(rr >= r0) & (rr < r0 + nown)] - r0
+        part = _exact_thinned_samples([c], centro, winsize, error,
+                                      max_gap, use_gl, step, local_rows)
+        out += group.allgather_varlen(part.astype(np.float64), "samples")
+    return np.concatenate(out) if out else np.zeros(0)
 
 
 # copy of garlic_tpu/pipeline.py:1392
@@ -917,65 +1145,117 @@ def _ld_subsample_idx(nind: int, ld_subsample: int,
 
 
 def _wpair_band(chroms, ci: int, winsize: int, phased: bool, sub_idx,
-                cache: dict) -> np.ndarray:
-    """Exact pairwise LD band P for one chromosome, memoized per
-    (chromosome, winsize) — shared between the weighted exact Phase-II
-    sampler and the weighted tie patrol so the O(L*W*I_sub) pair counting
-    runs at most once per run.
+                cache: dict, group) -> np.ndarray:
+    """Exact pairwise LD band P of the whole panel for one chromosome,
+    memoized per (chromosome, winsize) — shared between the weighted
+    exact Phase-II sampler and the weighted tie patrol so the
+    O(L*W*I_sub) pair counting runs at most once per run.  Each process
+    counts the integer joint-count planes of the rows it holds (the
+    global --ld-subsample meets its own rows), the planes are summed
+    exactly over `group`, the processes among which the rows are split
+    (one process holds them all), and the exact division sequence
+    (pair_ld_*_from_counts) follows: pair_ld's bits on any split.  An
+    exchange: every process calls this for the same (chromosome,
+    winsize) sequence.
 
-    Copy of garlic_tpu/pipeline.py:1441."""
+    Adapted from garlic_tpu/pipeline.py:1441 with the per-host counts of
+    its _wpair_band_sharded (:1455): an int64 all_reduce in place of the
+    allgather and host sum."""
     key = (ci, winsize)
     P = cache.get(key)
-    if P is None:
-        P = ld_ops.pair_ld(chroms[ci], winsize, phased, sub_idx)
-        cache[key] = P
+    if P is not None:
+        return P
+    c = chroms[ci]
+    rows = None
+    if sub_idx is not None:
+        rr = np.asarray(sub_idx, dtype=np.int64)
+        rows = rr[(rr >= c.row0) & (rr < c.row0 + c.nind)] - c.row0
+    g = c.genotypes if rows is None else c.genotypes[rows]
+    if phased:
+        fcl = c.first_copy if rows is None else c.first_copy[rows]
+        n1, n2 = ld_ops.pair_counts_r2(g, fcl, winsize)
+    else:
+        n1, n2 = ld_ops.pair_counts_hr2(g, winsize)
+    # marginal hom freqs over ALL individuals (never subsampled,
+    # src/garlic-data.cpp:648)
+    hom, tot = ld_ops.geno_hom_counts(c.genotypes)
+    flat = np.concatenate([n1.reshape(-1), n2.reshape(-1), hom, tot])
+    if flat.dtype.kind == "f":  # integer-valued counts
+        flat = flat.astype(np.int64)
+    tot_planes = group.sum_int(flat, "patrol-ld")
+    sz = n1.size
+    n1g = tot_planes[:sz].reshape(n1.shape).astype(n1.dtype)
+    n2g = tot_planes[sz:2 * sz].reshape(n1.shape).astype(n2.dtype)
+    if phased:
+        P = ld_ops.pair_ld_r2_from_counts(n1g, n2g, c.freq, winsize)
+    else:
+        HA = ld_ops.geno_hom_freq_from_counts(
+            tot_planes[2 * sz:2 * sz + hom.size].astype(hom.dtype),
+            tot_planes[2 * sz + hom.size:].astype(tot.dtype))
+        P = ld_ops.pair_ld_hr2_from_counts(n1g, n2g, HA, winsize)
+    cache[key] = P
     return P
 
 
 def _exact_thinned_wsamples(chroms, centro, winsize: int, error,
                             max_gap: int, use_gl: bool, step: int, rows,
                             mu: float, M: int, phased: bool, sub_idx,
-                            pair_cache: dict) -> np.ndarray:
+                            pair_cache: dict, group) -> np.ndarray:
     """The exact engine's pooled Phase-II samples for WEIGHTED runs: the
     f64 wLOD window values at the thinned positions, in the reference's
     pooling order (chrom-major, row-major; convertWinData2DoubleData,
     src/garlic-data.cpp:2026-2150).  The reference's wLOD has no rolling
     recurrence, so only the thinned window positions are evaluated: the
     exact LD band rows assemble per position from the memoized pair band
-    (assemble_ld_exact_rows) and each window sums in wlod_windows' j-loop
-    order.
+    (_wpair_band, summed over `group`, the processes among which the
+    rows are split; one process holds them all) and each window sums in
+    wlod_windows' j-loop order.  Each process pools the requested rows
+    it holds, and the per-chromosome pools concatenate in rank order
+    (rank r holds global rows [r*per, (r+1)*per), so rank order IS the
+    reference's pooling order).
 
-    Copy of garlic_tpu/pipeline.py:1570."""
-    from .core.types import MISSING
+    Adapted from garlic_tpu/pipeline.py:1570 with the per-host pools of
+    its _exact_thinned_wsamples_sharded (:1504): the Group's exchanges
+    in place of process_allgather."""
     from .ops.lod import window_missing_mask
-    parts = []
+    out = []
     for ci, c in enumerate(chroms):
         L = c.nloci
         nwin = L - winsize + 1
-        r = np.arange(c.nind) if rows is None \
-            else np.asarray(rows, dtype=np.int64)
-        if nwin <= 0 or r.size == 0:
-            continue
-        P = _wpair_band(chroms, ci, winsize, phased, sub_idx, pair_cache)
-        ws = np.arange(0, nwin, step)
-        missing = window_missing_mask(
-            c.positions, winsize, max_gap, centro.start(c.chrom),
-            centro.end(c.chrom))[ws]
-        band = ld_ops.assemble_ld_exact_rows(P, winsize, ws)
-        inv = 1.0 / band                                     # [nw, W]
-        for s in range(0, r.size, 64):  # bound [k, L] temporaries
-            sub = _subset_chrom(c, r[s:s + 64])
-            score = wlod_ops.wlod_scores(sub, error, use_gl, mu, M)
-            acc = np.zeros((score.shape[0], ws.size), dtype=np.float64)
-            for j in range(winsize):
-                # reference i-loop order (src/garlic-roh.cpp:259-272):
-                # score[i] * (1.0 / LD[l][i-l]), exactly wlod_windows
-                acc = acc + score[:, ws + j] * inv[:, j][None, :]
-            w = np.where(missing[None, :], float(MISSING), acc)
-            flat = w.reshape(-1)
-            m2 = (flat != MISSING) & ~np.isnan(flat)
-            parts.append(flat[m2])
-    return np.concatenate(parts) if parts else np.zeros(0)
+        r0, nown = c.row0, c.nind
+        if rows is None:
+            local_rows = np.arange(nown, dtype=np.int64)
+        else:
+            rr = np.asarray(rows, dtype=np.int64)
+            local_rows = rr[(rr >= r0) & (rr < r0 + nown)] - r0
+        part = np.zeros(0, dtype=np.float64)
+        if nwin > 0:
+            # an exchange: unconditional on every rank (local_rows may
+            # be empty here while another rank owns samples)
+            P = _wpair_band(chroms, ci, winsize, phased, sub_idx,
+                            pair_cache, group)
+            ws = np.arange(0, nwin, step)
+            missing = window_missing_mask(
+                c.positions, winsize, max_gap, centro.start(c.chrom),
+                centro.end(c.chrom))[ws]
+            inv = 1.0 / ld_ops.assemble_ld_exact_rows(P, winsize, ws)
+            parts = []
+            for s in range(0, local_rows.size, 64):  # bound [k, L] temps
+                sub = _subset_chrom(c, local_rows[s:s + 64])
+                score = wlod_ops.wlod_scores(sub, error, use_gl, mu, M)
+                acc = np.zeros((score.shape[0], ws.size), dtype=np.float64)
+                for j in range(winsize):
+                    # reference i-loop order (src/garlic-roh.cpp:259-272):
+                    # score[i] * (1.0 / LD[l][i-l]), exactly wlod_windows
+                    acc = acc + score[:, ws + j] * inv[:, j][None, :]
+                w = np.where(missing[None, :], float(MISSING), acc)
+                flat = w.reshape(-1)
+                m2 = (flat != MISSING) & ~np.isnan(flat)
+                parts.append(flat[m2])
+            if parts:
+                part = np.concatenate(parts)
+        out += group.allgather_varlen(part, "samples")
+    return np.concatenate(out) if out else np.zeros(0)
 
 
 # garlic_tpu/pipeline.py:1663 without the hybrid (compute_kde_hybrid) and
@@ -1169,14 +1449,15 @@ def _explore_winsizes(st: _PhaseII, ds, centro, multi: List[int],
                       error: float, use_gl: bool, max_gap: int,
                       kde_subsample: int, outfile: str, weighted: bool,
                       M: int, mu: float, phased: bool, thin: bool,
-                      ld_subsample: int):
+                      ld_subsample: int, group):
     """exploreWinsizes (src/garlic-roh.cpp:699-763): dump a KDE per
     candidate winsize and exit.  Weighted runs redraw the LD subsample
     for each candidate (the reference's per-candidate calcLDData); the
     fast engine then pools the exact sampler's f64 values, as on
-    unweighted runs (_candidate_kde), so it computes no device windows,
-    and the exact engine pools its own f64 window matrices over the
-    --kde-subsample rows."""
+    unweighted runs (_candidate_kde), so it computes no device windows
+    (its global --kde-subsample rows meet the rows each process of
+    `group` holds), and the exact engine pools its own f64 window
+    matrices over the --kde-subsample rows."""
     ind_idx = (_subset_for_kde(st, ds, kde_subsample)
                if kde_subsample > 0 else None)
     for wq in multi:
@@ -1192,7 +1473,7 @@ def _explore_winsizes(st: _PhaseII, ds, centro, multi: List[int],
             st.exact_sampler = (
                 lambda w2, step, rows, _si=sub_idx: _exact_thinned_wsamples(
                     ds.chroms, centro, w2, error, max_gap, use_gl, step,
-                    rows, mu, M, phased, _si, {}))
+                    rows, mu, M, phased, _si, {}, group))
         else:
             win_by_chr = []
             for c in ds.chroms:
@@ -1307,7 +1588,7 @@ def _wlod_score_slice(c, i: int, w: int, W: int, error, use_gl: bool,
 
 
 def _exact_wlod_band_rows(c, wins, winsize: int, phased: bool, sub_idx,
-                          P: np.ndarray = None) -> np.ndarray:
+                          P: np.ndarray = None, group=None) -> np.ndarray:
     """f64 LD band rows [len(wins), W] of the windows starting at wins:
     the values and per-entry summation order of ops/ld.py's exact engine
     (LD[l][j] = sum over the window members k, in order, of ld(k, l+j);
@@ -1319,12 +1600,21 @@ def _exact_wlod_band_rows(c, wins, winsize: int, phased: bool, sub_idx,
     The slices of a block of windows are laid side by side, so one call
     of the pair formulas serves the block: a pair inside a slice gets the
     counts and the elementwise f64 arithmetic it gets alone, and a pair
-    that straddles two slices is computed but never read."""
+    that straddles two slices is computed but never read.  The formulas
+    run from their exact integer counts (ld_ops.pair_counts_*, the
+    homozygosity counts), which on a per-process load (group) are summed
+    over the processes first: an exchange per block of windows, so every
+    process passes the same wins."""
     from .ops import ld as ld_ops
     wins = np.asarray(wins, dtype=np.int64)
     W = winsize
     if P is not None:
         return ld_ops.assemble_ld_exact_rows(P, W, wins)
+    group = multihost.Group() if group is None else group
+    rows = None  # the LD subsample's rows this process holds
+    if sub_idx is not None:
+        rr = np.asarray(sub_idx, dtype=np.int64)
+        rows = rr[(rr >= c.row0) & (rr < c.row0 + c.nind)] - c.row0
     # Q[m, j] = ld(w + m, w + j) within a window, 1 on the diagonal
     # (_pair_lookup): member m's pair with site j
     a = np.arange(W)
@@ -1335,12 +1625,20 @@ def _exact_wlod_band_rows(c, wins, winsize: int, phased: bool, sub_idx,
         blk = wins[s:s + 1024]
         g = np.concatenate([_geno_cols_slice(c, int(w), W) for w in blk],
                            axis=1)
+        cols = (blk[:, None] + a).reshape(-1)
         if phased:
-            cols = (blk[:, None] + a).reshape(-1)
-            P2 = ld_ops.pair_ld_r2(g, c.first_copy[:, cols], c.freq[cols], W,
-                                   sub_idx)
+            n = ld_ops.pair_counts_r2(g, c.first_copy[:, cols], W, rows)
         else:
-            P2 = ld_ops.pair_ld_hr2(g, ld_ops.geno_hom_freq(g), W, sub_idx)
+            n = ld_ops.pair_counts_hr2(g, W, rows) + ld_ops.geno_hom_counts(g)
+        n = np.split(group.sum_int(np.concatenate(
+            [x.reshape(-1) for x in n]), "patrol-ld"),
+            np.cumsum([x.size for x in n])[:-1])
+        n1, n2 = (x.reshape(-1, W) for x in n[:2])
+        if phased:
+            P2 = ld_ops.pair_ld_r2_from_counts(n1, n2, c.freq[cols], W)
+        else:
+            P2 = ld_ops.pair_ld_hr2_from_counts(
+                n1, n2, ld_ops.geno_hom_freq_from_counts(n[2], n[3]), W)
         Q = np.where(d == 0, 1.0, P2.reshape(blk.size, W, W)[:, lo, d])
         acc = np.zeros((blk.size, W))
         for m in range(W):  # the k-loop order, from 0.0
@@ -1352,24 +1650,30 @@ def _exact_wlod_band_rows(c, wins, winsize: int, phased: bool, sub_idx,
 def _exact_wlod_window_flips(c, rows, wins, sides, winsize: int, error,
                              use_gl: bool, mu: float, M: int, phased: bool,
                              sub_idx, cutoff: float,
-                             P: np.ndarray = None) -> np.ndarray:
+                             P: np.ndarray = None, group=None) -> np.ndarray:
     """Weighted tie-patrol verification: per suspect (row, window), does
     the f64 decision flip versus the device's f32 one?  The reference's
     wLOD has no rolling update (src/garlic-roh.cpp:259-272), so this f64
     recomputation is its exact value: the window's LD row from
     _exact_wlod_band_rows, the scores from _wlod_score_slice, summed in
-    the reference's i-loop order.
+    the reference's i-loop order.  group: a per-process load's Group;
+    rows then index the whole panel, every process passes every suspect,
+    verifies those of the rows it holds against band rows made from
+    counts summed over the processes, and the flips are gathered.
 
     Adapted from garlic_tpu/pipeline.py:1134, which assembles each
-    distinct window's band row alone (W^2 scalar-sized steps); here they
-    are assembled together, with the same values."""
+    distinct window's band row alone (W^2 scalar-sized steps), and on a
+    per-process load from the whole chromosome's summed pair band
+    (_wpair_band); here the distinct windows' rows are assembled
+    together, with the same values."""
     wins = np.asarray(wins, dtype=np.int64)
+    rows = np.asarray(rows, dtype=np.int64)
     distinct, which = np.unique(wins, return_inverse=True)
     band_rows = _exact_wlod_band_rows(c, distinct, winsize, phased,
-                                      sub_idx, P)
-    flips = np.empty(len(rows), dtype=bool)
-    for k in range(len(rows)):
-        i, w = int(rows[k]), int(wins[k])
+                                      sub_idx, P, group)
+    flips = np.zeros(len(rows), dtype=bool)
+    for k in np.flatnonzero((rows >= c.row0) & (rows < c.row0 + c.nind)):
+        i, w = int(rows[k]) - c.row0, int(wins[k])
         score = _wlod_score_slice(c, i, w, winsize, error, use_gl, mu, M)
         with np.errstate(divide="ignore", invalid="ignore"):
             # a zero band entry divides to inf exactly as the reference's
@@ -1380,6 +1684,8 @@ def _exact_wlod_window_flips(c, rows, wins, sides, winsize: int, error,
             flips[k] = True  # inf/nan band: escalate to the exact row
             continue
         flips[k] = (s >= cutoff) != bool(sides[k])
+    if group is not None:
+        flips = group.allgather(flips.astype(np.uint8), "patrol").any(axis=0)
     return flips
 
 

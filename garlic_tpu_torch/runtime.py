@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -43,11 +44,15 @@ class PhaseProfiler:
 
     mark() closes the current phase; on a CUDA device it synchronizes
     first, so queued kernels are charged to the phase that enqueued them.
-    report() prints a summary to stderr."""
+    report() prints a summary to stderr: the phases, this process's
+    kernel launches and weighted programs (ops/cuda_lod.LAUNCHES,
+    ops/device_wlod.CALLS), its device-memory peak on a CUDA device, and
+    the exchanges of a multi-process run's group."""
 
-    def __init__(self, enabled: bool, device=None):
+    def __init__(self, enabled: bool, device=None, group=None):
         self.enabled = enabled
         self.device = None if device is None else torch.device(device)
+        self.group = group
         self.phases = []
         self._t0 = time.perf_counter()
 
@@ -74,6 +79,16 @@ class PhaseProfiler:
             print(f"[profile]   {name:<18} {dt:8.3f}s{rate}",
                   file=sys.stderr)
         print(f"[profile]   {'TOTAL':<18} {total:8.3f}s", file=sys.stderr)
+        from .ops.cuda_lod import LAUNCHES
+        from .ops.device_wlod import CALLS
+        print(f"[profile] launches {json.dumps({**LAUNCHES, **CALLS})}",
+              file=sys.stderr)
+        if self.device is not None and self.device.type == "cuda":
+            print(f"[profile] device-memory peak "
+                  f"{torch.cuda.max_memory_allocated(self.device)} bytes",
+                  file=sys.stderr)
+        if self.group is not None and self.group.size > 1:
+            print(self.group.report(), file=sys.stderr)
 
 
 def hbm_budget(device) -> float:

@@ -434,13 +434,14 @@ def test_auto_run_pool_cache_cold_and_warm(auto_dir, monkeypatch):
     assert _run(jax_main, wd, base + ["--tpu-engine", "exact",
                                       "--out", "cjx"]) == 0
     calls = []
-    sampler = port_pipeline._exact_thinned_samples
+    sampler = port_pipeline._exact_thinned_samples_sharded
 
     def counting(*a, **k):
         calls.append(a[2])
         return sampler(*a, **k)
 
-    monkeypatch.setattr(port_pipeline, "_exact_thinned_samples", counting)
+    monkeypatch.setattr(port_pipeline, "_exact_thinned_samples_sharded",
+                        counting)
     for out, ncalls in (("cold", 1), ("warm", 1)):
         assert _run(port_main, wd, base + ["--tpu-engine", "fast",
                                            "--out", out], device="cpu") == 0

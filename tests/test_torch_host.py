@@ -195,13 +195,19 @@ def test_adapted_definitions_name_a_source_definition(path):
     ("ops/device_win.py", ("is_device_win", "LazyWin", "is_lazy_win"), ()),
     ("ops/convert.py", ("win_to_samples",), ()),
     ("api.py", ("ROHResult",), ("load_panel", "call_roh")),
-    ("pipeline.py", (), ("_resolve_mesh",)),
+    ("pipeline.py", (), ("_resolve_mesh", "_owned_row_patrol",
+                         "_exact_thinned_samples_sharded",
+                         "_wpair_band", "_exact_thinned_wsamples")),
     ("parallel/mesh.py", ("factor_devices",), ("make_mesh",)),
     ("parallel/engine.py", ("check_halo_fits", "full_window_missing"),
      ("lod_windows_sharded", "gauss_transform_sharded", "fit_gmm_sharded",
-      "ld_band_sharded", "wlod_windows_sharded")),
+      "ld_band_sharded", "wlod_windows_sharded",
+      "allele_freq_counts_sharded", "allele_freq_sharded")),
+    ("parallel/multihost.py", (),
+     ("initialize_distributed", "initialize_from_env",
+      "host_individual_range", "dp_layout_aligned")),
 ], ids=["device_win", "convert", "api", "pipeline", "parallel_mesh",
-        "parallel_engine"])
+        "parallel_engine", "parallel_multihost"])
 def test_streaming_and_api_definitions_are_held_to_their_sources(
         rel, names, adapted):
     """The definitions of the streaming, API and mesh slices: the copies

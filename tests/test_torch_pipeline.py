@@ -274,10 +274,15 @@ def test_unported_configuration_exits_1(panel_dir, capsys, extra, names):
 
 def test_multihost_env_is_refused_and_streaming_runs(panel_dir,
                                                      monkeypatch, capsys):
+    # multi-process runs are ported (tests/test_torch_multihost.py); an
+    # incomplete set of the variables exits 1 with one ERROR line at
+    # once, never waiting on a process group that cannot form
     monkeypatch.setenv("GARLIC_TPU_NUM_PROCS", "2")
     assert _run(port_main, panel_dir, _base(panel_dir) + [
         "--out", "mh"], device="cpu") == 1
-    assert "multi-host" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert err.startswith("ERROR: ") and "GARLIC_TPU_COORD" in err
+    assert len(err.strip().splitlines()) == 1
     monkeypatch.delenv("GARLIC_TPU_NUM_PROCS")
     # split-path window matrices above half the device budget stream one
     # chromosome at a time, as the JAX package's do (tests/
