@@ -146,8 +146,24 @@ Phases (any failure raises and exits non-zero, printing no result):
      line; each process's profiled wall beside phase 8's 2x1 or 1x2
      run, its device-memory peak, and the bytes, calls and seconds of
      its exchanges by tag;
+   - each process's device budget (its --tpu-profile line): half the
+     card's, both processes driving cuda:0;
    - entry(): K2 on the card against its plain version, and
-     dryrun_multichip(4) over ["cuda:0"] * 4.
+     dryrun_multichip(4) over ["cuda:0"] * 4;
+10. the workflow a user runs, through the entry points a user calls:
+   - a 200 x 100,000 panel on one chromosome named 22, its positions
+     inside hg18 chr22's 49,691,432 bp, written as workflow.chr22.vcf.gz
+     (phased GT, with missing calls), and a feature file of 2,000 seeded
+     sites with four effect types, the functional allele REF at some
+     sites and ALT at others (tests/vcfutil.py);
+   - garlic_tpu_torch.tools.vcf2tped on the VCF, then `python -m
+     garlic_tpu_torch` on its TPED, the reference's default run (no
+     --lod-cutoff, no --size-bounds), fast (K2 run, K1 never) and exact:
+     .roh.bed byte-identical;
+   - count_features_in_roh over the VCF with each BED: the two counts
+     files equal, and equal to a plain numpy count of the homozygous
+     carriers of each functional allele, classed by np.searchsorted
+     over each individual's intervals; each step's seconds.
 Every run prints its --tpu-profile phase split.
 
 The line before the last is {"kernels": [...]} (launches summed over the
@@ -225,6 +241,14 @@ RAWLOD_STREAM_PANEL = dict(nind=20, nloci_per_chr=(25_000, 25_000), seed=9,
 MESHES = ((2, 1), (1, 2), (2, 2))
 # phase 9: a child process's time limit, seconds
 CHILD_TIMEOUT = 300
+# phase 10: the workflow's panel, one chromosome named 22 (count_features_in
+# _roh needs chr<num> in the file name and counts from chr22 up) inside hg18
+# chr22's length (make_panel's gaps are uniform in [100, 800): ~450 bp on
+# average), and the feature file's sites and seed
+WORKFLOW_PANEL = dict(nind=200, nloci_per_chr=(100_000,), chrom_names=["22"],
+                      seed=53, spacing_mean=400)
+HG18_CHR22_BP = 49_691_432
+WORKFLOW_SITES, WORKFLOW_SEED = 2000, 59
 
 
 def say(*a):
@@ -1786,6 +1810,20 @@ def _profile_total(text):
                            flags=re.M).group(1))
 
 
+def _check_share(text, label, rank):
+    """A child's device budget (its --tpu-profile line) must be half the
+    card's (0.9 of its memory): two processes drive it."""
+    import torch
+    m = re.search(r"^\[profile\] device budget (\d+) bytes on (\S+): "
+                  r"1/(\d+) of the card's", text, flags=re.M)
+    whole = 0.9 * float(torch.cuda.mem_get_info(0)[1])
+    say(f"    device budget {int(m.group(1)) / 1e9:.3f} GB on {m.group(2)}: "
+        f"1/{m.group(3)} of the card's {whole / 1e9:.3f} GB")
+    if int(m.group(3)) != 2 or abs(int(m.group(1)) - whole / 2) > 1:
+        raise AssertionError(f"{label}: process {rank}'s budget is not "
+                             "half the card's")
+
+
 def phase_multiprocess(mp, nchrom, configs):
     """Two processes on the one card (see the module docstring, phase
     9).  configs: name -> (flags, single-device run, kernel or program
@@ -1810,6 +1848,7 @@ def phase_multiprocess(mp, nchrom, configs):
                                      f"{holds in text}, expected {sharded}")
             launches, peak, ex, total = _child_profile(text)
             say(f"  {label} process {rank}: launches {launches}")
+            _check_share(text, label, rank)
             for k in mp.launches:
                 mp.launches[k] += launches[k]
             if launches[kernel] < nchrom:
@@ -1856,6 +1895,96 @@ def phase_multiprocess(mp, nchrom, configs):
         f"dryrun_multichip(4) over ['cuda:0'] * 4 in "
         f"{time.perf_counter() - t1:.3f}s")
     say(f"  phase 9: {time.perf_counter() - t0:.1f}s")
+
+
+def numpy_counts(ind_ids, geno, sites, bed, chrom):
+    """count_features_in_roh's table, counted with numpy from the panel:
+    for each individual, its homozygous carriers of each site's
+    functional allele (code 0 where it is REF, 2 where it is ALT; a
+    missing call never), classed by the interval of its .roh.bed rows
+    on `chrom` that holds the site (np.searchsorted over the starts; a
+    row [start, stop) holds start .. stop - 1), NONE outside them.
+    geno: [individuals, loci] codes; sites: tests/vcfutil.write_features'
+    (positions, functional allele is ALT, effect, locus index)."""
+    pos, is_alt, eff, at = sites
+    effects = sorted(set(eff.tolist()))
+    classes = ("A", "B", "C", "NONE")
+    rows = {}
+    for ind, c, start, stop, cls, _ in _bed_rows(bed):
+        if c == chrom:
+            rows.setdefault(ind, []).append((start, stop - 1,
+                                             classes.index(cls)))
+    g = geno[:, at]
+    carrier = np.where(is_alt, g == 2, g == 0)
+    e = np.searchsorted(effects, eff)
+    lines = [" ".join(f"{f}{c}" for f in effects for c in classes) + " "]
+    for i, ind in enumerate(ind_ids):
+        iv = np.array(rows.get(ind, [(-1, -2, 3)]), dtype=np.int64)
+        k = np.searchsorted(iv[:, 0], pos, side="right") - 1
+        inside = (k >= 0) & (pos <= iv[np.maximum(k, 0), 1])
+        cls = np.where(inside, iv[np.maximum(k, 0), 2], 3)
+        table = np.zeros((len(effects), len(classes)), dtype=np.int64)
+        np.add.at(table, (e[carrier[i]], cls[carrier[i]]), 1)
+        lines.append(" ".join([ind] + [str(v) for v in table.reshape(-1)]))
+    return "\n".join(lines) + "\n"
+
+
+def phase_workflow(mp):
+    """The workflow a user runs (see the module docstring, phase 10)."""
+    from garlic_tpu_torch.tools import count_features_in_roh, vcf2tped
+    from tests.util import make_panel
+    from tests.vcfutil import write_features, write_vcf
+    say("== phase 10: the workflow (a VCF through vcf2tped, python -m "
+        "garlic_tpu_torch, count_features_in_roh)")
+    t0 = time.perf_counter()
+
+    def step(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        say(f"  {name}: {time.perf_counter() - t:.3f}s")
+        return out
+
+    panel = step("make_panel", lambda: make_panel(**WORKFLOW_PANEL))
+    if panel.positions[0][-1] > HG18_CHR22_BP:
+        raise AssertionError("the workflow panel outgrows hg18 chr22")
+    base = os.path.join(WORK, "workflow.chr22")
+    vcf, feat = base + ".vcf.gz", os.path.join(WORK, "features.txt")
+    alleles = step("write the VCF (phased GT)",
+                   lambda: write_vcf(panel, vcf, seed=WORKFLOW_SEED))
+    sites = step(f"write {WORKFLOW_SITES} feature sites", lambda:
+                 write_features(panel, alleles, feat, WORKFLOW_SITES,
+                                WORKFLOW_SEED)["22"])
+    if step("vcf2tped", lambda: vcf2tped.main([vcf])) != 0:
+        raise AssertionError("vcf2tped failed")
+    argv = ["--tped", base + ".tped", "--tfam", base + ".tfam"] + AUTO_FLAGS
+    mp.run(argv + ["--tpu-engine", "fast"], "workflow_fast", "covered", 1,
+           absent="lod_windows")
+    mp.run(argv + ["--tpu-engine", "exact"], "workflow_exact")
+    mp.same(("workflow_fast",), "workflow_exact")
+    counts = {}
+    for label in ("workflow_fast", "workflow_exact"):
+        out = mp.out(label) + ".counts"
+        rc = step(f"count_features_in_roh over {label}.roh.bed", lambda: (
+            count_features_in_roh.main([feat, mp.out(label) + ".roh.bed",
+                                        vcf, "22", out])))
+        if rc != 0:
+            raise AssertionError(f"count_features_in_roh exited {rc}")
+        counts[label] = _read(out).decode()
+    if counts["workflow_fast"] != counts["workflow_exact"]:
+        raise AssertionError("the fast BED's counts differ from the "
+                             "exact BED's")
+    want = step("the plain numpy count", lambda: numpy_counts(
+        panel.ind_ids, panel.genotypes[0], sites,
+        mp.out("workflow_exact") + ".roh.bed", "chr22"))
+    if counts["workflow_fast"] != want:
+        raise AssertionError("count_features_in_roh differs from the "
+                             "numpy count")
+    lines = counts["workflow_fast"].splitlines()
+    total = np.array([[int(v) for v in r.split()[1:]] for r in lines[1:]])
+    total = dict(zip(lines[0].split(), total.sum(0).tolist()))
+    say(f"  counts equal across the fast and exact BEDs and the numpy "
+        f"count ({len(lines) - 1} individuals); summed: {total}")
+    say(f"  phase 10: {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -1924,6 +2053,7 @@ def main() -> int:
             "rawlod": (["--tped", rawst + ".tped.gz", "--tfam",
                         rawst + ".tfam", "--raw-lod"] + FLAGS,
                        "rawlod_resident", "lod_windows", False, "1x2")})
+        phase_workflow(mp)
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))

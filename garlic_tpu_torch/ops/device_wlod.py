@@ -32,8 +32,9 @@ the same f32 values).
 The routes are parallel/engine.py's ld_band_sharded and
 wlod_windows_sharded, over a mesh (one device is the 1x1 mesh): they
 accumulate the pair counts and compute the windows over row chunks sized
-by the device budget (runtime.hbm_budget, with the GARLIC_TPU_HBM_BUDGET
-override); at the bench shape that is one chunk.  The counts are exact
+by each device's budget (parallel.mesh.Mesh.budget: runtime.hbm_budget,
+with the GARLIC_TPU_HBM_BUDGET override, split among the processes that
+share the card); at the bench shape that is one chunk.  The counts are exact
 integers and each row's window sums are independent of the others, so
 every chunk size gives bit-identical results.  The JAX package's
 one-shot programs (device_wlod.py:533, :563) are that route with one

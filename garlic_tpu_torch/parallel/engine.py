@@ -55,7 +55,6 @@ import torch
 from ..ops import cuda_lod
 from ..ops import device_wlod as dw
 from ..ops.device_win import Coverage, DeviceWin, _Piece
-from ..runtime import hbm_budget
 from .mesh import AXIS_DP, AXIS_SP
 
 
@@ -483,18 +482,19 @@ def _add(acc, part: torch.Tensor, device) -> torch.Tensor:
 
 
 def _column_counts(chrom, pk, col, a: int, b: int, W: int, phased: bool,
-                   sub, dev0):
+                   sub, dev0, mesh):
     """The pair counts (T, X) int32 [W, b-a] of the LD subsample's rows
     and, unphased, the homozygosity counts (tot, hom) int32 [b-a] over
     all rows, of this process's cells of one sp column (`col`, dp
-    order), summed on dev0; zeros when it owns none of them."""
+    order), summed on dev0; zeros when it owns none of them.  Row
+    chunks are sized by each cell's budget on `mesh`."""
     T = X = tot = hom = None
     for sh in col:  # dp order
         if not sh.live:
             continue
         pkd = cuda_lod._upload(pk[sh.h0:sh.h1, a // 4:(b + 3) // 4],
                                sh.device)
-        C = dw._row_chunks(sh.rows, hbm_budget(sh.device), b - a,
+        C = dw._row_chunks(sh.rows, mesh.budget(sh.device), b - a,
                            dw._COUNT_BYTES)
         fc = (np.asarray(chrom.first_copy[sh.h0:sh.h1, a:b], dtype=bool)
               if phased else None)
@@ -560,7 +560,7 @@ def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
         mine = [sh for sh in col if sh.own]
         dev0 = home[s] = mine[0].device if mine else mesh.first
         T, X, tot, hom = _column_counts(chrom, pk, col, a, b, W, phased,
-                                        sub, dev0)
+                                        sub, dev0, mesh)
         if group.size > 1:  # exact int32 sums over the processes
             T, X = (torch.from_numpy(group.sum_int(t.cpu().numpy(),
                                                    "ld-pairs")).to(dev0)
@@ -653,7 +653,7 @@ def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
                 pkb = cuda_lod._upload(pk[sh.h0:sh.h1, a // 4:(b + 3) // 4],
                                        dev)
                 ax = cuda_lod._upload(aux[:, a:b], dev)
-                C = dw._row_chunks(sh.rows, hbm_budget(dev), b - a,
+                C = dw._row_chunks(sh.rows, mesh.budget(dev), b - a,
                                    dw._WINDOW_BYTES)
                 for r in range(0, sh.rows, C):
                     sc = dw._wlod_score_from_table(

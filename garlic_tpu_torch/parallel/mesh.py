@@ -25,17 +25,30 @@ process's devices, process-major, as jax.devices() orders them: each
 cell has an owner process, and a process launches only its own cells;
 the partials of the reductions go to every process, which adds them in
 shard order on its first device of the mesh.
+
+Processes may share a card (the one-card layout of a multi-process run):
+the exchange that lays the mesh also carries an identity of each
+process's cards, so each process knows how many processes drive each of
+its devices (Mesh.sharers) and budgets only its share of the card
+(Mesh.budget).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import hashlib
+import socket
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..runtime import hbm_budget
+
 AXIS_DP = "dp"
 AXIS_SP = "sp"
+# the distinct cards one process may bring to a multi-process run: the
+# survey's row has a fixed width, so it stays one allgather
+MAX_CARDS = 64
 
 
 def factor_devices(n: int, max_sp: int = 4) -> Tuple[int, int]:
@@ -58,12 +71,14 @@ class Mesh:
     of each cell this process owns and None for another process's cell;
     owner: [n_dp, n_sp] int, the rank of the process that owns the cell;
     group: the run's multihost.Group; counts: each process's number of
-    devices (the list it brought); local: this process's devices.
+    devices (the list it brought); local: this process's devices;
+    sharers: local device -> the number of the run's processes that
+    drive its card (1 unless surveyed: survey_devices).
     shape: the axis sizes by name, as jax.sharding.Mesh.shape; size:
     n_dp * n_sp."""
 
     def __init__(self, devices: np.ndarray, owner: np.ndarray = None,
-                 group=None, counts=None, local=None):
+                 group=None, counts=None, local=None, sharers=None):
         from .multihost import Group
         self.devices = devices
         self.owner = (np.zeros(devices.shape, dtype=np.int64)
@@ -71,8 +86,17 @@ class Mesh:
         self.group = Group() if group is None else group
         self.counts = [int(devices.size)] if counts is None else counts
         self.local = list(devices.reshape(-1)) if local is None else local
+        self.sharers = (dict.fromkeys(self.local, 1) if sharers is None
+                        else sharers)
         self.shape = {AXIS_DP: devices.shape[0], AXIS_SP: devices.shape[1]}
         self.size = int(devices.size)
+
+    def budget(self, device) -> float:
+        """This process's device-memory budget on `device` (one of its
+        own): the card's (runtime.hbm_budget) split evenly among the
+        processes that drive it, so their gates together admit what
+        one card holds."""
+        return hbm_budget(device) / self.sharers[torch.device(device)]
 
     def owns(self, d: int, s: int) -> bool:
         """Whether this process launches cell (d, s)."""
@@ -91,25 +115,66 @@ class Mesh:
                 f"{[str(d) for d in self.devices.reshape(-1)]})")
 
 
+def card_identity(device) -> int:
+    """A nonzero int64 naming the physical card of a torch device across
+    processes: a hash of the host name and the CUDA device's UUID, or of
+    the host name and the device type (a process's CPU is its host's)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        i = torch.cuda.current_device() if dev.index is None else dev.index
+        tag = str(torch.cuda.get_device_properties(i).uuid)
+    else:
+        tag = dev.type
+    h = hashlib.blake2b(f"{socket.gethostname()}/{tag}".encode(),
+                        digest_size=8).digest()
+    return int.from_bytes(h, "little", signed=True) or 1
+
+
+def survey_devices(devices: Sequence, group=None
+                   ) -> Tuple[List[int], Dict[torch.device, int]]:
+    """(counts, sharers): every process's number of devices, in rank
+    order, and for each of this process's devices the number of
+    processes that drive its card (this one included).  One allgather
+    (tag "mesh") of a fixed-width row per process: its device count,
+    then the identities of its distinct cards (card_identity), zero
+    padded to MAX_CARDS.  A device listed twice by one process counts
+    that process once.  Without a group of several processes: no
+    exchange, and every device has one sharer."""
+    local = [torch.device(d) for d in devices]
+    if group is None or group.size == 1:
+        return [len(local)], dict.fromkeys(local, 1)
+    ids = {d: card_identity(d) for d in local}
+    cards = sorted(set(ids.values()))
+    if len(cards) > MAX_CARDS:
+        raise ValueError(f"{len(cards)} distinct cards in one process; at "
+                         f"most {MAX_CARDS}")
+    row = np.zeros(1 + MAX_CARDS, dtype=np.int64)
+    row[0] = len(local)
+    row[1:1 + len(cards)] = cards
+    table = group.allgather(row, "mesh")
+    counts = [int(c) for c in table[:, 0]]
+    sharers = {d: int((table[:, 1:] == i).any(axis=1).sum())
+               for d, i in ids.items()}
+    return counts, sharers
+
+
 def make_mesh(n_dp: int, n_sp: int, devices: Sequence, group=None,
-              counts: Sequence[int] = None) -> Mesh:
+              counts: Sequence[int] = None, sharers: dict = None) -> Mesh:
     """Build a ("dp", "sp") Mesh over the first n_dp * n_sp of `devices`
     (torch devices or their names); with a Group of several processes,
     `devices` is this process's list, and the mesh is laid over every
-    process's list in rank order.  counts: every process's number of
-    devices, in rank order (gathered here, one allgather, when not
-    given); a process knows only its own devices, and another's cells
-    hold None.
+    process's list in rank order.  counts, sharers: survey_devices'
+    (surveyed here, one allgather, when counts is not given); a process
+    knows only its own devices, and another's cells hold None.
 
     Adapted from garlic_tpu/parallel/mesh.py:43: explicit sizes and
-    devices, torch devices, and an object array in place of
-    jax.sharding.Mesh."""
+    devices, torch devices, an object array in place of
+    jax.sharding.Mesh, and the processes that share a card."""
     local = [torch.device(d) for d in devices]
     if group is None or group.size == 1:
         counts = [len(local)]
     elif counts is None:
-        counts = group.allgather(np.array([len(local)], dtype=np.int64),
-                                 "mesh")[:, 0]
+        counts, sharers = survey_devices(local, group)
     counts = [int(c) for c in counts]
     rank = 0 if group is None else group.rank
     placed = [(r, local[i] if r == rank else None)
@@ -121,4 +186,4 @@ def make_mesh(n_dp: int, n_sp: int, devices: Sequence, group=None,
     devs[:] = [d for _, d in placed[: n_dp * n_sp]]
     owner = np.array([r for r, _ in placed[: n_dp * n_sp]], dtype=np.int64)
     return Mesh(devs.reshape(n_dp, n_sp), owner.reshape(n_dp, n_sp), group,
-                counts, local)
+                counts, local, sharers)

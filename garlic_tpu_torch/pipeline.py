@@ -60,7 +60,7 @@ from .ops import lod as lod_ops
 from .ops import wiggle as wiggle_ops
 from .ops import wlod as wlod_ops
 from .parallel import multihost
-from .parallel.mesh import factor_devices, make_mesh
+from .parallel.mesh import factor_devices, make_mesh, survey_devices
 from .version import OUTPUT_COMPAT_VERSION
 
 AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
@@ -72,22 +72,21 @@ def _resolve_mesh(spec: str, devices: list, group=None):
     over the first device.  A malformed spec, or one larger than the
     device count, raises CLIError with garlic_tpu's message.  group: the
     run's multihost.Group; over several processes the device count is
-    every process's (one allgather of the counts, which make_mesh then
+    every process's (survey_devices' one allgather, which make_mesh then
     lays out) and a mesh of more than one device spans them, while no
     spec leaves each process on its own 1x1 mesh, as garlic_tpu's
-    single-device processes.
+    single-device processes.  Every mesh knows how many of the run's
+    processes drive each of its devices' cards (the same survey), so
+    processes that share a card split its budget.
 
     Adapted from garlic_tpu/pipeline.py:55: the devices are the run's
     (run_main's `device`), and one device is a mesh too."""
+    counts, sharers = survey_devices(devices, group)
     if spec in ("none", "", "1", "1x1"):
-        return make_mesh(1, 1, devices)
-    counts = [len(devices)]
-    if group is not None and group.size > 1:
-        counts = group.allgather(np.array(counts, dtype=np.int64),
-                                 "mesh")[:, 0]
+        return make_mesh(1, 1, devices, sharers=sharers)
     ndev = int(sum(counts))
     if spec == "auto" and ndev <= 1:
-        return make_mesh(1, 1, devices)
+        return make_mesh(1, 1, devices, sharers=sharers)
     if spec == "auto":
         n_dp, n_sp = factor_devices(ndev)
     else:
@@ -101,8 +100,8 @@ def _resolve_mesh(spec: str, devices: list, group=None):
     if n_dp * n_sp > ndev:
         raise CLIError(f"ERROR: mesh {n_dp}x{n_sp} exceeds {ndev} devices")
     if n_dp * n_sp == 1:
-        return make_mesh(1, 1, devices)
-    return make_mesh(n_dp, n_sp, devices, group, counts)
+        return make_mesh(1, 1, devices, sharers=sharers)
+    return make_mesh(n_dp, n_sp, devices, group, counts, sharers)
 
 
 def _resolve_engine(name: str) -> str:
@@ -449,8 +448,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         eff_seed = int(group.broadcast(local, "seed")[0]) & 0x7FFFFFFF
     rng = np.random.default_rng(eff_seed)
     from .runtime import PhaseProfiler
-    prof = PhaseProfiler(args[cli.ARG_PROFILE],
-                         None if mesh is None else mesh.first, group)
+    prof = PhaseProfiler(args[cli.ARG_PROFILE], mesh, group)
 
     if freq_only_flag:
         tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
@@ -786,10 +784,9 @@ def _calc_lod_windows(engine: str, mesh, ds, centro, winsize: int,
     print(f"Calculating LOD scores with winsize {winsize}.", file=sys.stderr)
     streaming = False
     if engine == "fast":
-        from .runtime import hbm_budget
         held = _device_holdings(ds.chroms, winsize, use_gl, fused, mesh)
         for dev, est in held.items():
-            budget = 0.5 * hbm_budget(dev)
+            budget = 0.5 * mesh.budget(dev)
             if est > budget:
                 streaming = True
                 print(f"[garlic-tpu-torch] Phase I device holdings ~"

@@ -46,12 +46,16 @@ class PhaseProfiler:
     first, so queued kernels are charged to the phase that enqueued them.
     report() prints a summary to stderr: the phases, this process's
     kernel launches and weighted programs (ops/cuda_lod.LAUNCHES,
-    ops/device_wlod.CALLS), its device-memory peak on a CUDA device, and
-    the exchanges of a multi-process run's group."""
+    ops/device_wlod.CALLS), on a fast run its device budget on the
+    mesh's first device (its share of the card), its device-memory peak
+    on a CUDA device, and the exchanges of a multi-process run's group.
+    mesh: the fast engine's parallel.mesh.Mesh, None on the exact
+    engine."""
 
-    def __init__(self, enabled: bool, device=None, group=None):
+    def __init__(self, enabled: bool, mesh=None, group=None):
         self.enabled = enabled
-        self.device = None if device is None else torch.device(device)
+        self.mesh = mesh
+        self.device = None if mesh is None else torch.device(mesh.first)
         self.group = group
         self.phases = []
         self._t0 = time.perf_counter()
@@ -83,6 +87,12 @@ class PhaseProfiler:
         from .ops.device_wlod import CALLS
         print(f"[profile] launches {json.dumps({**LAUNCHES, **CALLS})}",
               file=sys.stderr)
+        if self.mesh is not None:
+            n = self.mesh.sharers[self.device]
+            share = self.mesh.budget(self.device)
+            print(f"[profile] device budget {share:.0f} bytes on "
+                  f"{self.device}: 1/{n} of the card's, shared "
+                  f"by {n} process{'es' if n > 1 else ''}", file=sys.stderr)
         if self.device is not None and self.device.type == "cuda":
             print(f"[profile] device-memory peak "
                   f"{torch.cuda.max_memory_allocated(self.device)} bytes",
@@ -92,11 +102,13 @@ class PhaseProfiler:
 
 
 def hbm_budget(device) -> float:
-    """Usable device-memory bytes for window planes.
+    """Usable device-memory bytes for window planes on one card.
 
-    `GARLIC_TPU_HBM_BUDGET` (raw bytes, as in the JAX package) overrides;
-    else 90% of the CUDA device's total memory (torch.cuda.mem_get_info);
-    else 8 GiB (CPU runs)."""
+    `GARLIC_TPU_HBM_BUDGET` (raw bytes, one card's, as in the JAX
+    package) overrides; else 90% of the CUDA device's total memory
+    (torch.cuda.mem_get_info); else 8 GiB (CPU runs).  Processes that
+    share the card split it: parallel.mesh.Mesh.budget gives each its
+    share."""
     v = os.environ.get("GARLIC_TPU_HBM_BUDGET")
     if v:
         return float(v)

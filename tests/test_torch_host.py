@@ -155,7 +155,8 @@ def test_copies_cover_the_host_modules():
                 "ops/density.py", "ops/wiggle.py", "ops/brent.py",
                 "ops/kde.py", "ops/gmm.py", "ops/device_win.py", "ops/ld.py",
                 "ops/wlod.py", "native/build.py", "ops/convert.py", "api.py",
-                "pipeline.py", "parallel/mesh.py", "parallel/engine.py"):
+                "pipeline.py", "parallel/mesh.py", "parallel/engine.py",
+                "tools/vcf2tped.py", "tools/count_features_in_roh.py"):
         assert rel in rels, rel
 
 

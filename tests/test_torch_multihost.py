@@ -34,6 +34,10 @@ sys.path.insert(0, os.path.dirname(__file__))
 from util import (diff_logs, make_panel, read_text, run_ours,  # noqa: E402
                   write_tgls, write_tped)
 
+import torch  # noqa: E402
+
+from garlic_tpu_torch import runtime  # noqa: E402
+from garlic_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from garlic_tpu_torch.parallel import multihost  # noqa: E402
 from garlic_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 
@@ -251,6 +255,103 @@ def test_incomplete_variables_fail_with_one_error_line(monkeypatch):
     monkeypatch.setenv("GARLIC_TPU_PROC_ID", "2")
     with pytest.raises(ValueError, match="^ERROR: .*not a process"):
         multihost.initialize_from_env()
+
+
+# ---------------------------------------------------------------------------
+# Processes that share a card split its budget (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+class _Peers(multihost.Group):
+    """Process 0 of a group whose other processes' survey rows are given
+    (no process group): allgather answers with them."""
+
+    def __init__(self, rows):
+        super().__init__(0, len(rows) + 1)
+        self.rows = rows
+
+    def allgather(self, arr, tag):
+        return np.stack([arr] + self.rows)
+
+
+def _row(ndev, cards):
+    """A survey row: the device count, then the cards' identities."""
+    row = np.zeros(1 + mesh_mod.MAX_CARDS, dtype=np.int64)
+    row[0] = ndev
+    row[1:1 + len(cards)] = cards
+    return row
+
+
+@pytest.mark.parametrize("budget", [None, "1000"],
+                         ids=["default", "override"])
+@pytest.mark.parametrize("local,peers,sharers", [
+    (["cpu"], [], 1),
+    (["cpu"], [["same"]], 2),
+    (["cpu"], [["other"]], 1),
+    (["cpu", "cpu"], [["same"]], 2),
+    (["cpu"], [["same", "other"], ["other"]], 2),
+], ids=["one_process", "two_on_one_card", "two_on_two_cards",
+        "repeated_device", "three_processes"])
+def test_processes_sharing_a_card_split_its_budget(local, peers, sharers,
+                                                   budget, monkeypatch):
+    """hbm_budget is one card's bytes (GARLIC_TPU_HBM_BUDGET, or the CPU
+    default); the survey counts, for each of this process's devices, the
+    processes whose rows name its card ("same": this host's CPU), each
+    once however often it lists the device, and the mesh's budget is
+    the card's divided by that count: one process per card keeps the
+    whole budget."""
+    if budget is None:
+        monkeypatch.delenv("GARLIC_TPU_HBM_BUDGET", raising=False)
+    else:
+        monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", budget)
+    whole = float(budget or runtime.DEFAULT_HBM_BUDGET)
+    assert runtime.hbm_budget("cpu") == whole
+    here = mesh_mod.card_identity("cpu")
+    ids = {"same": here, "other": here + 1 or 2}
+    group = (_Peers([_row(len(p), [ids[c] for c in p]) for p in peers])
+             if peers else multihost.Group())
+    counts, shared = mesh_mod.survey_devices(local, group)
+    assert counts == [len(local)] + [len(p) for p in peers]
+    assert shared == {torch.device("cpu"): sharers}
+    mesh = make_mesh(sum(counts), 1, local, group)  # the same survey
+    assert mesh.sharers == shared
+    assert mesh.budget("cpu") == whole / sharers
+
+
+@pytest.mark.parametrize("spec", [None, "2x1"], ids=["own_1x1", "2x1"])
+def test_two_processes_on_one_card_stream_within_their_share(panels, spec):
+    """Two processes on the CPU (one card to the survey), with
+    GARLIC_TPU_HBM_BUDGET three times what each process's Phase I holds:
+    that fits half of the whole budget but not half of each process's
+    share, so both processes stream (each on its own 1x1 mesh over the
+    whole panel, or its rows of a 2x1 mesh), their --tpu-profile says
+    1/2 of the card's budget, and every output equals the one-process
+    run's with the same budget."""
+    from garlic_tpu_torch import pipeline
+    from garlic_tpu_torch.io import filters, tped
+    wd = panels
+    ds, _ = tped.load_tped(f"{wd}/p.tped.gz")
+    chroms, _ = filters.filter_monomorphic(ds.chroms)
+    held = []
+    for rank in range(2):
+        mesh = (make_mesh(1, 1, ["cpu"]) if spec is None else
+                make_mesh(2, 1, ["cpu"], multihost.Group(rank, 2), [1, 1]))
+        held += pipeline._device_holdings(chroms, 40, False, True,
+                                          mesh).values()
+    assert min(held) > 0.75 * max(held)
+    env = {"GARLIC_TPU_HBM_BUDGET": str(3 * max(held))}
+    argv = _files("p") + PINNED + FAST + ["--tpu-profile"]
+    out = f"MH_share_{spec}"
+    outs = cluster(wd, argv + ([] if spec is None else ["--tpu-mesh", spec])
+                   + ["--out", out], ndev=1, env=env)
+    for _, _, err in outs:
+        assert "streaming per chromosome" in err
+        assert "1/2 of the card's, shared by 2 processes" in err
+    err1 = single(wd, argv + ["--out", out + "_one"], 1, env=env)
+    assert "1/1 of the card's" in err1
+    # alone, a process holds the whole panel: what each process held on
+    # its own 1x1 mesh (resident), or both halves of the 2x1 (streamed)
+    assert ("streaming" in err1) == (spec is not None)
+    same_as(wd, out, out + "_one")
 
 
 REDUCTIONS = """\
