@@ -66,33 +66,42 @@ Phases (any failure raises and exits non-zero, printing no result):
      column identical; K2, not K1) and --winsize-multi 40 60 80 (the
      same .kde files, x identical);
 6. weighted path (--weighted with a genetic map, --phased, --cm; its
-   programs are plain torch, ops/device_wlod.py, counted like kernels):
+   kernels K5, pair_counts, and K6, wlod_windows, csrc/wlod.cu, beside
+   the plain-torch band programs of ops/device_wlod.py):
    - bench.py's panel and pinned flags with --weighted --map (a map
      scaffold at MAP_RATE), fast cold then warm (--tpu-panel-cache)
      against the exact engine: .roh.bed byte-identical, .freq.gz equal,
-     the pair band, band assembly and window programs run for every
-     chromosome; the warm run prints the tie patrol's stage times;
-   - CUDA-event medians at the bench shape (W=60) of the hr2 and r2 pair
-     bands, the band assembly, the score gather, the window sums and the
-     whole weighted Phase I, each beside its bound; the device-memory
+     K5 and K6 run for every chromosome; the warm run prints the tie
+     patrol's stage times;
+   - on bench chromosome 1 at W=60 and W=120: K5's HR^2 and r^2 counts
+     equal to its plain version's (seeded first-copy bits, packed), K6's
+     windows and tie scale bit for bit over the codes and table and over
+     the f32 score plane (and the plane's equal to the codes'); at W=60
+     each kernel's CUDA-event median (one launch, and 10 back to back)
+     beside its bound, its plain version's and one PyTorch call's
+     (torch.einsum over unfolded planes, never called by the port); the
+     pair band's finalize, the band assembly and the whole weighted
+     Phase I, the route's host inputs (host clock), and the device-memory
      peak of the whole (torch.cuda.max_memory_allocated);
    - on the 50 x (100k, 100k) panel, fast against exact, BED identical:
      --weighted --phased, --weighted --ld-subsample 20, --weighted
      --tgls (GQ), automatic --weighted (.log equal, .kde x identical),
-     --weighted --auto-winsize, --cm pinned and automatic (K2 runs, K1
-     never);
+     --weighted --auto-winsize (K5 and K6 on every chromosome), --cm
+     pinned and automatic (K2 runs, K1 never);
    - the weighted tie band on bench chromosome 1 at W=60 and W=120:
      max |win_f32 - win_f64| / (2^-23 * W * tie_scale) within 256, the
-     f64 windows summed on the card over the f64 band of the exact
-     engine's pair counts, taken on the host.
+     f64 windows summed on the card over the f64 band of exact pair
+     counts (the plain torch version's integers, not K5's).
    The exact engine's weighted runs take minutes of f64 host work, so
    they run as `python -m garlic_tpu_torch` subprocesses that cannot see
-   the card, side by side, once every timed measurement is over (the
-   tie band is checked beside them); the bench panel's as one run per
+   the card, side by side, started as soon as their inputs are written
+   (before phase 2) and pinned to the half of the CPUs that this process
+   does not use (os.sched_setaffinity; this process keeps the other half
+   until phase 6 has read them); the bench panel's as one run per
    chromosome, whose outputs are joined (the pinned run treats its
    chromosomes apart);
 7. streaming Phase I and the programmatic API, once phase 6's
-   subprocesses have ended:
+   subprocesses have ended (this process back on every CPU):
    - bench.py's panel, warm, pinned, automatic and with the GQ TGLS
      file, each run resident, streamed (GARLIC_TPU_HBM_BUDGET below
      every run's device holdings), streamed, resident: .roh.bed, .log
@@ -121,9 +130,9 @@ Phases (any failure raises and exits non-zero, printing no result):
      and phase 4's GL TGLS run on the 50 x (100k, 100k) panel (K3 on
      the split route), through run_main(..., device=["cuda:0"] * k) and
      on one device: .roh.bed, .freq.gz, .log (and .kde) equal to phases
-     4-7's single-device runs, the kernel (or K2/K4's weighted
-     counterpart) run on every shard of every chromosome, each run's
-     wall and device-memory peak;
+     4-7's single-device runs, the kernel (the weighted run: K5 and K6)
+     run on every shard of every chromosome, each run's wall and
+     device-memory peak;
    - call_roh(mesh=...) on the bench panel, warm, pinned: K1 on every
      shard, its rows equal to phase 4's fast BED rows;
    - with more than one card visible, `python -m garlic_tpu_torch
@@ -142,10 +151,10 @@ Phases (any failure raises and exits non-zero, printing no result):
      process 1's (.proc1) .roh.bed, .freq.gz, .log (and .kde, and the
      raw text) equal to the single-process runs of phases 4-7; each
      child's launch counters (its --tpu-profile line) show its kernel
-     run on every chromosome in both processes, and count in the kernels
-     line; each process's profiled wall beside phase 8's 2x1 or 1x2
-     run, its device-memory peak, and the bytes, calls and seconds of
-     its exchanges by tag;
+     (the weighted run: K5 and K6) run on every chromosome in both
+     processes, and count in the kernels line; each process's profiled
+     wall beside phase 8's 2x1 or 1x2 run, its device-memory peak, and
+     the bytes, calls and seconds of its exchanges by tag;
    - each process's device budget (its --tpu-profile line): half the
      card's, both processes driving cuda:0;
    - entry(): K2 on the card against its plain version, and
@@ -164,10 +173,11 @@ Phases (any failure raises and exits non-zero, printing no result):
      files equal, and equal to a plain numpy count of the homozygous
      carriers of each functional allele, classed by np.searchsorted
      over each individual's intervals; each step's seconds.
-Every run prints its --tpu-profile phase split.
+Every run prints its --tpu-profile phase split; each phase prints its
+seconds, and the end the smoke's.
 
-The line before the last is {"kernels": [...]} (launches summed over the
-main path's runs), the last line {"ok": true, "device": {...}}.  The
+The line before the last is {"kernels": [...]} (K1-K6; launches summed
+over the main path's runs), the last line {"ok": true, "device": {...}}.  The
 script imports no JAX (an import hook refuses it), writes only under
 build/chip_smoke/, removed at the end, and ends every subprocess it
 starts.
@@ -220,11 +230,20 @@ GMM_GATE = 4096  # the device EM's size gate (ops/gmm.py)
 FP32_LANES = 128  # f32 adds per clock on one Hopper SM
 CARD = "NVIDIA H100 80GB HBM3"  # the card the bounds are computed for
 MEMORY_RATE = 3.35e12  # its memory rate in bytes/s (NVIDIA's data sheet)
-SOURCE = "garlic_tpu_torch/csrc/lod_windows.cu"
+# every kernel of the port: what it replaces (K1-K4 the Pallas TPU kernels,
+# K5 and K6 the XLA programs of the weighted path: K5 also replaces
+# _r2_counts_chunk, device_wlod.py:317) and its source
 KERNELS = {"lod_windows": "garlic_tpu/ops/pallas_lod.py:93",
            "covered": "garlic_tpu/ops/pallas_lod.py:291",
            "window_sums": "garlic_tpu/ops/pallas_lod.py:175",
-           "covered_terms": "garlic_tpu/ops/pallas_lod.py:402"}
+           "covered_terms": "garlic_tpu/ops/pallas_lod.py:402",
+           "pair_counts": "garlic_tpu/ops/device_wlod.py:247",
+           "wlod_windows": "garlic_tpu/ops/device_wlod.py:604"}
+LOD_KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms")
+WLOD_KERNELS = ("pair_counts", "wlod_windows")
+SOURCES = {
+    **dict.fromkeys(LOD_KERNELS, "garlic_tpu_torch/csrc/lod_windows.cu"),
+    **dict.fromkeys(WLOD_KERNELS, "garlic_tpu_torch/csrc/wlod.cu")}
 # TGLS tokens, each led by its separator: GQ integers 20-59 (the spread of
 # tests/util.write_tgls; 40 distinct tokens, so the native reader keeps
 # the dictionary form) and 1,000 GL values in [-0.01, -0.00001] (more
@@ -253,6 +272,12 @@ WORKFLOW_SITES, WORKFLOW_SEED = 2000, 59
 
 def say(*a):
     print(*a, flush=True)
+
+
+def _names(kernel):
+    """A kernel name, a tuple of them, or None, as a tuple."""
+    return () if kernel is None else (
+        (kernel,) if isinstance(kernel, str) else tuple(kernel))
 
 
 class _NoJaxPackage:
@@ -472,7 +497,7 @@ def phase_kernels(chrom, centro):
     for name, (I, L, W) in SMALL_CASES:
         c, cen = _random_chrom(I, L, W, seed=L)
         cases.append((name, c, cen, W, 20000, float(max(1, W // 4)), False))
-    err = dict.fromkeys(KERNELS, 0.0)
+    err = dict.fromkeys(LOD_KERNELS, 0.0)
     timed, sweep = None, {}
     for name, c, cen, W, gap, thr, bench in cases:
         pk, tb, ms = cuda_lod.chrom_device_inputs(c, cen, W, ERROR, gap, dev)
@@ -721,23 +746,29 @@ def write_tgls(panel, path, tokens, seed):
 
 class _ExactRuns:
     """Exact-engine runs of `python -m garlic_tpu_torch` in subprocesses
-    that cannot see the card.  They start together once every timed
-    measurement of the smoke is over, so their f64 host work shares the
-    host only with each other and with untimed checks (their own walls
-    are taken side by side).  finish() waits for one, checks its exit
-    code and prints its --tpu-profile split; stop() ends any left."""
+    that cannot see the card.  They start together as soon as their
+    inputs are written, each pinned to `cores` (os.sched_setaffinity),
+    CPUs that the smoke's own process does not use, so their f64 host
+    work runs beside the timed phases without sharing their cores (their
+    own walls are taken side by side).  finish() waits for one, checks
+    its exit code and prints its --tpu-profile split; stop() ends any
+    left."""
 
-    def __init__(self):
+    def __init__(self, cores=None):
         self.procs = {}
+        self.cores = cores
 
     def start(self, argv, label):
         out = _MainPath.out(label)
         log = open(out + ".stderr", "wb")
         env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-        self.procs[label] = (subprocess.Popen(
+        proc = subprocess.Popen(
             [sys.executable, "-m", "garlic_tpu_torch"] + argv
             + ["--tpu-engine", "exact", "--out", out], cwd=REPO, env=env,
-            stdout=log, stderr=subprocess.STDOUT), log)
+            stdout=log, stderr=subprocess.STDOUT)
+        if self.cores is not None:
+            os.sched_setaffinity(proc.pid, self.cores)
+        self.procs[label] = (proc, log)
 
     def finish(self, label, mp):
         proc, log = self.procs.pop(label)
@@ -762,6 +793,17 @@ class _ExactRuns:
         self.procs.clear()
 
 
+def _split_cores():
+    """(this process's CPUs, the exact runs' CPUs): the two halves of the
+    CPUs this process may use when there are 4 or more, else all of them
+    for both (no pinning: None for the exact runs)."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 4:
+        return cores, None
+    k = len(cores) // 2
+    return cores[:k], cores[k:]
+
+
 class _MainPath:
     """Drives the port's runs; each run's kernel launch counters are
     zeroed just before it and read just after it, and summed."""
@@ -773,10 +815,10 @@ class _MainPath:
 
     def run(self, argv, label, kernel=None, at_least=0, absent=None,
             device=None):
-        """kernel: a kernel's name, or one of the weighted path's
-        plain-torch programs (device_wlod.CALLS), that must run at least
-        at_least times; absent: a kernel that must not run; device: see
-        _run_port."""
+        """kernel: a kernel's name, a tuple of them, or one of the weighted
+        path's plain-torch programs (device_wlod.CALLS), that must each
+        run at least at_least times; absent: a kernel that must not run;
+        device: see _run_port."""
         def port():
             self.walls[label], self.stderr[label] = _run_port(
                 argv + ["--out", self.out(label)], label, device)
@@ -794,9 +836,10 @@ class _MainPath:
         say(f"    launches: {got}")
         for k in self.launches:
             self.launches[k] += got[k]
-        if kernel is not None and got[kernel] < at_least:
-            raise AssertionError(f"{label}: {kernel} ran {got[kernel]} "
-                                 f"times, expected >= {at_least}")
+        for k in _names(kernel):
+            if got[k] < at_least:
+                raise AssertionError(f"{label}: {k} ran {got[k]} times, "
+                                     f"expected >= {at_least}")
         if absent is not None and got[absent]:
             raise AssertionError(f"{label}: {absent} ran {got[absent]} "
                                  "times, expected none")
@@ -946,8 +989,27 @@ def write_bench(panel):
     return tped, tfam, wtped, wmap, split
 
 
-def phase_main_path(panel, mp, tped, tfam):
-    from tests.util import make_panel, write_tped
+def write_small():
+    """The 50 x (100k, 100k) panel as TPED/TFAM, its genetic map, and its
+    GL (float form) and GQ (dictionary form) TGLS files."""
+    from tests.util import make_panel, write_map_scaffold, write_tped
+    t0 = time.perf_counter()
+    small = make_panel(**RAWLOD_PANEL)
+    stped = os.path.join(WORK, "small.tped.gz")
+    stfam = os.path.join(WORK, "small.tfam")
+    write_tped(small, stped, stfam)
+    smap = os.path.join(WORK, "small.map.gz")
+    write_map_scaffold(small, smap, rate_cm_per_mb=MAP_RATE)
+    sgl = os.path.join(WORK, "small.gl.tgls")
+    sgq = os.path.join(WORK, "small.gq.tgls")
+    write_tgls(small, sgl, GL_TOKENS, seed=6)
+    write_tgls(small, sgq, GQ_TOKENS, seed=7)
+    say(f"wrote the small panel, map and TGLS files in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return small, (stped, stfam), smap, sgl, sgq
+
+
+def phase_main_path(panel, mp, tped, tfam, small, small_files, sgl, sgq):
     say("== phase 4: main path (python -m garlic_tpu_torch)")
     nchrom = len(panel.chrom_names)
     base = ["--tped", tped, "--tfam", tfam, "--tpu-panel-cache"] + FLAGS
@@ -957,10 +1019,7 @@ def phase_main_path(panel, mp, tped, tfam):
                nchrom if engine == "fast" else 0)
     mp.same(("fast_cold", "fast_warm"), "exact")
 
-    small = make_panel(**RAWLOD_PANEL)
-    stped = os.path.join(WORK, "small.tped.gz")
-    stfam = os.path.join(WORK, "small.tfam")
-    write_tped(small, stped, stfam)
+    stped, stfam = small_files
     sbase = ["--tped", stped, "--tfam", stfam] + FLAGS
     snames = [f"chr{c}" for c in small.chrom_names]
     for label, engine in (("rawlod_fast", "fast"), ("rawlod_exact",
@@ -989,10 +1048,6 @@ def phase_main_path(panel, mp, tped, tfam):
             raise AssertionError("the cold TGLS run wrote no .gtlc sidecar")
     mp.same(("tgls_fast_cold", "tgls_fast_warm"), "tgls_exact")
 
-    sgl = os.path.join(WORK, "small.gl.tgls")
-    sgq = os.path.join(WORK, "small.gq.tgls")
-    write_tgls(small, sgl, GL_TOKENS, seed=6)
-    write_tgls(small, sgq, GQ_TOKENS, seed=7)
     for label, engine in (("gl_fast", "fast"), ("gl_exact", "exact")):
         mp.run(sbase + ["--tgls", sgl, "--gl-type", "GL", "--tpu-engine",
                         engine], label, "window_sums",
@@ -1005,7 +1060,6 @@ def phase_main_path(panel, mp, tped, tfam):
                nchrom if engine == "fast" else 0)
     mp.same(("tgls_rawlod_fast",), "tgls_rawlod_exact")
     mp.raw_close("tgls_rawlod_fast", "tgls_rawlod_exact", snames)
-    return (stped, stfam), small, sgq
 
 
 def _gmm_init(x, k=3):
@@ -1220,15 +1274,19 @@ def _weighted_1x1(c, centro, W, dev):
 def _weighted_tie_band(c, centro, dev):
     """max |win_f32 - win_f64| / (2^-23 * W * tie_scale) over every row
     and live window of bench chromosome 1, at W=60 and W=120; the f64
-    side counts its pairs on the host (the exact engine's code), not with
-    the device program under test."""
+    side's pair counts are exact integers from the plain torch version
+    (device_wlod._hr2_counts), not from K5, the kernel under test."""
     import torch
-    from garlic_tpu_torch.ops import ld
+    from garlic_tpu_torch.ops import cuda_lod, device_wlod
     ratios = {}
     t0 = time.perf_counter()
-    counts = ld.pair_counts_hr2(c.genotypes, 120)
-    say(f"  exact pair counts of bench chromosome 1 to W=120 on the host "
-        f"in {time.perf_counter() - t0:.1f}s")
+    pk = cuda_lod._upload(cuda_lod.packed_host(c), dev)
+    t, h = device_wlod._hr2_counts(cuda_lod.decode_2bit(pk, c.nloci), 120)
+    counts = (h.T.cpu().numpy().astype(np.int64),
+              t.T.cpu().numpy().astype(np.int64))
+    del pk, t, h
+    say(f"  exact pair counts of bench chromosome 1 to W=120 (plain torch "
+        f"on the card) in {time.perf_counter() - t0:.1f}s")
     for W in (60, 120):
         dw = _weighted_1x1(c, centro, W, dev)
         w64, missing = _wlod_f64(c, centro, W, counts, dev)
@@ -1247,68 +1305,178 @@ def _weighted_tie_band(c, centro, dev):
     return ratios
 
 
-def _weighted_programs(c, centro, dev):
-    """CUDA-event medians of the weighted path's plain-torch programs at
-    the bench shape (W=60), each beside its bound, as the path calls
-    them, and the device-memory peak of the whole weighted Phase I."""
+def _pair_plain(pk, fcb, L, W):
+    """K5's plain version on the card's tensors: the decode and the
+    plain counts (what the wrapper runs for CPU tensors)."""
+    from garlic_tpu_torch.ops import cuda_lod, device_wlod as dw
+    g = cuda_lod.decode_2bit(pk, L)
+    if fcb is None:
+        return dw._hr2_counts(g, W)
+    return dw._r2_counts(g, dw.unpack_first_copy(fcb, L), W)
+
+
+def _weighted_kernels(c, centro, dev):
+    """K5 and K6 on bench chromosome 1 against their plain versions at
+    W=60 and W=120: K5's HR^2 and r^2 counts equal (first-copy bits
+    drawn from a seed: the panel is unphased), K6's windows and tie
+    scale bit for bit over the codes and table and over the f32 score
+    plane (and the plane's equal to the codes'), with the band the route
+    builds from K5's counts; then at W=60 the CUDA-event medians of each
+    kernel (one launch, and 10 back to back), its bound, its plain
+    version and one PyTorch call, then the programs around them and the
+    route's host inputs.  Returns ({kernel: max |diff|}, {kernel: the
+    kernels line's times})."""
     import torch
     from garlic_tpu_torch.ops import cuda_lod, device_wlod as dw
     card = _card()
-    W = 60
     I, L = c.nind, c.nloci
-    nwin = L - W + 1
-    codes = I * ((L + 3) // 4)
     pk = cuda_lod._upload(cuda_lod.packed_host(c), dev)
+    fcb = cuda_lod._upload(dw.pack_first_copy(
+        np.random.default_rng(3).random((I, L)) < 0.5), dev)
     hf = dw._hom_freq_from_counts(*dw._hom_counts_chunked(pk, L, I))
-    freq = torch.tensor(c.freq, dtype=torch.float32, device=dev)
-    fc = np.random.default_rng(3).random((I, L)) < 0.5
-    P = dw._pair_band(*dw._pair_counts_chunked(pk, None, L, W, I), hf, None,
-                      W)
-    inv = 1.0 / dw._assemble_band(P, W).T
-    aux = cuda_lod._upload(dw._weighted_aux(c, centro, W, ERROR, MAX_GAP, MU,
-                                            M_GEN), dev)
+    err = dict.fromkeys(WLOD_KERNELS, 0.0)
+    kept = None
+    for W in (60, 120):
+        nwin = L - W + 1
+        planes = {}
+        for kind, bits in (("hr2", None), ("r2", fcb)):
+            T = torch.zeros((W, L), dtype=torch.int32, device=dev)
+            X = torch.zeros_like(T)
+            dw.pair_counts(pk, bits, T, X, W)
+            t, x = _pair_plain(pk, bits, L, W)
+            torch.cuda.synchronize()
+            same = torch.equal(T, t) and torch.equal(X, x)
+            e = float(max((T - t).abs().max(), (X - x).abs().max()))
+            err["pair_counts"] = max(err["pair_counts"], e)
+            say(f"  K5 {kind} at {I}x{L}, W={W}: counts equal to the plain "
+                f"version's {same} (max |diff| {e}; sums T {int(T.sum())} "
+                f"X {int(X.sum())})")
+            if not same:
+                raise AssertionError(f"K5 {kind} differs from its plain "
+                                     f"version at W={W}")
+            planes[kind] = (T, X)
+            del t, x
+        inv_t = 1.0 / dw._assemble_band(
+            dw._pair_band(*planes["hr2"], hf, None, W), W)
+        aux = cuda_lod._upload(dw._weighted_aux(c, centro, W, ERROR, MAX_GAP,
+                                                MU, M_GEN), dev)
+        table, miss = aux[:4], (aux[4, :nwin] != 0).to(torch.uint8)
+        score = dw._wlod_score_from_table(cuda_lod.decode_2bit(pk, L), table)
+        win, tie = dw.wlod_windows(pk, table, inv_t, miss, W)
+        want, wt = dw.wlod_windows_plain(pk, table, inv_t, miss, W)
+        pwin, ptie = dw.wlod_windows_terms(score, inv_t, miss, W)
+        pwant, pwt = dw.wlod_windows_terms_plain(score, inv_t, miss, W)
+        torch.cuda.synchronize()
+        checks = {"codes bitwise": _bitwise(win, want),
+                  "codes tie": torch.equal(tie, wt),
+                  "plane bitwise": _bitwise(pwin, pwant),
+                  "plane tie": torch.equal(ptie, pwt),
+                  "plane=codes": _bitwise(pwin, win)
+                  and torch.equal(ptie, tie)}
+        e = float(max((win - want).abs().max(), (pwin - pwant).abs().max(),
+                      (tie - wt).abs(), (ptie - pwt).abs()))
+        err["wlod_windows"] = max(err["wlod_windows"], e)
+        say(f"  K6 at {I}x{L}, W={W}: " + ", ".join(
+            f"{k} {v}" for k, v in checks.items())
+            + f"; max |diff| {e}; tie scale {float(tie):.9g}; "
+            f"{int((win == -9999).sum())} MISSING windows")
+        if not all(checks.values()):
+            raise AssertionError(f"K6 differs from its plain version or "
+                                 f"its twin at W={W}: {checks}")
+        if W == 60:
+            kept = (planes["hr2"], inv_t, table, miss, score)
+        del planes, aux, win, want, pwin, pwant
+        torch.cuda.empty_cache()
+    (T, X), inv_t, table, miss, score = kept
+    W, nwin = 60, L - 59
+    Tt, Xt = torch.zeros_like(T), torch.zeros_like(X)  # the timed launches
+    # the yardsticks, one PyTorch call each, never called by the port:
+    # the counts as an einsum over the unfolded 0/1 flag planes (f16,
+    # exact for counts below 2048; row 0 holds each locus's own count),
+    # the windows as an einsum over the unfolded score plane (f32, no
+    # TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = cuda_lod.decode_2bit(pk, L)
-    score = dw._wlod_score_from_table(g, aux[:4])
-    missing = aux[4, :nwin]
-    # pair tests: two 0/1 counts (AND, add) per row, locus and offset; the
-    # window sums: one rounded f32 product and one f32 add per term
+    flags = torch.stack([g != -9, (g == 0) | (g == 2)]).to(torch.float16)
+    padded = torch.nn.functional.pad(flags, (0, W - 1))
+    del g
     pairs = I * sum(L - d for d in range(1, W))
-    int8_ms = 2 * 2 * pairs / INT8_RATE * 1e3
-    win_ms = 2 * add_ms(I, L, W, card)
+    int8_ms = 2 * 2 * pairs / INT8_RATE * 1e3  # AND and add per flag
+    win_ms = 2 * add_ms(I, L, W, card)         # a product and an add
+    codes, inv_b = I * ((L + 3) // 4), 4 * W * nwin
+    runs = {  # name: (kernel, plain, library, (bound, by), library label)
+        "pair_counts": (
+            lambda: dw.pair_counts(pk, None, Tt, Xt, W),
+            lambda: _pair_plain(pk, None, L, W),
+            lambda: torch.einsum("fil,filw->fwl", flags,
+                                 padded.unfold(2, W, 1)),
+            _bytes_or_ops(codes + 2 * 4 * W * L, int8_ms, card),
+            "torch.einsum over the unfolded flags, f16"),
+        "pair_counts r2": (
+            lambda: dw.pair_counts(pk, fcb, Tt, Xt, W),
+            lambda: _pair_plain(pk, fcb, L, W), None,
+            _bytes_or_ops(codes + I * ((L + 7) // 8) + 2 * 4 * W * L,
+                          2 * int8_ms, card), None),
+        "wlod_windows": (
+            lambda: dw.wlod_windows(pk, table, inv_t, miss, W),
+            lambda: dw.wlod_windows_plain(pk, table, inv_t, miss, W),
+            lambda: torch.einsum("ilw,lw->il", score.unfold(1, W, 1),
+                                 inv_t.T),
+            _bytes_or_ops(codes + 16 * L + inv_b + nwin + 4 * I * nwin,
+                          win_ms, card),
+            "torch.einsum over the unfolded score plane, f32"),
+        "wlod_windows plane": (
+            lambda: dw.wlod_windows_terms(score, inv_t, miss, W),
+            lambda: dw.wlod_windows_terms_plain(score, inv_t, miss, W),
+            None,
+            _bytes_or_ops(4 * I * L + inv_b + nwin + 4 * I * nwin, win_ms,
+                          card), None),
+    }
+    times = {}
+    for name, (kern, plain, lib, (b, by), what) in runs.items():
+        t = {"ms": _median_ms(kern), "plain_ms": _median_ms(plain, n=11),
+             "bound_ms": b, "bound_by": by,
+             "library_ms": None if lib is None else _median_ms(lib, n=5)}
+        back = _median_ms(kern, reps=10)
+        torch.cuda.empty_cache()
+        if name in WLOD_KERNELS:
+            times[name] = t
+        libs = ("none" if t["library_ms"] is None
+                else f"{t['library_ms']:.4f} ms ({what})")
+        say(f"  {name} at the bench shape, W={W}: kernel {t['ms']:.4f} ms, "
+            f"bound {b:.4f} ms ({by}), share of bound {b / t['ms']:.1%}, "
+            f"plain {t['plain_ms']:.4f} ms, library {libs} (CUDA events "
+            "around one call, median of 21; plain 11, library 5); back to "
+            f"back {back:.4f} ms, share of bound {b / back:.1%} (CUDA "
+            "events around 10 launches, median of 21)")
+    del flags, padded
+    # the programs around the kernels, and the whole weighted Phase I
+    P = dw._pair_band(T, X, hf, None, W)
     progs = {
-        "hr2 pair band (_pair_counts_chunked, _pair_band)": (
-            lambda: dw._pair_band(*dw._pair_counts_chunked(pk, None, L, W, I),
-                                  hf, None, W),
-            _bytes_or_ops(codes + 4 * L + 4 * W * L, int8_ms, card)),
-        "r2 pair band (_pair_counts_chunked, _pair_band, host first-copy "
-        "bits)": (
-            lambda: dw._pair_band(*dw._pair_counts_chunked(pk, fc, L, W, I),
-                                  None, freq, W),
-            _bytes_or_ops(codes + I * L + 4 * L + 4 * W * L, 2 * int8_ms,
-                          card)),
+        "pair band finalize (_pair_band)": (
+            lambda: dw._pair_band(T, X, hf, None, W),
+            _bytes_or_ops(2 * 4 * W * L + 4 * L + 4 * W * L, 0.0, card)),
         "band assembly (_assemble_band)": (
             lambda: dw._assemble_band(P, W),
             _bytes_or_ops(4 * W * L + 4 * W * nwin, 0.0, card)),
-        "score gather (_wlod_score_from_table)": (
-            lambda: dw._wlod_score_from_table(g, aux[:4]),
-            _bytes_or_ops(I * L + 16 * L + 4 * I * L, 0.0, card)),
-        "wLOD window sums (_wlod_windows_dev)": (
-            lambda: dw._wlod_windows_dev(score, inv, missing, W),
-            _bytes_or_ops(4 * I * L + 4 * W * nwin + 4 * nwin
-                          + 4 * I * nwin, win_ms, card)),
         "weighted Phase I (ld_band_sharded, wlod_windows_sharded, 1x1)": (
             lambda: _weighted_1x1(c, centro, W, dev),
             _bytes_or_ops(codes + 20 * L + 4 * I * nwin, int8_ms + win_ms,
                           card)),
     }
-    times = {}
     for name, (fn, (b, by)) in progs.items():
         t = _median_ms(fn, n=11)
-        times[name] = {"ms": t, "bound_ms": b, "bound_by": by}
         say(f"  {name} at {I}x{L}, W={W}: {t:.4f} ms, bound {b:.4f} ms "
             f"({by}), share of bound {b / t:.1%} (CUDA events around one "
             "call, median of 11)")
-    del pk, g, hf, freq, fc, P, inv, aux, score, missing
+    # the route's host work: the 2-bit codes (packed by each of the two
+    # routes) and the per-locus score table and mask
+    host = _median_wall_ms(lambda: (
+        cuda_lod.packed_host(c), cuda_lod.packed_host(c),
+        dw._weighted_aux(c, centro, W, ERROR, MAX_GAP, MU, M_GEN)), 5)
+    say(f"  the route's host inputs at {I}x{L}, W={W} (packed_host twice, "
+        f"_weighted_aux): {host:.4f} ms (host clock, median of 5)")
+    del pk, fcb, hf, T, X, Tt, Xt, P, inv_t, table, miss, score
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
@@ -1320,7 +1488,7 @@ def _weighted_programs(c, centro, dev):
         f"{peak / 1e6:.1f} MB ({peak / (I * L):.2f} bytes per genotype; "
         "torch.cuda.max_memory_allocated)")
     del out
-    return times
+    return err, times
 
 
 def weighted_args(tfam, wtped, wmap):
@@ -1329,84 +1497,85 @@ def weighted_args(tfam, wtped, wmap):
             "--weighted"] + FLAGS
 
 
-def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
-                   small_files, sgq):
-    """The weighted fast runs on bench.py's panel, the plain-torch
-    programs' times and peak memory and the small panel's fast runs, all
-    with no other process on the host; then the exact engine's runs in
-    subprocesses side by side, the weighted tie band beside them, and
-    each fast run held to its exact counterpart.  The bench panel's exact
-    run is one run per chromosome (split: (TPED, map) of each), run side
-    by side and joined: the pinned run treats its chromosomes apart, so
-    the joined outputs are the two-chromosome run's, in half the time."""
+def weighted_small_runs(small_files, smap, sgq):
+    """Phase 6's runs on the small panel: (label, flags, kernels or
+    program that must run on every chromosome, kernel that must not)."""
+    stped, stfam = small_files
+    pinned = ["--tped", stped, "--tfam", stfam, "--map", smap] + FLAGS
+    auto = ["--tped", stped, "--tfam", stfam, "--map", smap, "--winsize",
+            "60"] + SEARCH_FLAGS
+    return (
+        ("w_phased", pinned + ["--weighted", "--phased"], WLOD_KERNELS,
+         None),
+        ("w_ldsub", pinned + ["--weighted", "--ld-subsample", "20",
+                              "--tpu-seed", "3"], WLOD_KERNELS, None),
+        ("w_tgls", pinned + ["--weighted", "--tgls", sgq, "--gl-type", "GQ"],
+         WLOD_KERNELS, None),
+        ("w_auto", auto + ["--weighted"], WLOD_KERNELS, None),
+        ("w_autowin", pinned + ["--weighted", "--auto-winsize"],
+         WLOD_KERNELS, None),
+        ("cm", pinned + ["--cm"], "covered", None),
+        ("cm_auto", auto + ["--cm"], "covered", "lod_windows"),
+    )
+
+
+def start_exact_runs(exact, tfam, split, runs):
+    """Starts the exact engine's weighted runs (phase 6's references):
+    the bench panel's as one run per chromosome (split: (TPED, map) of
+    each; the pinned run treats its chromosomes apart, so the joined
+    outputs are the two-chromosome run's, in half the time) and each of
+    the small panel's `runs`."""
+    for i, (t, m) in enumerate(split):
+        exact.start(weighted_args(tfam, t, m), f"weighted_exact_{i + 1}")
+    for label, flags, _, _ in runs:
+        exact.start(flags, f"{label}_exact")
+    where = (f"on {len(exact.cores)} CPUs of their own" if exact.cores
+             else "unpinned")
+    say(f"  started {len(exact.procs)} exact weighted runs (subprocesses, "
+        f"{where})")
+
+
+def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, runs, exact):
+    """The weighted fast runs on bench.py's panel, K5's and K6's checks
+    and times, the programs' times and peak memory, the small panel's
+    fast runs and the weighted tie band; then each fast run held to the
+    exact run that start_exact_runs started at the beginning."""
     import torch
-    from tests.util import write_map_scaffold
     say("== phase 6: weighted path (--weighted, --phased, --cm)")
     wargs = weighted_args(tfam, wtped, wmap)
     base = wargs + ["--tpu-panel-cache"]
     mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_cold",
-           "wlod_windows", nchrom)
+           WLOD_KERNELS, nchrom)
     # the warm run prints the tie patrol's suspects and stage times
     os.environ["GT_ASM_TIMING"] = "1"
     try:
         mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_warm",
-               "wlod_windows", nchrom)
+               WLOD_KERNELS, nchrom)
     finally:
         del os.environ["GT_ASM_TIMING"]
 
     dev = torch.device("cuda")
     c, centro = _weighted_chrom(wtped, wmap)
-    times = _weighted_programs(c, centro, dev)
+    err, times = _weighted_kernels(c, centro, dev)
     torch.cuda.empty_cache()
-
-    stped, stfam = small_files
-    smap = os.path.join(WORK, "small.map.gz")
-    write_map_scaffold(small, smap, rate_cm_per_mb=MAP_RATE)
-    pinned = ["--tped", stped, "--tfam", stfam, "--map", smap] + FLAGS
-    auto = ["--tped", stped, "--tfam", stfam, "--map", smap, "--winsize",
-            "60"] + SEARCH_FLAGS
-    runs = (  # label, flags, program or kernel that must run, absent
-        ("w_phased", pinned + ["--weighted", "--phased"], "wlod_windows",
-         None),
-        ("w_ldsub", pinned + ["--weighted", "--ld-subsample", "20",
-                              "--tpu-seed", "3"], "wlod_windows", None),
-        ("w_tgls", pinned + ["--weighted", "--tgls", sgq, "--gl-type", "GQ"],
-         "wlod_windows", None),
-        ("w_auto", auto + ["--weighted"], "wlod_windows", None),
-        ("w_autowin", pinned + ["--weighted", "--auto-winsize"],
-         "wlod_windows", None),
-        ("cm", pinned + ["--cm"], "covered", None),
-        ("cm_auto", auto + ["--cm"], "covered", "lod_windows"),
-    )
     for label, flags, prog, absent in runs:
         mp.run(flags + ["--tpu-engine", "fast"], f"{label}_fast", prog,
                nchrom, absent=absent)
-
-    # nothing is timed from here on
-    exact = _ExactRuns()
-    try:
-        parts = [f"weighted_exact_{i + 1}" for i in range(len(split))]
-        for k, (t, m) in zip(parts, split):
-            exact.start(weighted_args(tfam, t, m), k)
-        for label, flags, _, _ in runs:
-            exact.start(flags, f"{label}_exact")
-        ratios = _weighted_tie_band(c, centro, dev)
-        del c
-        torch.cuda.empty_cache()
-        for label, _, _, _ in runs:
-            exact.finish(f"{label}_exact", mp)
-            mp.same((f"{label}_fast",), f"{label}_exact")
-            if label.endswith("auto"):
-                mp.same_log((f"{label}_fast",), f"{label}_exact")
-                mp.same_kde((f"{label}_fast",), f"{label}_exact", Y_TOL)
-        for k in parts:
-            exact.finish(k, mp)
-        mp.join_chroms("weighted_exact", parts)
-        mp.same(("weighted_fast_cold", "weighted_fast_warm"),
-                "weighted_exact")
-    finally:
-        exact.stop()
-    return ratios, times
+    ratios = _weighted_tie_band(c, centro, dev)
+    del c
+    torch.cuda.empty_cache()
+    for label, _, _, _ in runs:
+        exact.finish(f"{label}_exact", mp)
+        mp.same((f"{label}_fast",), f"{label}_exact")
+        if label.endswith("auto"):
+            mp.same_log((f"{label}_fast",), f"{label}_exact")
+            mp.same_kde((f"{label}_fast",), f"{label}_exact", Y_TOL)
+    parts = [f"weighted_exact_{i + 1}" for i in range(len(split))]
+    for k in parts:
+        exact.finish(k, mp)
+    mp.join_chroms("weighted_exact", parts)
+    mp.same(("weighted_fast_cold", "weighted_fast_warm"), "weighted_exact")
+    return ratios, err, times
 
 
 def _peak(fn):
@@ -1851,10 +2020,11 @@ def phase_multiprocess(mp, nchrom, configs):
             _check_share(text, label, rank)
             for k in mp.launches:
                 mp.launches[k] += launches[k]
-            if launches[kernel] < nchrom:
-                raise AssertionError(f"{label}: process {rank} ran {kernel} "
-                                     f"{launches[kernel]} times, expected "
-                                     f">= {nchrom}")
+            for k in _names(kernel):
+                if launches[k] < nchrom:
+                    raise AssertionError(f"{label}: process {rank} ran {k} "
+                                         f"{launches[k]} times, expected "
+                                         f">= {nchrom}")
             one = mp.stderr.get(f"mesh_{name}_{spec}")
             beside = (f" (phase 8's one-process {spec} run "
                       f"{_profile_total(one):.3f}s)" if one else "")
@@ -1989,6 +2159,10 @@ def phase_workflow(mp):
 
 def main() -> int:
     sys.meta_path.insert(0, _NoJaxPackage())
+    all_cores = sorted(os.sched_getaffinity(0))
+    own_cores, exact_cores = _split_cores()
+    # before torch starts its threads: they inherit this thread's CPUs
+    os.sched_setaffinity(0, own_cores)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1997,29 +2171,53 @@ def main() -> int:
     from tests.util import make_panel
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    t_start = time.perf_counter()
+    t_start = last = time.perf_counter()
+
+    def mark(what):
+        nonlocal last
+        now = time.perf_counter()
+        say(f"-- {what}: {now - last:.1f}s (smoke at {now - t_start:.1f}s)")
+        last = now
+
+    exact = _ExactRuns(exact_cores)
     try:
         smi = phase_environment()
+        say(f"CPUs: this process {len(own_cores)} of {len(all_cores)}, the "
+            f"exact runs {len(exact_cores) if exact_cores else 'all'} "
+            "(os.sched_setaffinity)")
         t0 = time.perf_counter()
         panel = make_panel(**BENCH_PANEL)
         say(f"bench panel {BENCH_PANEL['nind']} x "
             f"{BENCH_PANEL['nloci_per_chr']} made in "
             f"{time.perf_counter() - t0:.1f}s")
         tped, tfam, wtped, wmap, split = write_bench(panel)
+        small, small_files, smap, sgl, sgq = write_small()
+        wruns = weighted_small_runs(small_files, smap, sgq)
+        start_exact_runs(exact, tfam, split, wruns)
+        mark("phase 1 and the inputs")
         chrom = _Chrom("chr1", panel.positions[0], panel.genotypes[0],
                        seed=11)
         centro = _Centro(*HG18_CHR1_CENTROMERE)
         err, times = phase_kernels(chrom, centro)
+        mark("phase 2")
         phase_tie_band(chrom, centro)
         del chrom
+        mark("phase 3")
         mp = _MainPath()
-        small_files, small, sgq = phase_main_path(panel, mp, tped, tfam)
+        phase_main_path(panel, mp, tped, tfam, small, small_files, sgl, sgq)
+        mark("phase 4")
         nchrom = len(panel.chrom_names)
         phase_auto_path(mp, (tped, tfam), small_files, nchrom)
-        phase_weighted(mp, nchrom, tfam, wtped, wmap, split, small,
-                       small_files, sgq)
+        mark("phase 5")
+        _, werr, wtimes = phase_weighted(mp, nchrom, tfam, wtped, wmap,
+                                         split, wruns, exact)
+        err.update(werr)
+        times.update(wtimes)
+        os.sched_setaffinity(0, all_cores)  # the exact runs have ended
+        mark("phase 6")
         gq = os.path.join(WORK, "bench.gq.tgls")
         peaks, _ = phase_streaming(mp, nchrom, tped, tfam, gq)
+        mark("phase 7")
         configs = {  # phase 8: name -> (flags, single-device run, kernel,
             #            .kde written)
             "pinned": (["--tped", tped, "--tfam", tfam, "--tpu-panel-cache"]
@@ -2032,12 +2230,11 @@ def main() -> int:
                    "covered_terms", False),
             "weighted": (weighted_args(tfam, wtped, wmap)
                          + ["--tpu-panel-cache"], "weighted_fast_warm",
-                         "wlod_windows", False),
+                         WLOD_KERNELS, False),
             # float-form TGLS: K3 per shard on the split route
             "gl": (["--tped", small_files[0], "--tfam", small_files[1]]
-                   + FLAGS + ["--tgls", os.path.join(WORK, "small.gl.tgls"),
-                              "--gl-type", "GL"], "gl_fast", "window_sums",
-                   False),
+                   + FLAGS + ["--tgls", sgl, "--gl-type", "GL"], "gl_fast",
+                   "window_sums", False),
         }
         chrom = _Chrom("chr1", panel.positions[0], panel.genotypes[0],
                        seed=11)
@@ -2045,6 +2242,7 @@ def main() -> int:
                               {k: peaks[f"{k}_resident_0"]
                                for k in ("pinned", "auto", "gq")})
         del chrom
+        mark("phase 8")
         rawst = os.path.join(WORK, "rawst")
         phase_multiprocess(mp, nchrom, {
             **{k: (*configs[k], "2x1")
@@ -2053,18 +2251,21 @@ def main() -> int:
             "rawlod": (["--tped", rawst + ".tped.gz", "--tfam",
                         rawst + ".tfam", "--raw-lod"] + FLAGS,
                        "rawlod_resident", "lod_windows", False, "1x2")})
+        mark("phase 9")
         phase_workflow(mp)
+        mark("phase 10")
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))
         launches = mp.launches
     finally:
+        exact.stop()
         shutil.rmtree(WORK, ignore_errors=True)
     say(f"smoke seconds: {time.perf_counter() - t_start:.1f}")
     say(smi)  # the card's name and power limit, again beside the results
-    # max |diff| against the plain version (phase 2) and, for K1/K3's
+    # max |diff| against the plain version (phases 2 and 6) and, for K1/K3's
     # shards, against the single-device launch (phase 8)
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
+    kernels = [{"name": k, "route": "cuda", "source": SOURCES[k],
                 "replaces": KERNELS[k], "launches": launches[k],
                 "max_abs_err": max(err[k], mesh_err.get(k, 0.0)),
                 **times[k]} for k in KERNELS]

@@ -2,8 +2,9 @@
 
 nvcc compiles every source under csrc/ into one shared library with a
 plain C interface, for sm_90a, into <repo>/build/garlic_tpu_torch/ at
-first use; the file name carries a hash of the sources and flags, so an
-edited source builds anew and an unchanged one loads the existing file.
+first use: one nvcc per .cu file, all started together, then one link;
+the file name carries a hash of the sources and flags, so an edited
+source builds anew and an unchanged one loads the existing file.
 The library is loaded with ctypes.  Nothing here runs at import time: the
 CPU tests import the port without nvcc.
 """
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "garlic_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -59,21 +60,39 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"liblod_windows_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Runs the commands side by side; raises BuildError with the first
+    failure's stderr.  Returns their stdout + stderr texts."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise BuildError(f"nvcc failed ({p.returncode}): {' '.join(c)}"
+                             f"\n{err}")
+    return [out + err for out, err in outs]
+
+
 def _compile(so: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cus = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + cus
+    objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cus]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise BuildError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                         f"{r.stderr}")
+    try:
+        logs = _run_all([[_nvcc()] + NVCC_FLAGS + ["-c", "-o", o, c]
+                         for c, o in zip(cus, objs)])
+        logs += _run_all([[_nvcc(), "-shared", "-o", tmp] + objs])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_seconds = time.perf_counter() - t0
     # ptxas' register / shared-memory report, kept beside the library
     with open(so[:-3] + ".log", "w") as f:
-        f.write(r.stdout + r.stderr)
+        f.write("".join(logs))
     os.replace(tmp, so)  # atomic: concurrent builders never see half a file
 
 
@@ -101,6 +120,14 @@ def library() -> ctypes.CDLL:
         lib.gt_covered_terms.restype = i
         lib.gt_resident_warps.argtypes = [i, i, i]
         lib.gt_resident_warps.restype = i
+        lib.gt_pair_counts.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+        lib.gt_pair_counts.restype = i
+        lib.gt_wlod_windows.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, p]
+        lib.gt_wlod_windows.restype = i
+        lib.gt_wlod_windows_terms.argtypes = [i, p, p, p, p, p, i, i, i, i,
+                                              i, p]
+        lib.gt_wlod_windows_terms.restype = i
         _lib = lib
         return lib
 

@@ -26,11 +26,11 @@ and the uploads are blocking copies from pageable host memory).
 * Phase IV, fit_gmm_sharded: the lengths split over every shard, each
   EM iteration's packed sums (ops/gmm._em_stats) added in shard order.
 * the weighted path, ld_band_sharded + wlod_windows_sharded: int32 pair
-  counts summed over dp (the band equals the 1x1 band bit for bit), the
-  pair band's W-1 right-halo columns copied from the neighbour's device,
-  and the wLOD window sums per shard in the j order of
-  ops/device_wlod._wlod_windows_dev, the tie scale a max over the
-  shards.
+  counts (K5 per shard) summed over dp (the band equals the 1x1 band bit
+  for bit), the pair band's W-1 right-halo columns copied from the
+  neighbour's device, and the wLOD window sums per shard (K6) in the j
+  order of ops/device_wlod._wlod_windows_dev, the tie scale a max over
+  the shards.
 
 Computed halos (window columns, pair-band columns, the tie scale) are
 device-to-device copies; on one card they are copies within it.
@@ -527,9 +527,10 @@ def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
     the allele frequencies (phased).
 
     For each sp column, every dp shard uploads the 2-bit codes of its
-    rows over the column's loci plus the next W-1 and counts, as int32
-    over row chunks sized by the device budget, its LD-subsample rows'
-    pairs (and, unphased, the homozygosity marginals over all its rows);
+    rows over the column's loci plus the next W-1 and counts (K5), as
+    int32 over row chunks sized by the device budget, its LD-subsample
+    rows' pairs (and, unphased, the homozygosity marginals over all its
+    rows);
     the counts are summed over dp on the column's first device, and
     across processes by an exact all_reduce, so the pair band of the own
     loci is the 1x1 mesh's bit for bit.  The band assembly reads the
@@ -609,12 +610,12 @@ def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
 
     Each shard sums its own window starts, win[:, l] = sum_j
     score[:, l+j] * (1 / LD[l][j]), one product then one add per j, left
-    to right from 0 (ops/device_wlod._wlod_windows_dev), over the scores
-    of its rows and of its loci plus the next W-1: gathered on the
-    device from the per-class table (scalar error, in row chunks sized
-    by the device budget) or the host's f64 TGLS score plane shipped as
-    f32.  The tie scale is the max over the shards (a pmax), and over
-    the processes.
+    to right from 0 (K6, ops/device_wlod.wlod_windows and
+    wlod_windows_terms), over the scores of its rows and of its loci plus
+    the next W-1: gathered from the 2-bit codes through the per-class
+    table (scalar error, in row chunks sized by the device budget) or
+    read from the host's f64 TGLS score plane shipped as f32.  The tie
+    scale is the max over the shards (a pmax), and over the processes.
 
     Adapted from garlic_tpu/parallel/engine.py:769: the score halo from
     the host panel in place of ppermute, no padding."""
@@ -641,26 +642,26 @@ def wlod_windows_sharded(chrom, centro, bands: dict, winsize: int, error,
                           device=dev)
         if sh.nw > 0:
             a, b = sh.block(0, W - 1, L)
-            o = sh.c0 - a
-            inv_ld = 1.0 / bands[(sh.d, sh.s)]
+            # offset-major [W, nw]: the band's transpose is its assembled
+            # rows, so the reciprocal comes out contiguous
+            inv_t = (1.0 / bands[(sh.d, sh.s)].T).contiguous()
             if use_gl:
                 sc = cuda_lod._upload(score[sh.h0:sh.h1, sh.c0:b], dev)
-                _, t = dw._wlod_windows_dev(
-                    sc, inv_ld, cuda_lod._upload(miss[sh.c0:sh.w1], dev), W,
+                _, t = dw.wlod_windows_terms(
+                    sc, inv_t, cuda_lod._upload(miss[sh.c0:sh.w1], dev), W,
                     out=win)
                 scales.append(t.to(mesh.first))
             else:
+                o = sh.c0 - a
                 pkb = cuda_lod._upload(pk[sh.h0:sh.h1, a // 4:(b + 3) // 4],
                                        dev)
                 ax = cuda_lod._upload(aux[:, a:b], dev)
+                ms = (ax[4, o:o + sh.nw] != 0).to(torch.uint8)
                 C = dw._row_chunks(sh.rows, mesh.budget(dev), b - a,
                                    dw._WINDOW_BYTES)
                 for r in range(0, sh.rows, C):
-                    sc = dw._wlod_score_from_table(
-                        cuda_lod.decode_2bit(pkb[r:r + C], b - a), ax[:4])
-                    _, t = dw._wlod_windows_dev(
-                        sc[:, o:], inv_ld, ax[4, o:o + sh.nw], W,
-                        out=win[r:r + C])
+                    _, t = dw.wlod_windows(pkb[r:r + C], ax[:4], inv_t, ms,
+                                           W, col0=o, out=win[r:r + C])
                     scales.append(t.to(mesh.first))
         blocks[(sh.d, sh.s)] = win
     tie_scale = torch.stack(scales).amax() if scales else None

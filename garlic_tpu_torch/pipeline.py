@@ -14,8 +14,9 @@ Engines: `fast` (also what the default `auto` means) runs Phase I on a
 CUDA device through the hand-written kernels (ops/cuda_lod.py: K2 fused
 with the coverage count, K1 for --raw-lod; with --tgls, K4 fused for
 dictionary-form error planes and K3 otherwise) or, on --weighted runs,
-the plain-torch LD band and wLOD window programs (ops/device_wlod.py),
-and the KDE's Gauss transform and the GMM's EM on the same device
+the LD pair-count and wLOD window kernels K5 and K6 around the
+plain-torch band programs (ops/device_wlod.py), and the KDE's Gauss
+transform and the GMM's EM on the same device
 (ops/kde.py, ops/gmm.py); without a CUDA device it exits 1 and
 names `--tpu-engine exact`, the f64 numpy/C++ engine on the host, which
 runs only when asked for.  When the chromosomes' device holdings exceed

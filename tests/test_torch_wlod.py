@@ -29,7 +29,7 @@ from util import (diff_logs, make_panel, read_text, write_map_scaffold,  # noqa:
 
 from garlic_tpu_torch.core.types import MISSING, ChromData  # noqa: E402
 from garlic_tpu_torch.io import genmap  # noqa: E402
-from garlic_tpu_torch.ops import device_wlod, ld, wlod  # noqa: E402
+from garlic_tpu_torch.ops import cuda_lod, device_wlod, ld, wlod  # noqa: E402
 from garlic_tpu_torch.parallel import engine as port_engine  # noqa: E402
 from garlic_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
 from garlic_tpu_torch.pipeline import run_main as port_main  # noqa: E402
@@ -192,8 +192,8 @@ def test_chunked_route_bit_identical(phased, subsample, monkeypatch):
         calls = dict(device_wlod.CALLS)
         dw = _weighted(c, centro, W, False, phased, sub)
         band = _band(c, W, phased, sub)
-        return dw, band, device_wlod.CALLS["wlod_windows"] - \
-            calls["wlod_windows"]
+        return dw, band, device_wlod.CALLS["wlod_windows_plain"] - \
+            calls["wlod_windows_plain"]
 
     one, band1, n1 = run()
     monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", "2e4")
@@ -571,11 +571,14 @@ def _port_chrom(I, L, seed):
 @pytest.mark.parametrize("phased", [False, True], ids=["hr2", "r2"])
 def test_ld_band_on_card_equals_cpu(cuda_device, phased):
     """Integer counts, IEEE f32 element operations and prefix sums in one
-    order: the card's band equals the CPU's bit for bit."""
+    order: the card's band equals the CPU's bit for bit; the counts come
+    from one K5 launch."""
     c = _port_chrom(60, 20000, 21)
     sub = np.arange(0, 60, 3)
     cpu = _band(c, 60, phased, sub)
+    before = cuda_lod.LAUNCHES["pair_counts"]
     gpu = _band(c, 60, phased, sub, cuda_device)
+    assert cuda_lod.LAUNCHES["pair_counts"] == before + 1
     assert torch.equal(gpu.cpu(), cpu)
 
 
@@ -585,7 +588,10 @@ def test_weighted_windows_on_card_equal_cpu(cuda_device, phased):
     c = _port_chrom(50, 20000, 22)
     centro = _Centro(int(c.positions[5000]), int(c.positions[5100]))
     cpu = _weighted(c, centro, 60, False, phased, None)
+    before = dict(cuda_lod.LAUNCHES)
     gpu = _weighted(c, centro, 60, False, phased, None, cuda_device)
+    for k in ("pair_counts", "wlod_windows"):  # K5, K6: one launch each
+        assert cuda_lod.LAUNCHES[k] == before[k] + 1
     assert torch.equal(gpu.blocks[(0, 0)].cpu(), cpu.blocks[(0, 0)])
     assert torch.equal(gpu.tie_scale.cpu(), cpu.tie_scale)
 
@@ -595,16 +601,19 @@ def test_weighted_windows_on_card_equal_cpu(cuda_device, phased):
 def test_chunked_route_on_card_equals_one_chunk(cuda_device, phased,
                                                 monkeypatch):
     """A device budget that splits the rows into chunks of 16 gives the
-    one-chunk run's windows and tie scale."""
+    one-chunk run's windows and tie scale; K6 runs once per chunk."""
     c = _port_chrom(40, 20000, 23)
     sub = np.arange(0, 40, 2)
 
     def run():
-        return _weighted(c, _Centro(), 60, False, phased, sub, cuda_device)
+        before = cuda_lod.LAUNCHES["wlod_windows"]
+        out = _weighted(c, _Centro(), 60, False, phased, sub, cuda_device)
+        return out, cuda_lod.LAUNCHES["wlod_windows"] - before
 
-    one = run()
+    one, n1 = run()
     monkeypatch.setenv("GARLIC_TPU_HBM_BUDGET", "2e7")
-    chunked = run()
+    chunked, n2 = run()
+    assert (n1, n2) == (1, 3)  # 40 rows in chunks of 16
     assert torch.equal(one.blocks[(0, 0)], chunked.blocks[(0, 0)])
     assert torch.equal(one.tie_scale, chunked.tie_scale)
 
@@ -613,10 +622,11 @@ def test_chunked_route_on_card_equals_one_chunk(cuda_device, phased,
 def test_pinned_weighted_run_on_card_matches_exact(wpanel, cuda_device):
     wd = wpanel
     args = _wbase(wd) + ["--weighted"] + WCUT
-    before = device_wlod.CALLS["wlod_windows"]
+    before = dict(cuda_lod.LAUNCHES)
     assert _run(port_main, wd, args + ["--tpu-engine", "fast",
                                        "--out", "wgpu"]) == 0
-    assert device_wlod.CALLS["wlod_windows"] == before + 2
+    for k in ("pair_counts", "wlod_windows"):  # K5, K6 per chromosome
+        assert cuda_lod.LAUNCHES[k] == before[k] + 2
     assert _run(port_main, wd, args + ["--tpu-engine", "exact",
                                        "--out", "wgpux"]) == 0
     _same_outputs(wd, "wgpu", "wgpux")
