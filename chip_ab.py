@@ -12,11 +12,16 @@ takes orders from this process over a pipe, so the two sides are timed
 the same way and in alternating order:
 
 - kernels: K1-K4 on bench chromosome 1 (200 x 500,000, W=60, K3/K4 over
-  the GQ term plane), built as chip_smoke.py phase 2 builds them; per
-  kernel the median of 21 single launches timed with CUDA events
-  (chip_smoke.py's method) and, beside it, the median of 21 spans of 10
-  back-to-back launches divided by 10; order parent, change, change,
-  parent;
+  the GQ term plane), built as chip_smoke.py phase 2 builds them, and
+  K5 (HR^2, and r^2 over seeded first-copy bits) and K6 (over the codes
+  and the per-class score table, and over the f32 score plane) on the
+  same codes with a seeded 1/LD band; per kernel the median of 21 single
+  launches timed with CUDA events (chip_smoke.py's method) and, beside
+  it, the median of 21 spans of 10 back-to-back launches divided by 10;
+  order parent, change, change, parent.  K5 runs as each side's route
+  runs it: into fresh planes where the checkout's pair_counts takes
+  `fresh`, else (the kernel before store mode) into planes zeroed first,
+  the zeroing timed with it;
 - walls: bench.py's panel (200 x (500k, 500k), seed 42), pinned
   (--lod-cutoff 1.5 --size-bounds 500000 1000000), auto (neither), gq
   (pinned with chip_smoke.py's GQ TGLS file) and weighted (pinned with
@@ -64,7 +69,9 @@ CONFIGS = {"pinned": PINNED,
            "auto": COMMON,
            "gq": PINNED + ["--tgls", "{tgls}", "--gl-type", "GQ"],
            "weighted": PINNED + ["--map", "{map}", "--weighted"]}
-KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms")
+KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms",
+           "pair_counts", "pair_counts_r2", "wlod_windows",
+           "wlod_windows_terms")
 
 
 def say(*a):
@@ -96,7 +103,7 @@ def _events_ms(fn, reps, n=21):
 
 class _KernelInputs:
     """The bench chromosome's K1-K4 inputs on the card, as chip_smoke.py
-    phase 2 makes them."""
+    phase 2 makes them, and K5's and K6's over the same codes."""
 
     def __init__(self):
         import chip_smoke
@@ -116,16 +123,55 @@ class _KernelInputs:
         thr = float(math.ceil(OVERLAP_FRAC * W))
         self.a2 = (1.5, thr, pipeline._tie_band([chrom], W, ERROR, False))
         self.a4 = (1.5, thr, pipeline._tie_band([chrom], W, ERROR, True))
+        # K5 / K6: the same codes, seeded first-copy bits, a seeded 1/LD
+        # band and per-class score table (class 3 zeros), no mask
+        import numpy as np
+        from garlic_tpu_torch.ops import device_wlod as dw
+        I, L = chrom.genotypes.shape
+        nwin = L - W + 1
+        rng = np.random.default_rng(13)
+        self.wpk = cuda_lod._upload(cuda_lod.packed_host(chrom), dev)
+        self.fcb = cuda_lod._upload(dw.pack_first_copy(
+            rng.random((I, L)) < 0.5), dev)
+        table = rng.normal(0.0, 0.7, (4, L)).astype(np.float32)
+        table[3] = 0.0
+        self.table = cuda_lod._upload(table, dev)
+        self.inv_t = cuda_lod._upload(
+            rng.uniform(0.05, 1.0, (W, nwin)).astype(np.float32), dev)
+        self.miss = torch.zeros(nwin, dtype=torch.uint8, device=dev)
+        self.score = dw._wlod_score_from_table(
+            cuda_lod.decode_2bit(self.wpk, L), self.table).contiguous()
+        self.T = torch.empty((W, L), dtype=torch.int32, device=dev)
+        self.X = torch.empty_like(self.T)
 
     def calls(self):
+        import inspect
         from garlic_tpu_torch.ops import cuda_lod
+        from garlic_tpu_torch.ops import device_wlod as dw
         pk, tb, ms, terms, a2, a4 = (self.pk, self.tb, self.ms, self.terms,
                                      self.a2, self.a4)
+        wpk, fcb, T, X = self.wpk, self.fcb, self.T, self.X
+        table, inv_t, miss, score = (self.table, self.inv_t, self.miss,
+                                     self.score)
+        if "fresh" in inspect.signature(dw.pair_counts).parameters:
+            def pairs(bits):
+                dw.pair_counts(wpk, bits, T, X, W, fresh=True)
+        else:
+            def pairs(bits):
+                T.zero_()
+                X.zero_()
+                dw.pair_counts(wpk, bits, T, X, W)
         return {"lod_windows": lambda: cuda_lod.lod_windows(pk, tb, ms, W),
                 "covered": lambda: cuda_lod.covered(pk, tb, ms, W, *a2),
                 "window_sums": lambda: cuda_lod.window_sums(terms, ms, W),
                 "covered_terms": lambda: cuda_lod.covered_terms(terms, ms, W,
-                                                                *a4)}
+                                                                *a4),
+                "pair_counts": lambda: pairs(None),
+                "pair_counts_r2": lambda: pairs(fcb),
+                "wlod_windows": lambda: dw.wlod_windows(wpk, table, inv_t,
+                                                        miss, W),
+                "wlod_windows_terms": lambda: dw.wlod_windows_terms(
+                    score, inv_t, miss, W)}
 
 
 def _run_port(argv):

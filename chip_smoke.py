@@ -74,15 +74,19 @@ Phases (any failure raises and exits non-zero, printing no result):
      K5 and K6 run for every chromosome; the warm run prints the tie
      patrol's stage times;
    - on bench chromosome 1 at W=60 and W=120: K5's HR^2 and r^2 counts
-     equal to its plain version's (seeded first-copy bits, packed), K6's
-     windows and tie scale bit for bit over the codes and table and over
-     the f32 score plane (and the plane's equal to the codes'); at W=60
-     each kernel's CUDA-event median (one launch, and 10 back to back)
-     beside its bound, its plain version's and one PyTorch call's
-     (torch.einsum over unfolded planes, never called by the port); the
-     pair band's finalize, the band assembly and the whole weighted
-     Phase I, the route's host inputs (host clock), and the device-memory
-     peak of the whole (torch.cuda.max_memory_allocated);
+     equal to its plain version's (seeded first-copy bits, packed), in
+     store mode (fresh planes, as the route's first row chunk) and in
+     accumulate mode (added to planes holding counts), K6's windows and
+     tie scale bit for bit over the codes and table and over the f32
+     score plane (and the plane's equal to the codes'); at W=60 each
+     kernel's CUDA-event median (one launch, and 10 back to back; K5 in
+     store mode) beside its bound, its plain version's and one PyTorch
+     call's (torch.einsum over unfolded planes: library_pairs,
+     library_windows; never called by the port), and each kernel's time
+     at W=1 (the part that does not grow with W); the pair band's
+     finalize, the band assembly and the whole weighted Phase I, the
+     route's host inputs (host clock), and the device-memory peak of the
+     whole (torch.cuda.max_memory_allocated);
    - on the 50 x (100k, 100k) panel, fast against exact, BED identical:
      --weighted --phased, --weighted --ld-subsample 20, --weighted
      --tgls (GQ), automatic --weighted (.log equal, .kde x identical),
@@ -1315,17 +1319,55 @@ def _pair_plain(pk, fcb, L, W):
     return dw._r2_counts(g, dw.unpack_first_copy(fcb, L), W)
 
 
+def library_pairs(g, fc, W):
+    """One PyTorch call computing K5's planes (T, X) as one f16 einsum
+    (exact for counts below 2048) over the unfolded 0/1 flag planes of the
+    int8 genotypes g [n, L] (-9 missing): HR^2 (fc None) the valid and
+    homozygous planes, r^2 the valid and the two haplotype planes (h1 =
+    a2 | a1 & f, h2 = a2 | a1 & ~f) weighted into (T, X); row 0 holds each
+    locus's own count and the columns past L - d are 0.  Returns a
+    function of no arguments (the timed call), never called by the
+    port."""
+    import torch
+    valid = g != -9
+    if fc is None:
+        chans = [valid, valid & (g != 1)]
+        mix = torch.eye(2)
+    else:
+        a1, a2 = g == 1, g == 2
+        chans = [valid, a2 | (a1 & fc), a2 | (a1 & ~fc)]
+        mix = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 1.0]])
+    flags = torch.stack(chans).to(torch.float16)
+    mix = mix.to(device=g.device, dtype=torch.float16)
+    padded = torch.nn.functional.pad(flags, (0, W - 1))
+    return lambda: torch.einsum("kc,cil,cilw->kwl", mix, flags,
+                                padded.unfold(2, W, 1))
+
+
+def library_windows(score, inv_t):
+    """One PyTorch call computing K6's window sums (without the MISSING
+    mask and the tie scale) as one f32 einsum over the unfolded score
+    plane [I, L] and the offset-major 1/LD rows inv_t [W, nwin].  Returns
+    a function of no arguments (the timed call), never called by the
+    port."""
+    import torch
+    W = inv_t.shape[0]
+    return lambda: torch.einsum("ilw,lw->il", score.unfold(1, W, 1),
+                                inv_t.T)
+
+
 def _weighted_kernels(c, centro, dev):
     """K5 and K6 on bench chromosome 1 against their plain versions at
-    W=60 and W=120: K5's HR^2 and r^2 counts equal (first-copy bits
-    drawn from a seed: the panel is unphased), K6's windows and tie
-    scale bit for bit over the codes and table and over the f32 score
-    plane (and the plane's equal to the codes'), with the band the route
-    builds from K5's counts; then at W=60 the CUDA-event medians of each
-    kernel (one launch, and 10 back to back), its bound, its plain
-    version and one PyTorch call, then the programs around them and the
-    route's host inputs.  Returns ({kernel: max |diff|}, {kernel: the
-    kernels line's times})."""
+    W=60 and W=120: K5's HR^2 and r^2 counts equal in store and
+    accumulate mode (first-copy bits drawn from a seed: the panel is
+    unphased), K6's windows and tie scale bit for bit over the codes and
+    table and over the f32 score plane (and the plane's equal to the
+    codes'), with the band the route builds from K5's counts; then at
+    W=60 the CUDA-event medians of each kernel (one launch, and 10 back
+    to back), its bound, its plain version and one PyTorch call, each
+    kernel at W=1, then the programs around them and the route's host
+    inputs.  Returns ({kernel: max |diff|}, {kernel: the kernels line's
+    times: K5 HR^2 in store mode, K6 over the codes})."""
     import torch
     from garlic_tpu_torch.ops import cuda_lod, device_wlod as dw
     card = _card()
@@ -1340,22 +1382,31 @@ def _weighted_kernels(c, centro, dev):
         nwin = L - W + 1
         planes = {}
         for kind, bits in (("hr2", None), ("r2", fcb)):
-            T = torch.zeros((W, L), dtype=torch.int32, device=dev)
-            X = torch.zeros_like(T)
-            dw.pair_counts(pk, bits, T, X, W)
             t, x = _pair_plain(pk, bits, L, W)
+            # store mode (the route's first row chunk) into planes holding
+            # anything, then accumulate mode onto planes holding counts
+            T = torch.full((W, L), -77, dtype=torch.int32, device=dev)
+            X = torch.full_like(T, -77)
+            dw.pair_counts(pk, bits, T, X, W, fresh=True)
+            T2, X2 = t + 3, x + 3
+            dw.pair_counts(pk, bits, T2, X2, W)
             torch.cuda.synchronize()
-            same = torch.equal(T, t) and torch.equal(X, x)
-            e = float(max((T - t).abs().max(), (X - x).abs().max()))
+            same = {"store": torch.equal(T, t) and torch.equal(X, x),
+                    "accumulate": torch.equal(T2, 2 * t + 3)
+                    and torch.equal(X2, 2 * x + 3)}
+            e = float(max((T - t).abs().max(), (X - x).abs().max(),
+                          (T2 - 2 * t - 3).abs().max(),
+                          (X2 - 2 * x - 3).abs().max()))
             err["pair_counts"] = max(err["pair_counts"], e)
             say(f"  K5 {kind} at {I}x{L}, W={W}: counts equal to the plain "
-                f"version's {same} (max |diff| {e}; sums T {int(T.sum())} "
-                f"X {int(X.sum())})")
-            if not same:
+                f"version's, store mode {same['store']}, accumulate mode "
+                f"{same['accumulate']} (max |diff| {e}; sums T "
+                f"{int(T.sum())} X {int(X.sum())})")
+            if not all(same.values()):
                 raise AssertionError(f"K5 {kind} differs from its plain "
-                                     f"version at W={W}")
+                                     f"version at W={W}: {same}")
             planes[kind] = (T, X)
-            del t, x
+            del t, x, T2, X2
         inv_t = 1.0 / dw._assemble_band(
             dw._pair_band(*planes["hr2"], hf, None, W), W)
         aux = cuda_lod._upload(dw._weighted_aux(c, centro, W, ERROR, MAX_GAP,
@@ -1389,49 +1440,47 @@ def _weighted_kernels(c, centro, dev):
         torch.cuda.empty_cache()
     (T, X), inv_t, table, miss, score = kept
     W, nwin = 60, L - 59
-    Tt, Xt = torch.zeros_like(T), torch.zeros_like(X)  # the timed launches
-    # the yardsticks, one PyTorch call each, never called by the port:
-    # the counts as an einsum over the unfolded 0/1 flag planes (f16,
-    # exact for counts below 2048; row 0 holds each locus's own count),
-    # the windows as an einsum over the unfolded score plane (f32, no
-    # TF32)
+    Tt, Xt = torch.empty_like(T), torch.empty_like(X)  # the timed launches
+    # the yardsticks, one PyTorch call each, never called by the port (see
+    # library_pairs and library_windows)
     torch.backends.cuda.matmul.allow_tf32 = False
     g = cuda_lod.decode_2bit(pk, L)
-    flags = torch.stack([g != -9, (g == 0) | (g == 2)]).to(torch.float16)
-    padded = torch.nn.functional.pad(flags, (0, W - 1))
-    del g
+    fc = dw.unpack_first_copy(fcb, L)
     pairs = I * sum(L - d for d in range(1, W))
     int8_ms = 2 * 2 * pairs / INT8_RATE * 1e3  # AND and add per flag
     win_ms = 2 * add_ms(I, L, W, card)         # a product and an add
     codes, inv_b = I * ((L + 3) // 4), 4 * W * nwin
     runs = {  # name: (kernel, plain, library, (bound, by), library label)
         "pair_counts": (
-            lambda: dw.pair_counts(pk, None, Tt, Xt, W),
+            lambda: dw.pair_counts(pk, None, Tt, Xt, W, fresh=True),
             lambda: _pair_plain(pk, None, L, W),
-            lambda: torch.einsum("fil,filw->fwl", flags,
-                                 padded.unfold(2, W, 1)),
+            library_pairs(g, None, W),
             _bytes_or_ops(codes + 2 * 4 * W * L, int8_ms, card),
             "torch.einsum over the unfolded flags, f16"),
         "pair_counts r2": (
-            lambda: dw.pair_counts(pk, fcb, Tt, Xt, W),
-            lambda: _pair_plain(pk, fcb, L, W), None,
+            lambda: dw.pair_counts(pk, fcb, Tt, Xt, W, fresh=True),
+            lambda: _pair_plain(pk, fcb, L, W),
+            library_pairs(g, fc, W),
             _bytes_or_ops(codes + I * ((L + 7) // 8) + 2 * 4 * W * L,
-                          2 * int8_ms, card), None),
+                          1.5 * int8_ms, card),
+            "torch.einsum over the unfolded valid and haplotype channel "
+            "planes, f16"),
         "wlod_windows": (
             lambda: dw.wlod_windows(pk, table, inv_t, miss, W),
             lambda: dw.wlod_windows_plain(pk, table, inv_t, miss, W),
-            lambda: torch.einsum("ilw,lw->il", score.unfold(1, W, 1),
-                                 inv_t.T),
+            library_windows(score, inv_t),
             _bytes_or_ops(codes + 16 * L + inv_b + nwin + 4 * I * nwin,
                           win_ms, card),
             "torch.einsum over the unfolded score plane, f32"),
         "wlod_windows plane": (
             lambda: dw.wlod_windows_terms(score, inv_t, miss, W),
             lambda: dw.wlod_windows_terms_plain(score, inv_t, miss, W),
-            None,
+            library_windows(score, inv_t),
             _bytes_or_ops(4 * I * L + inv_b + nwin + 4 * I * nwin, win_ms,
-                          card), None),
+                          card),
+            "torch.einsum over the unfolded score plane, f32"),
     }
+    del g, fc
     times = {}
     for name, (kern, plain, lib, (b, by), what) in runs.items():
         t = {"ms": _median_ms(kern), "plain_ms": _median_ms(plain, n=11),
@@ -1449,7 +1498,28 @@ def _weighted_kernels(c, centro, dev):
             "around one call, median of 21; plain 11, library 5); back to "
             f"back {back:.4f} ms, share of bound {b / back:.1%} (CUDA "
             "events around 10 launches, median of 21)")
-    del flags, padded
+    del runs, Tt, Xt
+    torch.cuda.empty_cache()
+    # the part of each kernel that does not grow with W: W=1 (K5 then
+    # only writes row 0 of fresh planes; K6 one product a window, 1/LD 1)
+    T1 = torch.empty((1, L), dtype=torch.int32, device=dev)
+    X1 = torch.empty_like(T1)
+    inv1 = torch.ones((1, L), dtype=torch.float32, device=dev)
+    miss1 = torch.zeros(L, dtype=torch.uint8, device=dev)
+    ones = {"pair_counts": lambda: dw.pair_counts(pk, None, T1, X1, 1,
+                                                  fresh=True),
+            "pair_counts r2": lambda: dw.pair_counts(pk, fcb, T1, X1, 1,
+                                                     fresh=True),
+            "wlod_windows": lambda: dw.wlod_windows(pk, table, inv1, miss1,
+                                                    1),
+            "wlod_windows plane": lambda: dw.wlod_windows_terms(
+                score, inv1, miss1, 1)}
+    for name, fn in ones.items():
+        say(f"  {name} at the bench shape, W=1: kernel "
+            f"{_median_ms(fn):.4f} ms (CUDA events around one call, median "
+            f"of 21); back to back {_median_ms(fn, reps=10):.4f} ms")
+    del T1, X1, inv1, miss1, ones
+    torch.cuda.empty_cache()
     # the programs around the kernels, and the whole weighted Phase I
     P = dw._pair_band(T, X, hf, None, W)
     progs = {
@@ -1476,7 +1546,7 @@ def _weighted_kernels(c, centro, dev):
         dw._weighted_aux(c, centro, W, ERROR, MAX_GAP, MU, M_GEN)), 5)
     say(f"  the route's host inputs at {I}x{L}, W={W} (packed_host twice, "
         f"_weighted_aux): {host:.4f} ms (host clock, median of 5)")
-    del pk, fcb, hf, T, X, Tt, Xt, P, inv_t, table, miss, score
+    del pk, fcb, hf, T, X, P, inv_t, table, miss, score
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)

@@ -120,7 +120,7 @@ def library() -> ctypes.CDLL:
         lib.gt_covered_terms.restype = i
         lib.gt_resident_warps.argtypes = [i, i, i]
         lib.gt_resident_warps.restype = i
-        lib.gt_pair_counts.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
+        lib.gt_pair_counts.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
         lib.gt_pair_counts.restype = i
         lib.gt_wlod_windows.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i,
                                         i, p]

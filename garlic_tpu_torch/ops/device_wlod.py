@@ -21,7 +21,9 @@ O(I * L * W) (src/garlic-roh.cpp:241-276).  Here:
 
 * pair counts per offset d: integer sums over individuals of
   (a_m & a_{m+d}) into int32 [W, L] planes (the JAX package's f32 sums of
-  0/1 are the same integers: every count is below 2^24), K5;
+  0/1 are the same integers: every count is below 2^24), K5, which
+  stores the first row chunk's counts into fresh planes and adds the
+  later chunks';
 * the pair band P[d, m] = ld(m, m + d) from the counts, f32, in the JAX
   expression order (_hr2_finalize, _r2_finalize; plain torch);
 * the LD band by the cumsum decomposition
@@ -308,14 +310,18 @@ def _check_codes(packed, L: int) -> None:
                          f"expected {(L + 3) // 4} for L={L}")
 
 
-def pair_counts(packed, fcbits, T, X, winsize: int) -> None:
-    """K5: adds the pair counts of the rows of the 2-bit codes packed
+def pair_counts(packed, fcbits, T, X, winsize: int,
+                fresh: bool = False) -> None:
+    """K5: the pair counts of the rows of the 2-bit codes packed
     [n, ceil(L/4)] into the int32 [W, L] planes T (both valid) and X
     (HR^2: both homozygous, when fcbits is None; r^2: the x11 haplotype
     count over the rows' first-copy bits fcbits, pack_first_copy's
-    [n, ceil(L/8)] bytes); see _hr2_counts and _r2_counts.  Row 0 and the
-    columns from L - d on are left as they are.  No rows: nothing is
-    added and nothing launched."""
+    [n, ceil(L/8)] bytes); see _hr2_counts and _r2_counts.  fresh: the
+    planes' contents are ignored and every entry is written (the counts,
+    0 in row 0 and in the columns from L - d on), so they may come from
+    torch.empty; else the counts are added and row 0 and the columns from
+    L - d on are left as they are.  No rows: the planes are zeroed when
+    fresh, else left as they are, and nothing is launched."""
     if winsize < 1:
         raise ValueError(f"need winsize >= 1 (winsize={winsize})")
     for name, p in (("T", T), ("X", X)):
@@ -336,17 +342,25 @@ def pair_counts(packed, fcbits, T, X, winsize: int) -> None:
         ins.append(fcbits)
     dev = _same_device(ins)
     if n == 0:
+        if fresh:
+            T.zero_()
+            X.zero_()
         return
     if dev.type == "cpu":
         g = decode_2bit(packed, L)
         t, x = (_hr2_counts(g, winsize) if fcbits is None
                 else _r2_counts(g, unpack_first_copy(fcbits, L), winsize))
-        T += t
-        X += x
+        if fresh:
+            T.copy_(t)
+            X.copy_(x)
+        else:
+            T += t
+            X += x
         return
     _launch("gt_pair_counts", "pair_counts", dev, packed.data_ptr(),
             None if fcbits is None else fcbits.data_ptr(), T.data_ptr(),
-            X.data_ptr(), n, L, packed.shape[1], (L + 7) // 8, winsize)
+            X.data_ptr(), n, L, packed.shape[1], (L + 7) // 8, winsize,
+            int(bool(fresh)))
 
 
 def _check_windows(shape, inv_t, miss, winsize: int, col0: int, out):
@@ -492,17 +506,20 @@ def _row_chunks(n: int, budget: float, L2: int,
 def _pair_counts_chunked(pk_rows, fc_rows, L: int, winsize: int,
                          C: int):
     """The (total, hom-hom or x11) int32 [W, L] pair counts over the rows
-    of the packed codes pk_rows, K5 adding each chunk of C rows into the
-    planes (exact integers, so any C gives the same counts;
-    device_wlod.py:296, 371); zeros when there are no rows.  fc_rows: the
-    rows' first-copy bits (host bool [n, L], phased), which go up
-    bit-packed, or None (HR^2)."""
-    T = torch.zeros((winsize, L), dtype=torch.int32, device=pk_rows.device)
-    X = torch.zeros_like(T)
+    of the packed codes pk_rows: K5 stores the first chunk of C rows into
+    fresh (uninitialised) planes and adds each later chunk (exact
+    integers, so any C gives the same counts; device_wlod.py:296, 371);
+    zeros when there are no rows.  fc_rows: the rows' first-copy bits
+    (host bool [n, L], phased), which go up bit-packed, or None (HR^2)."""
+    T = torch.empty((winsize, L), dtype=torch.int32, device=pk_rows.device)
+    X = torch.empty_like(T)
     fcb = None if fc_rows is None else pack_first_copy(fc_rows)
+    if pk_rows.shape[0] == 0:
+        return T.zero_(), X.zero_()
     for s in range(0, pk_rows.shape[0], C):
         pair_counts(pk_rows[s:s + C], None if fcb is None else
-                    _upload(fcb[s:s + C], pk_rows.device), T, X, winsize)
+                    _upload(fcb[s:s + C], pk_rows.device), T, X, winsize,
+                    fresh=s == 0)
     return T, X
 
 
