@@ -21,7 +21,14 @@ the same way and in alternating order:
   order parent, change, change, parent.  K5 runs as each side's route
   runs it: into fresh planes where the checkout's pair_counts takes
   `fresh`, else (the kernel before store mode) into planes zeroed first,
-  the zeroing timed with it;
+  the zeroing timed with it; K7 and K8 through the functions the
+  automatic run calls, on seeded inputs of the bench shapes (a pool of
+  3,328,600 f32 windows from a two-mode mixture against its 512-point
+  grid: ops/kde.gauss_sums, upload included; 5,530 ROH lengths from a
+  three-mode mixture, K = 3: parallel/engine.fit_gmm_sharded over the
+  card's 1x1 mesh), so the parent's side runs its plain route (the
+  torch transform, the host loop of torch E-steps) and the change's the
+  kernels;
 - walls: bench.py's panel (200 x (500k, 500k), seed 42), pinned
   (--lod-cutoff 1.5 --size-bounds 500000 1000000), auto (neither), gq
   (pinned with chip_smoke.py's GQ TGLS file) and weighted (pinned with
@@ -71,7 +78,8 @@ CONFIGS = {"pinned": PINNED,
            "weighted": PINNED + ["--map", "{map}", "--weighted"]}
 KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms",
            "pair_counts", "pair_counts_r2", "wlod_windows",
-           "wlod_windows_terms")
+           "wlod_windows_terms", "gauss_sums", "gmm_em")
+POOL, ROH = 3_328_600, 5_530  # the bench auto run's pool and ROH count
 
 
 def say(*a):
@@ -143,11 +151,25 @@ class _KernelInputs:
             cuda_lod.decode_2bit(self.wpk, L), self.table).contiguous()
         self.T = torch.empty((W, L), dtype=torch.int32, device=dev)
         self.X = torch.empty_like(self.T)
+        # K7 / K8: a seeded pool and its grid, seeded ROH lengths
+        from garlic_tpu_torch.ops import kde
+        from garlic_tpu_torch.parallel.mesh import make_mesh
+        pool = np.concatenate([rng.normal(-1.5, 0.8, POOL // 2),
+                               rng.normal(1.2, 0.6, POOL - POOL // 2)])
+        self.h, self.targets, _ = kde._kde_grid(pool)
+        self.pool = pool.astype(np.float32)
+        a, b = ROH * 45 // 100, ROH * 33 // 100
+        self.lengths = np.concatenate([
+            rng.normal(2.2e5, 5e4, a), rng.normal(8.5e5, 1.8e5, b),
+            rng.normal(2.6e6, 6e5, ROH - a - b)]).clip(1e4, None)
+        self.init = chip_smoke._gmm_init(self.lengths)
+        self.mesh = make_mesh(1, 1, [dev])
 
     def calls(self):
         import inspect
-        from garlic_tpu_torch.ops import cuda_lod
+        from garlic_tpu_torch.ops import cuda_lod, kde
         from garlic_tpu_torch.ops import device_wlod as dw
+        from garlic_tpu_torch.parallel import engine
         pk, tb, ms, terms, a2, a4 = (self.pk, self.tb, self.ms, self.terms,
                                      self.a2, self.a4)
         wpk, fcb, T, X = self.wpk, self.fcb, self.T, self.X
@@ -171,7 +193,11 @@ class _KernelInputs:
                 "wlod_windows": lambda: dw.wlod_windows(wpk, table, inv_t,
                                                         miss, W),
                 "wlod_windows_terms": lambda: dw.wlod_windows_terms(
-                    score, inv_t, miss, W)}
+                    score, inv_t, miss, W),
+                "gauss_sums": lambda: kde.gauss_sums(
+                    self.pool, self.targets, self.h, self.mesh.first),
+                "gmm_em": lambda: engine.fit_gmm_sharded(
+                    self.lengths, 3, *self.init, self.mesh)}
 
 
 def _run_port(argv):

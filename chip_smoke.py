@@ -54,17 +54,38 @@ Phases (any failure raises and exits non-zero, printing no result):
      the .kde x column byte-identical and y within 1e-5 * max y of the
      exact engine's; K2 run for every chromosome of each fast run (the
      fused route, dispatched once Phase II has chosen the cutoff), K1
-     never;
+     never, K7 (gauss_sums, the Gauss transform) and K8 (gmm_em, the
+     GMM-EM in fit mode: the run calls more ROH than the device EM's
+     4096 gate) at least once, csrc/kde_gmm.cu; each run's
+     phase2-cutoff split into the pool read and store, the exact
+     sampler, the grid, the transform, the .kde writer and the cutoff
+     search, and its phase4-gmm into the EM and the boundaries (host
+     clock, the functions wrapped: _Split);
    - the device EM against the host EM (the same iterations and %g
      lines) on the run's ROH lengths, or on a synthetic >= 4096 mixture
      when the run calls fewer;
    - medians on the card: the pool's upload, the device Gauss transform
      against the host f64 one, the device EM against fit_gmm (both
      over the card's 1x1 mesh: gauss_transform_sharded, fit_gmm_sharded);
+   - K7 and K8 against their plain versions on the card at the bench
+     shapes: K7 over the cold run's pool (3,328,600 f32 sources x 512
+     targets) within 1e-6 x max y of gauss_sums_plain, closer than it to
+     the f64 sums of the same f32 terms (f64_term_sums), at most
+     HOST_MARGIN times its distance from the host f64 transform (mostly
+     the terms' own f32 error), its terms bit-equal to the plain
+     version's on 256 of the pool's sources (k7_terms_bit_equal), two
+     launches bit-equal; K8 on the run's ROH
+     lengths (K = 3) in fit mode with the plain loop's iterations, flag
+     and %g lines (rtol 1e-10), in stats mode within rtol 1e-12 of
+     _em_stats, two launches of each bit-equal; CUDA-event medians of
+     21: K7 one launch and 10 back to back, K8's whole fit and its time
+     per iteration, stats mode per launch, beside the bounds
+     (gauss_bound_ms, em_bound_ms) and the plain versions' times (no one
+     PyTorch call computes either: library none);
    - on the 50 x (100k, 100k) panel, fast against exact: --auto-winsize
      from 40 by 20 (the same window size, BED identical, every .kde's x
-     column identical; K2, not K1) and --winsize-multi 40 60 80 (the
-     same .kde files, x identical);
+     column identical; K2, not K1; K7 per candidate) and --winsize-multi
+     40 60 80 (the same .kde files, x identical; K7 three times);
 6. weighted path (--weighted with a genetic map, --phased, --cm; its
    kernels K5, pair_counts, and K6, wlod_windows, csrc/wlod.cu, beside
    the plain-torch band programs of ops/device_wlod.py):
@@ -180,7 +201,7 @@ Phases (any failure raises and exits non-zero, printing no result):
 Every run prints its --tpu-profile phase split; each phase prints its
 seconds, and the end the smoke's.
 
-The line before the last is {"kernels": [...]} (K1-K6; launches summed
+The line before the last is {"kernels": [...]} (K1-K8; launches summed
 over the main path's runs), the last line {"ok": true, "device": {...}}.  The
 script imports no JAX (an import hook refuses it), writes only under
 build/chip_smoke/, removed at the end, and ends every subprocess it
@@ -236,18 +257,28 @@ CARD = "NVIDIA H100 80GB HBM3"  # the card the bounds are computed for
 MEMORY_RATE = 3.35e12  # its memory rate in bytes/s (NVIDIA's data sheet)
 # every kernel of the port: what it replaces (K1-K4 the Pallas TPU kernels,
 # K5 and K6 the XLA programs of the weighted path: K5 also replaces
-# _r2_counts_chunk, device_wlod.py:317) and its source
+# _r2_counts_chunk, device_wlod.py:317; K7 and K8 the automatic run's
+# Gauss transform and GMM-EM: K7 also replaces garlic_tpu/ops/kde.py:119
+# gauss_transform(device=True)) and its source
 KERNELS = {"lod_windows": "garlic_tpu/ops/pallas_lod.py:93",
            "covered": "garlic_tpu/ops/pallas_lod.py:291",
            "window_sums": "garlic_tpu/ops/pallas_lod.py:175",
            "covered_terms": "garlic_tpu/ops/pallas_lod.py:402",
            "pair_counts": "garlic_tpu/ops/device_wlod.py:247",
-           "wlod_windows": "garlic_tpu/ops/device_wlod.py:604"}
+           "wlod_windows": "garlic_tpu/ops/device_wlod.py:604",
+           "gauss_sums": "garlic_tpu/parallel/engine.py:250",
+           "gmm_em": "garlic_tpu/parallel/engine.py:309"}
 LOD_KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms")
 WLOD_KERNELS = ("pair_counts", "wlod_windows")
+AUTO_KERNELS = ("gauss_sums", "gmm_em")
 SOURCES = {
     **dict.fromkeys(LOD_KERNELS, "garlic_tpu_torch/csrc/lod_windows.cu"),
-    **dict.fromkeys(WLOD_KERNELS, "garlic_tpu_torch/csrc/wlod.cu")}
+    **dict.fromkeys(WLOD_KERNELS, "garlic_tpu_torch/csrc/wlod.cu"),
+    **dict.fromkeys(AUTO_KERNELS, "garlic_tpu_torch/csrc/kde_gmm.cu")}
+# K7's exp runs on the special-function units, 16 results a clock per SM
+# (MUFU.EX2), its other operations on the 128 f32 lanes; K8's on the 64
+# f64 lanes of an SM
+MUFU_LANES, FP64_LANES = 16, 64
 # TGLS tokens, each led by its separator: GQ integers 20-59 (the spread of
 # tests/util.write_tgls; 40 distinct tokens, so the native reader keeps
 # the dictionary form) and 1,000 GL values in [-0.01, -0.00001] (more
@@ -821,8 +852,9 @@ class _MainPath:
             device=None):
         """kernel: a kernel's name, a tuple of them, or one of the weighted
         path's plain-torch programs (device_wlod.CALLS), that must each
-        run at least at_least times; absent: a kernel that must not run;
-        device: see _run_port."""
+        run at least at_least times, or a dict of such names to their
+        least counts; absent: a kernel that must not run; device: see
+        _run_port."""
         def port():
             self.walls[label], self.stderr[label] = _run_port(
                 argv + ["--out", self.out(label)], label, device)
@@ -840,10 +872,12 @@ class _MainPath:
         say(f"    launches: {got}")
         for k in self.launches:
             self.launches[k] += got[k]
-        for k in _names(kernel):
-            if got[k] < at_least:
+        want = (kernel if isinstance(kernel, dict)
+                else dict.fromkeys(_names(kernel), at_least))
+        for k, least in want.items():
+            if got[k] < least:
                 raise AssertionError(f"{label}: {k} ran {got[k]} times, "
-                                     f"expected >= {at_least}")
+                                     f"expected >= {least}")
         if absent is not None and got[absent]:
             raise AssertionError(f"{label}: {absent} ran {got[absent]} "
                                  "times, expected none")
@@ -1093,6 +1127,248 @@ def _check_em(x, what):
         raise AssertionError(f"device EM differs from the host EM on {what}")
 
 
+class _Split:
+    """Host-clock seconds spent in named functions: each (owner,
+    attribute) of `parts` ({label: [(owner, attribute), ...]}) is replaced
+    by a wrapper that times its calls until close(); a wrapped function
+    called inside another counts in the outer one's label only.  Every
+    function wrapped returns host data, so its device work has ended
+    when it returns."""
+
+    def __init__(self, parts):
+        self.sec = dict.fromkeys(parts, 0.0)
+        self.saved = []
+        self.depth = 0
+        for label, targets in parts.items():
+            for owner, name in targets:
+                fn = getattr(owner, name)
+                self.saved.append((owner, name, fn))
+                setattr(owner, name, self._timed(label, fn))
+
+    def _timed(self, label, fn):
+        def timed(*a, **k):
+            if self.depth:
+                return fn(*a, **k)
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.depth -= 1
+                self.sec[label] += time.perf_counter() - t0
+        return timed
+
+    def take(self):
+        """The seconds so far, then zeroes them."""
+        out = dict(self.sec)
+        self.sec = dict.fromkeys(self.sec, 0.0)
+        return out
+
+    def close(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def _auto_split():
+    """_Split over the automatic run's Phase II (pool read and store, the
+    exact sampler, the grid, the transform, the .kde writer, the cutoff
+    search) and Phase IV (the EM, the boundaries)."""
+    from garlic_tpu_torch import pipeline
+    from garlic_tpu_torch.io import kdefile, poolcache
+    from garlic_tpu_torch.ops import brent, cutoff, gmm, kde
+    from garlic_tpu_torch.parallel import engine
+    return _Split({
+        "pool read": [(poolcache.PoolCache, "lookup")],
+        "pool store": [(poolcache.PoolCache, "store")],
+        "sampler": [(pipeline, "_exact_thinned_samples_sharded")],
+        "grid": [(kde, "_kde_grid")],
+        "transform": [(engine, "gauss_transform_sharded"),
+                      (kde, "gauss_transform_host")],
+        ".kde write": [(kdefile, "write_kde")],
+        "cutoff search": [(cutoff, "get_min_btw_modes"),
+                          (cutoff, "cutoff_tie_probe")],
+        "EM": [(engine, "fit_gmm_sharded"), (gmm, "fit_gmm")],
+        "boundaries": [(brent, "find_boundary")]})
+
+
+def gauss_bound_ms(n, M, card):
+    """(least time in ms, "bytes" or "operations") of K7 over n sources
+    and M targets: the sources and targets read once and the f64 sums
+    written once, against n * M exps at the special-function rate and 4
+    f32 operations a term (subtract, square, scale, add) at the f32 rate,
+    the larger of the two."""
+    sms, clock, _ = card
+    terms = n * M
+    ops_ms = max(terms / (sms * MUFU_LANES * clock),
+                 4 * terms / (sms * FP32_LANES * clock)) * 1e3
+    return _bytes_or_ops(4 * n + 4 * M + 8 * M, ops_ms, card)
+
+
+def em_bound_ms(N, K, iterations, card):
+    """(least time in ms, "bytes" or "operations") of K8's fit over N
+    points, K components and this run's iterations: the points and the
+    parameters read once and the result written once, against the plain
+    E-step's f64 operations, 18 a point and component and 4 a point
+    (each exp, log and division counted as one), at 64 f64 lanes an
+    SM."""
+    sms, clock, _ = card
+    ops = N * iterations * (18 * K + 4)
+    return _bytes_or_ops(8 * N + 24 * K + 8 * (3 * K + 4),
+                         ops / (sms * FP64_LANES * clock) * 1e3, card)
+
+
+def f64_term_sums(src, tgt, neg_inv_h2):
+    """The f64 sums of gauss_sums_plain's f32 terms (each term as the
+    plain version makes it, the terms added in f64): the sums that K7's
+    and the plain version's f32 orders approximate.  Both make the same
+    terms, so their distance from the host f64 transform is mostly the
+    terms' own f32 error; their distance from these sums is their
+    summation's alone."""
+    import torch
+    from garlic_tpu_torch.ops import kde
+    out = torch.zeros(tgt.shape[0], dtype=torch.float64, device=src.device)
+    for s in range(0, src.shape[0], kde.BLOCK):
+        d = src[s:s + kde.BLOCK, None] - tgt[None, :]
+        d.square_().mul_(float(neg_inv_h2)).exp_()
+        out += d.double().sum(dim=0)
+    return out
+
+
+def k7_terms_bit_equal(src, tgt, neg_inv_h2, count=256):
+    """True when K7 makes gauss_sums_plain's f32 terms bit for bit, on
+    `count` sources spread over src: each launch takes one run of 16
+    sources (K7's float4 path), the source at one of the run's 16 places
+    in turn and the other 15 so far off the grid that their terms are
+    exactly 0 on both sides ((d * d) overflows to inf), so each sum is
+    its one term, exactly."""
+    import torch
+    from garlic_tpu_torch.ops import kde
+    far = torch.full((16,), 1e20, dtype=torch.float32, device=src.device)
+    for q, i in enumerate(np.linspace(0, src.shape[0] - 1, count,
+                                      dtype=np.int64)):
+        run = far.clone()
+        run[q % 16] = src[int(i)]
+        if not torch.equal(kde.gauss_sums_cuda(run, tgt, neg_inv_h2),
+                           kde.gauss_sums_plain(run, tgt, neg_inv_h2)):
+            return False
+    return True
+
+
+# K7 may be this much farther than the plain version from the host f64
+# transform: both add the same f32 terms (k7_terms_bit_equal), whose own
+# error is that distance; only their summation orders differ.
+HOST_MARGIN = 1.01
+
+
+def _auto_kernels(pool, lengths):
+    """K7 and K8 against their plain versions on the card at the bench
+    shapes (the warm auto run's pool and ROH lengths): the checks, the
+    CUDA-event medians beside the bounds and the plain versions' times.
+    Returns (max |diff| by kernel, times by kernel)."""
+    import torch
+    from garlic_tpu_torch.core.fmt import g
+    from garlic_tpu_torch.ops import gmm, kde
+    card = _card()
+    dev = torch.device("cuda", 0)
+    err, times = {}, {}
+    # K7 over the pool's f32 sources and the grid's f32 targets
+    h, targets, _ = kde._kde_grid(pool)
+    n, M = pool.size, targets.size
+    src = torch.from_numpy(pool.astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(targets.astype(np.float32)).to(dev)
+    nih2 = -np.float32(1.0 / (h * h))
+    a = kde.gauss_sums_cuda(src, tgt, nih2)
+    b = kde.gauss_sums_cuda(src, tgt, nih2)
+    p = kde.gauss_sums_plain(src, tgt, nih2)
+    f = f64_term_sums(src, tgt, nih2)
+    torch.cuda.synchronize()
+    a, b, p, f = (t.cpu().numpy() for t in (a, b, p, f))
+    host = kde.gauss_transform_host(pool, targets, h)
+    dk, dp = (float(np.abs(v / n - host).max() / host.max())
+              for v in (a, p))
+    fk, fp = (float(np.abs(v - f).max() / f.max()) for v in (a, p))
+    terms = k7_terms_bit_equal(src, tgt, nih2)
+    err["gauss_sums"] = float(np.abs(a - p).max())
+    say(f"  K7 gauss_sums on the pool ({n} sources x {M} targets): max "
+        f"|K7 - plain| = {err['gauss_sums'] / p.max():.3g} * max y; "
+        f"from the f64 sums of the same f32 terms {fk:.3g} * max y "
+        f"(plain {fp:.3g}); from the host f64 transform {dk:.3g} * max y "
+        f"(plain {dp:.3g}: the f32 terms' own error, the same terms in "
+        f"both; ratio {dk / dp:.6f}, at most {HOST_MARGIN}); terms "
+        f"bit-equal to the plain version's on 256 sources {terms}; two "
+        f"launches bit-equal {np.array_equal(a, b)}")
+    if (err["gauss_sums"] > 1e-6 * p.max() or fk > fp
+            or dk > HOST_MARGIN * dp or not terms
+            or not np.array_equal(a, b)):
+        raise AssertionError("K7 differs from its plain version")
+    bound, by = gauss_bound_ms(n, M, card)
+    t = {"ms": _median_ms(lambda: kde.gauss_sums_cuda(src, tgt, nih2)),
+         "plain_ms": _median_ms(lambda: kde.gauss_sums_plain(src, tgt,
+                                                             nih2)),
+         "bound_ms": bound, "bound_by": by, "library_ms": None}
+    back = _median_ms(lambda: kde.gauss_sums_cuda(src, tgt, nih2), reps=10)
+    times["gauss_sums"] = t
+    say(f"  K7 at the bench shape: kernel {t['ms']:.4f} ms, back to back "
+        f"{back:.4f} ms, bound {bound:.4f} ms ({by}: {n * M:.3g} exps at "
+        f"{MUFU_LANES} a clock per SM), share of bound {bound / t['ms']:.1%}"
+        f" / {bound / back:.1%}, plain {t['plain_ms']:.4f} ms, library "
+        "none (no one PyTorch call computes it)")
+    del src, tgt
+
+    # K8 on the ROH lengths, K = 3 (the default --nclust)
+    k, N = 3, lengths.size
+    init = _gmm_init(lengths, k)
+    x = torch.from_numpy(np.ascontiguousarray(lengths)).to(dev)
+    w, mu, var = (torch.from_numpy(v).to(dev) for v in init)
+    fits = [gmm.fit_em([x], k, *init, dev) for _ in range(2)]
+    plain = gmm.fit_em_plain([x], k, *init, dev)
+    s1, s2 = gmm.em_stats(x, w, mu, var), gmm.em_stats(x, w, mu, var)
+    sp = gmm._em_stats(x, w, mu, var)
+    torch.cuda.synchronize()
+    pk = [np.concatenate([r.weights, r.means, r.variances])
+          for r in fits + [plain]]
+    same = (fits[0].iterations == plain.iterations
+            and fits[0].converged == plain.converged
+            and [g(float(v)) for v in pk[0]] == [g(float(v)) for v in pk[2]]
+            and np.allclose(pk[0], pk[2], rtol=1e-10, atol=0))
+    bit = (np.array_equal(pk[0], pk[1]) and torch.equal(s1, s2)
+           and fits[0].loglikelihood == fits[1].loglikelihood)
+    srel = float(((s1 - sp).abs() / sp.abs()).max())
+    err["gmm_em"] = max(float(np.abs(pk[0] - pk[2]).max()),
+                        float((s1 - sp).abs().max()))
+    it = fits[0].iterations
+    say(f"  K8 gmm_em on {N} ROH lengths, K={k}: fit mode {it} iterations "
+        f"(plain loop {plain.iterations}), converged {fits[0].converged}, "
+        f"%g parameters {'equal' if same else 'DIFFER'}, max rel |diff| "
+        f"{float(np.max(np.abs(pk[0] - pk[2]) / np.abs(pk[2]))):.3g}; "
+        f"stats mode max rel |diff| {srel:.3g}; two launches bit-equal "
+        f"{bit}")
+    if not same or not bit or srel > 1e-12:
+        raise AssertionError("K8 differs from its plain version")
+    out = torch.empty(3 * k + 4, dtype=torch.float64, device=dev)
+
+    def fit(max_iter=1000):
+        gmm._em_launch(x, w, mu, var, out, fit=True, n=N,
+                       max_iter=max_iter, precision=1e-5)
+    bound, by = em_bound_ms(N, k, it, card)
+    t = {"ms": _median_ms(fit),
+         "plain_ms": _median_ms(lambda: gmm.fit_em_plain([x], k, *init,
+                                                         dev), n=7),
+         "bound_ms": bound, "bound_by": by, "library_ms": None}
+    one = _median_ms(lambda: fit(1))
+    stats = _median_ms(lambda: gmm.em_stats(x, w, mu, var))
+    stats_plain = _median_ms(lambda: gmm._em_stats(x, w, mu, var))
+    times["gmm_em"] = t
+    per = (t["ms"] - one) / max(it - 1, 1)
+    say(f"  K8 at the bench shape: fit mode {t['ms']:.4f} ms for {it} "
+        f"iterations, {per * 1e3:.2f} us per iteration ((fit - fit with "
+        f"max_iter 1) / {it - 1}; max_iter 1: {one:.4f} ms), bound "
+        f"{bound:.4f} ms ({by}), share of bound {bound / t['ms']:.2%}, "
+        f"plain loop {t['plain_ms']:.4f} ms; stats mode {stats:.4f} ms "
+        f"per launch (plain _em_stats {stats_plain:.4f} ms); library none")
+    return err, times
+
+
 def phase_auto_path(mp, bench_files, small_files, nchrom):
     import torch
     from garlic_tpu_torch import pipeline
@@ -1116,19 +1392,34 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
 
     pipeline._exact_thinned_samples_sharded = counting_sampler
     gmm.select_size_classes = recording_select
+    split = _auto_split()
     try:
         for label, engine, calls in (("auto_fast_cold", "fast", 1),
                                      ("auto_fast_warm", "fast", 0),
                                      ("auto_exact", "exact", 0)):
             n0 = len(pools)
-            mp.run(base + ["--tpu-engine", engine], label, "covered",
-                   nchrom if engine == "fast" else 0, absent="lod_windows")
+            # the fast runs: K2 for every chromosome, one K7 (one shard)
+            # and one K8 fit (5,530 ROH, above the device EM's gate)
+            mp.run(base + ["--tpu-engine", engine], label,
+                   {"covered": nchrom, "gauss_sums": 1, "gmm_em": 1}
+                   if engine == "fast" else None, absent="lod_windows")
             say(f"    exact sampler calls: {len(pools) - n0}")
             if len(pools) - n0 != calls:
                 raise AssertionError(f"{label}: the exact sampler ran "
                                      f"{len(pools) - n0} times, expected "
                                      f"{calls}")
+            sec = split.take()
+            prof = dict(re.findall(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s",
+                                   mp.stderr[label], flags=re.M))
+            say(f"    phase2-cutoff {prof.get('phase2-cutoff')}s: "
+                + ", ".join(f"{k} {sec[k]:.4f}" for k in (
+                    "pool read", "sampler", "pool store", "grid",
+                    "transform", ".kde write", "cutoff search"))
+                + f"; phase4-gmm {prof.get('phase4-gmm')}s: EM "
+                f"{sec['EM']:.4f}, boundaries {sec['boundaries']:.4f} "
+                "(host clock, seconds)")
     finally:
+        split.close()
         pipeline._exact_thinned_samples_sharded = sampler
         gmm.select_size_classes = select
     fast = ("auto_fast_cold", "auto_fast_warm")
@@ -1167,12 +1458,12 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     times = {
         "pool H2D (f32)": _median_ms(
             lambda: torch.from_numpy(f32).to("cuda"), n=11),
-        "device Gauss transform (gauss_transform_sharded, 1x1)":
+        "device Gauss transform (gauss_transform_sharded, 1x1: K7)":
             _median_wall_ms(transform, n=7),
         "host f64 Gauss transform": _median_wall_ms(
             lambda: kde.gauss_transform_host(pool, targets, h),
             n=3),
-        "device EM (fit_gmm_sharded, 1x1)": _median_wall_ms(
+        "device EM (fit_gmm_sharded, 1x1: K8 fit mode)": _median_wall_ms(
             lambda: engine.fit_gmm_sharded(lengths, 3, *init, one_card),
             n=7),
         "fit_gmm (host)": _median_wall_ms(
@@ -1183,6 +1474,7 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
         f"{np.abs(y_dev - y_host).max() / y_host.max():.3g} * max y")
     for k, v in times.items():
         say(f"  {k}: {v:.3f} ms (median)")
+    err, ktimes = _auto_kernels(pool, lengths)
 
     stped, stfam = small_files
     sbase = ["--tped", stped, "--tfam", stfam] + SEARCH_FLAGS
@@ -1191,8 +1483,8 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     for label, engine in (("search_fast", "fast"), ("search_exact",
                                                     "exact")):
         mp.run(sbase + search + ["--tpu-engine", engine], label,
-               "covered", nchrom if engine == "fast" else 0,
-               absent="lod_windows")
+               {"covered": nchrom, "gauss_sums": 1}
+               if engine == "fast" else None, absent="lod_windows")
     ws = [mp.logged(k, r"Selected window size: (\d+)")
           for k in ("search_fast", "search_exact")]
     say(f"  selected window size: fast {ws[0]}, exact {ws[1]}")
@@ -1203,12 +1495,13 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
     for label, engine in (("explore_fast", "fast"), ("explore_exact",
                                                      "exact")):
         mp.run(sbase + ["--winsize-multi", "40", "60", "80", "--tpu-engine",
-                        engine], label)
+                        engine], label,
+               {"gauss_sums": 3} if engine == "fast" else None)
     if len(mp.kde_files("explore_exact")) != 3:
         raise AssertionError("--winsize-multi 40 60 80 wrote "
                              f"{mp.kde_files('explore_exact')}")
     mp.same_kde(("explore_fast",), "explore_exact")
-    return times
+    return err, ktimes
 
 
 def _bytes_or_ops(nbytes, ops_ms, card):
@@ -2277,7 +2570,9 @@ def main() -> int:
         phase_main_path(panel, mp, tped, tfam, small, small_files, sgl, sgq)
         mark("phase 4")
         nchrom = len(panel.chrom_names)
-        phase_auto_path(mp, (tped, tfam), small_files, nchrom)
+        aerr, atimes = phase_auto_path(mp, (tped, tfam), small_files, nchrom)
+        err.update(aerr)
+        times.update(atimes)
         mark("phase 5")
         _, werr, wtimes = phase_weighted(mp, nchrom, tfam, wtped, wmap,
                                          split, wruns, exact)

@@ -128,6 +128,16 @@ def library() -> ctypes.CDLL:
         lib.gt_wlod_windows_terms.argtypes = [i, p, p, p, p, p, i, i, i, i,
                                               i, p]
         lib.gt_wlod_windows_terms.restype = i
+        d, ll = ctypes.c_double, ctypes.c_longlong
+        lib.gt_gauss_blocks.argtypes = [i, ll]
+        lib.gt_gauss_blocks.restype = i
+        lib.gt_gauss_sums.argtypes = [i, p, p, fl, ll, i, i, p, p, p]
+        lib.gt_gauss_sums.restype = i
+        lib.gt_gmm_em_blocks.argtypes = [i, i, i]
+        lib.gt_gmm_em_blocks.restype = i
+        lib.gt_gmm_em.argtypes = [i, p, i, i, d, p, p, p, p, p, p, i, i, d,
+                                  d, i, p]
+        lib.gt_gmm_em.restype = i
         _lib = lib
         return lib
 

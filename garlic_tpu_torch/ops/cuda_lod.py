@@ -33,9 +33,11 @@ from .lod import window_missing_mask
 # kernel launches by wrapper; chip_smoke.py zeroes and reads them.  K1-K4
 # keep the first four positions (resident_warps passes a key's position
 # to the library); K5 and K6, the weighted path's kernels, are launched
-# by ops/device_wlod.py
+# by ops/device_wlod.py, K7 (the Gauss transform) by ops/kde.py and K8
+# (the GMM-EM) by ops/gmm.py
 LAUNCHES = {"lod_windows": 0, "covered": 0, "window_sums": 0,
-            "covered_terms": 0, "pair_counts": 0, "wlod_windows": 0}
+            "covered_terms": 0, "pair_counts": 0, "wlod_windows": 0,
+            "gauss_sums": 0, "gmm_em": 0}
 
 
 def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:

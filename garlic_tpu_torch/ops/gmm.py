@@ -5,8 +5,13 @@ the %g guard (_g_format_stable) and the host path of selectSizeClasses
 are copies of garlic_tpu's (each names its source line; the boundary
 root finder is ops/brent.py); what moves to the device is the EM loop
 that garlic_tpu runs as an f64 lax.while_loop on a mesh
-(fit_gmm_sharded, parallel/engine.py:309-443), here an f64 torch loop
-over the shards of the fast engine's mesh (fit_em).
+(fit_gmm_sharded, parallel/engine.py:309-443), here fit_em over the
+shards of the fast engine's mesh: on one CUDA device of one process the
+whole loop is one launch of the hand kernel K8 (csrc/kde_gmm.cu, fit
+mode); over several shards or processes a host loop whose E-steps are
+K8 in stats mode on CUDA shards; on the CPU the plain loop (fit_em_plain
+over _em_stats, K8's plain versions, which chip_smoke.py also holds K8
+to on the card).  K8's launches count in cuda_lod.LAUNCHES["gmm_em"].
 """
 
 from __future__ import annotations
@@ -17,6 +22,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from . import _build
+from .cuda_lod import _launch
 
 # garlic_tpu/ops/gmm.py:23 (-0.5 * np.log(2.0 * np.pi), the same double)
 _LOG2PI_C = -0.5 * math.log(2.0 * math.pi)
@@ -117,7 +125,8 @@ def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
     math (src/gmm.cpp:276-331) in the op order of
     garlic_tpu.ops.gmm.gmm_sufficient_stats.  All four are sums over the
     points, so a caller holding a shard of x sums the packed vector over
-    its shards (one all-reduce) and gets the whole panel's statistics."""
+    its shards (one all-reduce) and gets the whole panel's statistics.
+    The plain version of K8's stats mode."""
     lw = torch.log(w)[None, :]
     lv = torch.log(var)[None, :]
     d = x[:, None] - mu[None, :]
@@ -130,32 +139,70 @@ def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
                       ((x * x)[:, None] * r).sum(dim=0), tmp.sum()[None]])
 
 
-def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
-           var0: np.ndarray, device, max_iter: int = 1000,
-           precision: float = 1e-5, n: int = None,
-           reduce=None) -> GMMResult:
-    """GMM-EM in f64 over the f64 tensors `shards` (the points, split over
-    devices), the parameters on `device`.
+def _em_launch(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
+               var: torch.Tensor, out: torch.Tensor, fit: bool,
+               n: float = 0.0, max_iter: int = 0,
+               precision: float = 0.0) -> None:
+    """One launch of K8 (gt_gmm_em, csrc/kde_gmm.cu) over the f64 points
+    x with the f64 [K] parameters w, mu, var, all on one CUDA device,
+    into out; raises on a launch error."""
+    k = int(w.shape[0])
+    for t in (x, w, mu, var, out):
+        if t.dtype != torch.float64 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError("K8 takes contiguous 1-D float64 tensors")
+        if t.device != x.device or x.device.type != "cuda":
+            raise ValueError("K8's tensors must lie on one CUDA device")
+    if tuple(mu.shape) != (k,) or tuple(var.shape) != (k,) or k < 1:
+        raise ValueError("w, mu and var must share one shape [K], K >= 1")
+    N = int(x.shape[0])
+    if N < 1:
+        raise ValueError("K8 needs at least one point")
+    dev = x.device
+    with torch.cuda.device(dev):
+        nb = _build.library().gt_gmm_em_blocks(dev.index, N, k)
+    if nb < 1:
+        raise RuntimeError(f"gt_gmm_em_blocks failed: CUDA error {-nb}")
+    pt = torch.empty(2 * N, dtype=torch.float64, device=dev)
+    part = torch.empty((1 + fit) * (3 * k + 1) * nb, dtype=torch.float64,
+                       device=dev)
+    _launch("gt_gmm_em", "gmm_em", dev, x.data_ptr(), N, k, float(n),
+            w.data_ptr(), mu.data_ptr(), var.data_ptr(), pt.data_ptr(),
+            part.data_ptr(), out.data_ptr(), nb, int(max_iter),
+            float(precision), _LOG2PI_C, int(fit))
 
-    Each iteration is one fused E+M pass: every shard's packed E-step
-    sums (_em_stats) are added on `device` in shard order, and one host
-    read takes the log-likelihood and a finiteness flag of the new
-    parameters.  The loop stops on |ll - last_ll| <= precision (conv),
-    on non-finite parameters (bad, raised below) or at max_iter, and
-    last_ll keeps its value on the iteration that stops, as the
-    while_loop's carry of garlic_tpu/parallel/engine.py:374-397 does.
-    n: the number of points (the shards' when None); reduce: maps the
-    shards' sums to every shard's of the run, in order and on `device`
-    (a run over several processes holds only its own shards)."""
-    if n is None:
-        n = sum(int(x.shape[0]) for x in shards)
+
+def em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
+             var: torch.Tensor) -> torch.Tensor:
+    """_em_stats's packed sums: its plain version on a CPU tensor, K8 in
+    stats mode on a CUDA tensor (the sums in the kernel's fixed order)."""
+    if x.device.type == "cpu":
+        return _em_stats(x, w, mu, var)
+    out = torch.empty(3 * int(w.shape[0]) + 1, dtype=torch.float64,
+                      device=x.device)
+    _em_launch(x, w, mu, var, out, fit=False)
+    return out
+
+
+def _em_result(w, mu, var, ll: float, done: bool, it: int, k: int,
+               n: int) -> GMMResult:
+    if not (np.all(np.isfinite(mu)) and np.all(np.isfinite(var))):
+        raise FloatingPointError(
+            "GMM component collapsed (non-finite parameters)")
+    bic = -2.0 * ll + (3.0 * k - 1) * np.log(n)
+    return GMMResult(weights=w, means=mu, variances=var, loglikelihood=ll,
+                     bic=float(bic), converged=done, iterations=it)
+
+
+def _em_loop(stats, shards, k: int, w0, mu0, var0, device, max_iter: int,
+             precision: float, n: int, reduce) -> GMMResult:
+    """fit_em's loop, each shard's E-step by stats (see fit_em)."""
     w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(device)
                   for a in (w0, mu0, var0))
     last_ll = ll = -np.finfo(np.float64).max
     it, done = 0, False
     while not done and it < max_iter:
-        parts = [_em_stats(x, w.to(x.device), mu.to(x.device),
-                           var.to(x.device)) for x in shards]
+        parts = [stats(x, w.to(x.device), mu.to(x.device), var.to(x.device))
+                 for x in shards]
         s = None
         for part in (reduce(parts) if reduce is not None
                      else [p.to(device) for p in parts]):
@@ -171,12 +218,61 @@ def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
             last_ll = ll
         it += 1
     w, mu, var = (a.cpu().numpy() for a in (w, mu, var))
-    if not (np.all(np.isfinite(mu)) and np.all(np.isfinite(var))):
-        raise FloatingPointError(
-            "GMM component collapsed (non-finite parameters)")
-    bic = -2.0 * ll + (3.0 * k - 1) * np.log(n)
-    return GMMResult(weights=w, means=mu, variances=var, loglikelihood=ll,
-                     bic=float(bic), converged=done, iterations=it)
+    return _em_result(w, mu, var, ll, done, it, k, n)
+
+
+def fit_em_plain(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
+                 var0: np.ndarray, device, max_iter: int = 1000,
+                 precision: float = 1e-5, n: int = None,
+                 reduce=None) -> GMMResult:
+    """fit_em with the plain E-step (_em_stats) on every device: the plain
+    version of K8 (the loop a CPU run takes, and what chip_smoke.py holds
+    K8's fit mode to on the card)."""
+    if n is None:
+        n = sum(int(x.shape[0]) for x in shards)
+    return _em_loop(_em_stats, shards, k, w0, mu0, var0, device, max_iter,
+                    precision, n, reduce)
+
+
+def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
+           var0: np.ndarray, device, max_iter: int = 1000,
+           precision: float = 1e-5, n: int = None,
+           reduce=None, processes: int = 1) -> GMMResult:
+    """GMM-EM in f64 over the f64 tensors `shards` (the points, split over
+    devices), the parameters on `device`.
+
+    Each iteration is one fused E+M pass: every shard's packed E-step
+    sums (em_stats: the plain _em_stats on a CPU shard, K8 in stats mode
+    on a CUDA one) are added on `device` in shard order, and one host
+    read takes the log-likelihood and a finiteness flag of the new
+    parameters.  The loop stops on |ll - last_ll| <= precision (conv),
+    on non-finite parameters (bad, raised below) or at max_iter, and
+    last_ll keeps its value on the iteration that stops, as the
+    while_loop's carry of garlic_tpu/parallel/engine.py:374-397 does.
+    One process holding one CUDA shard (the 1x1 mesh's run): the whole
+    loop runs in one launch of K8 in fit mode, with the same semantics,
+    and the host reads the fit once.
+    n: the number of points (the shards' when None); reduce: maps the
+    shards' sums to every shard's of the run, in order and on `device`
+    (a run over several processes holds only its own shards; None: the
+    shards' own sums); processes: the number of processes the run's
+    shards are split over."""
+    if n is None:
+        n = sum(int(x.shape[0]) for x in shards)
+    if (processes == 1 and len(shards) == 1
+            and shards[0].device.type == "cuda"):
+        x = shards[0]
+        w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(
+            x.device) for a in (w0, mu0, var0))
+        out = torch.empty(3 * k + 4, dtype=torch.float64, device=x.device)
+        _em_launch(x, w, mu, var, out, fit=True, n=n, max_iter=max_iter,
+                   precision=precision)
+        got = out.cpu().numpy()
+        return _em_result(got[:k].copy(), got[k:2 * k].copy(),
+                          got[2 * k:3 * k].copy(), float(got[3 * k]),
+                          bool(got[3 * k + 2]), int(got[3 * k + 1]), k, n)
+    return _em_loop(em_stats, shards, k, w0, mu0, var0, device, max_iter,
+                    precision, n, reduce)
 
 
 # copy of garlic_tpu/ops/gmm.py:127 with the device EM of fit_gmm_sharded

@@ -6,9 +6,13 @@ KDEResult and the exact engine's f64 host transform are copies of
 garlic_tpu's (each names its source line), so the .kde x column comes
 from the same arithmetic in both packages.  What moves to the device is
 the Gauss transform, the O(N x 512) part: gauss_sums below is the
-counterpart of gauss_transform(device=True) (kde.py:119-160) in plain
-PyTorch, run per shard of the fast engine's mesh
-(parallel.engine.gauss_transform_sharded; one device is the 1x1 mesh).
+counterpart of gauss_transform(device=True) (kde.py:119-160), run per
+shard of the fast engine's mesh (parallel.engine.gauss_transform_sharded;
+one device is the 1x1 mesh): on a CUDA device the hand kernel K7
+(csrc/kde_gmm.cu, gauss_sums_cuda), which replaces that XLA program and
+the scan of garlic_tpu/parallel/engine.py:250; on the CPU its plain
+PyTorch version (gauss_sums_plain), which chip_smoke.py also holds K7 to
+on the card.  K7's launches count in cuda_lod.LAUNCHES["gauss_sums"].
 
 Not ported: compute_kde_hybrid/_gauss_wins_factory (kde.py:319-453) and
 compute_kde_wins/_kde_flat_factory (kde.py:194-313).  They exist to keep
@@ -25,6 +29,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from . import _build
+from .cuda_lod import _launch
 
 _block_bufs = {}  # garlic_tpu/ops/kde.py:24
 
@@ -176,26 +183,22 @@ def _kde_grid(data: np.ndarray):
 BLOCK = 1 << 18
 
 
-def gauss_sums(sources: np.ndarray, targets: np.ndarray, h: float,
-               device) -> torch.Tensor:
-    """sum_j exp(-(x_j - t)^2 / h^2) for each target: f64 [M] on `device`,
-    not fetched (a mesh shard's partial stays on its device).
+def gauss_sums_plain(src: torch.Tensor, tgt: torch.Tensor,
+                     neg_inv_h2) -> torch.Tensor:
+    """Plain version of K7: sum_j exp((x_j - t)^2 * neg_inv_h2) for each
+    target, f32 sources [n] against f32 targets [M] on one device, f64 [M]
+    there.
 
-    The scheme of gauss_transform(device=True): f32 sources against f32
-    targets, exp(-(d*d)*inv_h2) summed per block in f32, the block
-    partials accumulated in f64 in block order.  The 1e30 sentinel
-    padding and power-of-two buckets there bounded XLA recompiles; torch
-    takes the ragged last block as it is.  Each block runs in place in
-    one temporary (d*d*(-inv_h2) equals -(d*d)*inv_h2 bit for bit:
-    negation is exact), dropped before the next block's is made, so one
-    block's temporary is live at a time."""
-    n = sources.shape[0]
-    dev = torch.device(device)
-    src = torch.from_numpy(np.asarray(sources, dtype=np.float32)).to(dev)
-    tgt = torch.from_numpy(np.asarray(targets, dtype=np.float32)).to(dev)
-    neg_inv_h2 = -np.float32(1.0 / (h * h))
-    out = torch.zeros(tgt.shape[0], dtype=torch.float64, device=dev)
-    if dev.type == "cpu":
+    The scheme of gauss_transform(device=True): exp(-(d*d)*inv_h2) summed
+    per block in f32, the block partials accumulated in f64 in block
+    order.  The 1e30 sentinel padding and power-of-two buckets there
+    bounded XLA recompiles; torch takes the ragged last block as it is.
+    Each block runs in place in one temporary (d*d*(-inv_h2) equals
+    -(d*d)*inv_h2 bit for bit: negation is exact), dropped before the next
+    block's is made, so one block's temporary is live at a time."""
+    n = src.shape[0]
+    out = torch.zeros(tgt.shape[0], dtype=torch.float64, device=src.device)
+    if src.device.type == "cpu":
         # the first exp_ of a process, when it runs on several threads at
         # once, can leave some of them on another exp kernel for that
         # call (up to 1.4e-4 relative in the density's tails on a 20000 x
@@ -207,6 +210,50 @@ def gauss_sums(sources: np.ndarray, targets: np.ndarray, h: float,
         out += d.sum(dim=0).to(torch.float64)
         del d
     return out
+
+
+def gauss_sums_cuda(src: torch.Tensor, tgt: torch.Tensor,
+                    neg_inv_h2) -> torch.Tensor:
+    """K7 (gt_gauss_sums, csrc/kde_gmm.cu): gauss_sums_plain's function on
+    CUDA tensors, each term bit for bit the plain version's, summed in the
+    kernel's fixed order (f32 runs of 16 sources, f64 per block, the
+    blocks' f64 partials added in order); raises on a launch error."""
+    for t in (src, tgt):
+        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError("sources and targets must be contiguous 1-D "
+                            "float32 tensors")
+        if t.device != src.device or src.device.type != "cuda":
+            raise ValueError("sources and targets must lie on one CUDA "
+                             "device")
+    dev = src.device
+    n, m = int(src.shape[0]), int(tgt.shape[0])
+    if n == 0 or m == 0:
+        return torch.zeros(m, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        nb = _build.library().gt_gauss_blocks(dev.index, n)
+    if nb < 1:
+        raise RuntimeError(f"gt_gauss_blocks failed: CUDA error {-nb}")
+    part = torch.empty((nb, m), dtype=torch.float64, device=dev)
+    out = torch.empty(m, dtype=torch.float64, device=dev)
+    _launch("gt_gauss_sums", "gauss_sums", dev, src.data_ptr(),
+            tgt.data_ptr(), float(neg_inv_h2), n, m, nb, part.data_ptr(),
+            out.data_ptr())
+    return out
+
+
+def gauss_sums(sources: np.ndarray, targets: np.ndarray, h: float,
+               device) -> torch.Tensor:
+    """sum_j exp(-(x_j - t)^2 / h^2) for each target: f64 [M] on `device`,
+    not fetched (a mesh shard's partial stays on its device).  The
+    sources and targets go up as f32; a CPU device runs the plain version
+    (gauss_sums_plain), a CUDA device K7 (gauss_sums_cuda)."""
+    dev = torch.device(device)
+    src = torch.from_numpy(np.asarray(sources, dtype=np.float32)).to(dev)
+    tgt = torch.from_numpy(np.asarray(targets, dtype=np.float32)).to(dev)
+    neg_inv_h2 = -np.float32(1.0 / (h * h))
+    if dev.type == "cpu":
+        return gauss_sums_plain(src, tgt, neg_inv_h2)
+    return gauss_sums_cuda(src, tgt, neg_inv_h2)
 
 
 # garlic_tpu/ops/kde.py:456

@@ -22,9 +22,12 @@ and the uploads are blocking copies from pageable host memory).
   the one before it) and W-1 to the right; each shard keeps the covered
   plane of its own loci and the flags of its own window starts.
 * Phase II, gauss_transform_sharded: the sources split over every shard,
-  the [512] partials of ops/kde.py's transform added in shard order.
+  the [512] partials of ops/kde.py's transform (K7 per shard) added in
+  shard order.
 * Phase IV, fit_gmm_sharded: the lengths split over every shard, each
-  EM iteration's packed sums (ops/gmm._em_stats) added in shard order.
+  EM iteration's packed sums (K8 in stats mode per shard, ops/gmm.
+  em_stats) added in shard order; one shard of one process runs the
+  whole loop as one launch of K8 in fit mode.
 * the weighted path, ld_band_sharded + wlod_windows_sharded: int32 pair
   counts (K5 per shard) summed over dp (the band equals the 1x1 band bit
   for bit), the pair band's W-1 right-halo columns copied from the
@@ -370,10 +373,11 @@ def _gathered(parts: list, owners: list, width: int, mesh, tag: str
 
 def gauss_transform_sharded(sources, targets, h, mesh) -> np.ndarray:
     """sum_j exp(-(x_j - t)^2 / h^2) at each target, as per-shard partial
-    transforms (ops/kde.gauss_sums, on each shard's device) added on the
-    mesh's first device in shard order: the Phase-II reduction (across
-    processes, every shard's partial added on every process).  Returns
-    the raw transform (no 1/n weighting) as [M] float64.
+    transforms (ops/kde.gauss_sums on each shard's device: K7 on a CUDA
+    device, its plain version on the CPU) added on the mesh's first
+    device in shard order: the Phase-II reduction (across processes,
+    every shard's partial added on every process).  Returns the raw
+    transform (no 1/n weighting) as [M] float64.
 
     Adapted from garlic_tpu/parallel/engine.py:250: no 1e30 sentinels
     and no power-of-two bucket, each shard's sources as they are."""
@@ -398,12 +402,16 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
     each f64 iteration's packed sums added on the mesh's first device in
     shard order (ops/gmm.fit_em; across processes, every shard's sums
     gathered each iteration), with fit_gmm's convergence test and
-    FloatingPointError on a collapsed component.  CUDA runs f64, so
-    there is no host-EM fallback.
+    FloatingPointError on a collapsed component.  One process with one
+    shard on a CUDA device (the 1x1 mesh) runs the whole loop as one
+    launch of K8 in fit mode; more shards or processes run a host loop
+    of K8's stats-mode E-steps (on the CPU, the plain loop).  CUDA runs
+    f64, so there is no host-EM fallback.
 
     Adapted from garlic_tpu/parallel/engine.py:309: a host loop over the
-    shards' E-steps in place of a while_loop of psums, and no verbose
-    line (select_size_classes prints it)."""
+    shards' E-steps in place of a while_loop of psums (the one-shard
+    loop in one kernel), and no verbose line (select_size_classes prints
+    it)."""
     from ..ops.gmm import fit_em
     x = np.ascontiguousarray(x, dtype=np.float64)
     split = _split(x.shape[0], mesh)
@@ -413,7 +421,8 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
     return fit_em(shards, k, w0, mu0, var0, mesh.first, max_iter, precision,
                   n=x.shape[0],
                   reduce=lambda parts: _gathered(parts, owners, 3 * k + 1,
-                                                 mesh, "em"))
+                                                 mesh, "em"),
+                  processes=mesh.group.size)
 
 
 # ---------------------------------------------------------------------------
