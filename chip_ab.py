@@ -26,9 +26,9 @@ the same way and in alternating order:
   3,328,600 f32 windows from a two-mode mixture against its 512-point
   grid: ops/kde.gauss_sums, upload included; 5,530 ROH lengths from a
   three-mode mixture, K = 3: parallel/engine.fit_gmm_sharded over the
-  card's 1x1 mesh), so the parent's side runs its plain route (the
-  torch transform, the host loop of torch E-steps) and the change's the
-  kernels;
+  card's 1x1 mesh (K8's fit mode) and over a 2x2 mesh laid on it (one
+  stats-mode launch per shard and iteration), and ops/gmm.em_stats per
+  call on all the lengths), each side through its own checkout's route;
 - walls: bench.py's panel (200 x (500k, 500k), seed 42), pinned
   (--lod-cutoff 1.5 --size-bounds 500000 1000000), auto (neither), gq
   (pinned with chip_smoke.py's GQ TGLS file) and weighted (pinned with
@@ -78,7 +78,8 @@ CONFIGS = {"pinned": PINNED,
            "weighted": PINNED + ["--map", "{map}", "--weighted"]}
 KERNELS = ("lod_windows", "covered", "window_sums", "covered_terms",
            "pair_counts", "pair_counts_r2", "wlod_windows",
-           "wlod_windows_terms", "gauss_sums", "gmm_em")
+           "wlod_windows_terms", "gauss_sums", "gmm_em", "gmm_em_2x2",
+           "em_stats")
 POOL, ROH = 3_328_600, 5_530  # the bench auto run's pool and ROH count
 
 
@@ -164,10 +165,13 @@ class _KernelInputs:
             rng.normal(2.6e6, 6e5, ROH - a - b)]).clip(1e4, None)
         self.init = chip_smoke._gmm_init(self.lengths)
         self.mesh = make_mesh(1, 1, [dev])
+        self.mesh4 = make_mesh(2, 2, [dev] * 4)
+        self.x = torch.from_numpy(self.lengths).to(dev)
+        self.params = [torch.from_numpy(v).to(dev) for v in self.init]
 
     def calls(self):
         import inspect
-        from garlic_tpu_torch.ops import cuda_lod, kde
+        from garlic_tpu_torch.ops import cuda_lod, gmm, kde
         from garlic_tpu_torch.ops import device_wlod as dw
         from garlic_tpu_torch.parallel import engine
         pk, tb, ms, terms, a2, a4 = (self.pk, self.tb, self.ms, self.terms,
@@ -197,7 +201,10 @@ class _KernelInputs:
                 "gauss_sums": lambda: kde.gauss_sums(
                     self.pool, self.targets, self.h, self.mesh.first),
                 "gmm_em": lambda: engine.fit_gmm_sharded(
-                    self.lengths, 3, *self.init, self.mesh)}
+                    self.lengths, 3, *self.init, self.mesh),
+                "gmm_em_2x2": lambda: engine.fit_gmm_sharded(
+                    self.lengths, 3, *self.init, self.mesh4),
+                "em_stats": lambda: gmm.em_stats(self.x, *self.params)}
 
 
 def _run_port(argv):

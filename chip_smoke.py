@@ -7,8 +7,10 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and exits non-zero, printing no result):
 
-1. environment: the card (nvidia-smi), torch/CUDA/nvcc versions, and the
-   build of the port's CUDA kernels from csrc/ (nvcc, sm_90a);
+1. environment: the card (nvidia-smi), torch/CUDA/nvcc versions, the
+   build of the port's CUDA kernels from csrc/ (nvcc, sm_90a), and K7's
+   premise: expf of every f32 from -104 down to -inf is +0 on the card
+   (ops/kde.expf_underflow, 1,018,167,297 values);
 2. kernels: K1 (lod_windows), K2 (covered), K3 (window_sums) and K4
    (covered_terms) against their plain PyTorch versions on the card, on
    the same inputs: K1's and K3's f32 sums bit for bit, K2's and K4's
@@ -74,14 +76,21 @@ Phases (any failure raises and exits non-zero, printing no result):
      HOST_MARGIN times its distance from the host f64 transform (mostly
      the terms' own f32 error), its terms bit-equal to the plain
      version's on 256 of the pool's sources (k7_terms_bit_equal), two
-     launches bit-equal; K8 on the run's ROH
-     lengths (K = 3) in fit mode with the plain loop's iterations, flag
-     and %g lines (rtol 1e-10), in stats mode within rtol 1e-12 of
-     _em_stats, two launches of each bit-equal; CUDA-event medians of
-     21: K7 one launch and 10 back to back, K8's whole fit and its time
-     per iteration, stats mode per launch, beside the bounds
-     (gauss_bound_ms, em_bound_ms) and the plain versions' times (no one
-     PyTorch call computes either: library none);
+     launches bit-equal, its bucketed sources equal to a stable sort by
+     the buckets of ops/kde.k7_buckets (torch.sort, here only) and its
+     plan equal to ops/kde.k7_plan's; K8 on the run's ROH lengths (K =
+     3) in fit mode with the plain loop's iterations, flag and %g lines
+     (rtol 1e-10), in stats mode within rtol 1e-12 of _em_stats, two
+     launches of each bit-equal, on both launch shapes (one cluster,
+     and the grid-wide launch), also at K = 9; CUDA-event medians of 21:
+     K7 one launch and 10 back to back (and its kernels' device times
+     from torch.profiler), K8's whole fit, its time per iteration and
+     stats mode per call, on both shapes at the run's lengths (K = 3 and
+     9) and on seeded mixtures of 100,000 and 1,000,000 lengths, beside
+     the bounds (gauss_bound_ms, the dense one, and
+     gauss_needed_bound_ms, over the terms these inputs make non-zero,
+     counted on the card; em_bound_ms) and the plain versions' times (no
+     one PyTorch call computes either: library none);
    - on the 50 x (100k, 100k) panel, fast against exact: --auto-winsize
      from 40 by 20 (the same window size, BED identical, every .kde's x
      column identical; K2, not K1; K7 per candidate) and --winsize-multi
@@ -402,7 +411,7 @@ def _median_ms(fn, n=21, reps=1):
 def phase_environment():
     import torch
     from garlic_tpu_torch import native
-    from garlic_tpu_torch.ops import _build
+    from garlic_tpu_torch.ops import _build, kde
     say("== phase 1: environment")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -421,6 +430,14 @@ def phase_environment():
     for line in _build.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    bad = kde.expf_underflow(torch.device("cuda", 0))
+    say(f"K7's premise: expf of every f32 from -104 down to -inf "
+        f"({0xFF800000 - 0xC2D00000 + 1} values) is +0 on the card: "
+        f"{bad == 0} ({time.perf_counter() - t0:.3f}s); K7 skips only "
+        "pairs whose argument is at most -110.25 (1 - 4 2^-24)")
+    if bad:
+        raise AssertionError(f"expf of the f32 {bad:#010x} is not +0")
     t0 = time.perf_counter()
     if not native.native_available():
         raise AssertionError("the native host library did not build (g++)")
@@ -1191,17 +1208,28 @@ def _auto_split():
         "boundaries": [(brent, "find_boundary")]})
 
 
-def gauss_bound_ms(n, M, card):
-    """(least time in ms, "bytes" or "operations") of K7 over n sources
-    and M targets: the sources and targets read once and the f64 sums
-    written once, against n * M exps at the special-function rate and 4
-    f32 operations a term (subtract, square, scale, add) at the f32 rate,
-    the larger of the two."""
+def _exp_ms(terms, card):
+    """ms of `terms` Gauss terms at the special-function rate (one exp
+    each), against 4 f32 operations each (subtract, square, scale, add) at
+    the f32 rate: the larger."""
     sms, clock, _ = card
-    terms = n * M
-    ops_ms = max(terms / (sms * MUFU_LANES * clock),
-                 4 * terms / (sms * FP32_LANES * clock)) * 1e3
-    return _bytes_or_ops(4 * n + 4 * M + 8 * M, ops_ms, card)
+    return max(terms / (sms * MUFU_LANES * clock),
+               4 * terms / (sms * FP32_LANES * clock)) * 1e3
+
+
+def gauss_bound_ms(n, M, card):
+    """(least time in ms, "bytes" or "operations") of a dense transform
+    of n sources at M targets: the sources and targets read once and the
+    f64 sums written once, against all n * M terms (_exp_ms)."""
+    return _bytes_or_ops(4 * n + 4 * M + 8 * M, _exp_ms(n * M, card), card)
+
+
+def gauss_needed_bound_ms(n, M, nonzero, card):
+    """gauss_bound_ms over the terms these inputs need: the `nonzero`
+    terms that are not exactly +0 (counted on the card from the plain
+    version's terms: f64_term_sums); the others add nothing to any sum."""
+    return _bytes_or_ops(4 * n + 4 * M + 8 * M, _exp_ms(nonzero, card),
+                         card)
 
 
 def em_bound_ms(N, K, iterations, card):
@@ -1218,29 +1246,31 @@ def em_bound_ms(N, K, iterations, card):
 
 
 def f64_term_sums(src, tgt, neg_inv_h2):
-    """The f64 sums of gauss_sums_plain's f32 terms (each term as the
-    plain version makes it, the terms added in f64): the sums that K7's
-    and the plain version's f32 orders approximate.  Both make the same
-    terms, so their distance from the host f64 transform is mostly the
-    terms' own f32 error; their distance from these sums is their
-    summation's alone."""
+    """(the f64 sums of gauss_sums_plain's f32 terms, the count of those
+    terms that are not +0): each term as the plain version makes it, the
+    terms added in f64, the sums that K7's and the plain version's f32
+    orders approximate.  Both make the same terms, so their distance from
+    the host f64 transform is mostly the terms' own f32 error; their
+    distance from these sums is their summation's alone."""
     import torch
     from garlic_tpu_torch.ops import kde
     out = torch.zeros(tgt.shape[0], dtype=torch.float64, device=src.device)
+    nonzero = 0
     for s in range(0, src.shape[0], kde.BLOCK):
         d = src[s:s + kde.BLOCK, None] - tgt[None, :]
         d.square_().mul_(float(neg_inv_h2)).exp_()
         out += d.double().sum(dim=0)
-    return out
+        nonzero += int(torch.count_nonzero(d))
+    return out, nonzero
 
 
 def k7_terms_bit_equal(src, tgt, neg_inv_h2, count=256):
     """True when K7 makes gauss_sums_plain's f32 terms bit for bit, on
     `count` sources spread over src: each launch takes one run of 16
-    sources (K7's float4 path), the source at one of the run's 16 places
-    in turn and the other 15 so far off the grid that their terms are
-    exactly 0 on both sides ((d * d) overflows to inf), so each sum is
-    its one term, exactly."""
+    sources, the source at one of the run's 16 places in turn and the
+    other 15 so far off the grid that their terms are exactly 0 on both
+    sides ((d * d) overflows to inf; K7's plan puts them in its
+    over-range bucket), so each sum is its one term, exactly."""
     import torch
     from garlic_tpu_torch.ops import kde
     far = torch.full((16,), 1e20, dtype=torch.float32, device=src.device)
@@ -1254,10 +1284,100 @@ def k7_terms_bit_equal(src, tgt, neg_inv_h2, count=256):
     return True
 
 
+def k7_plan_checked(src, tgt, neg_inv_h2):
+    """K7's bucketed sources against a stable sort by ops/kde.k7_buckets'
+    buckets (torch.sort, stable: here only, never on the port's path) and
+    its plan (each tile's range of the bucketed array, items, NaN count)
+    against ops/kde.k7_plan's; raises on a difference.  Returns (the
+    terms K7 computes: the tiles' ranges x 32 targets, all dense)."""
+    import torch
+    from garlic_tpu_torch.ops import kde
+    _, srt, info = kde._gauss_launch(src, tgt, neg_inv_h2)
+    src32, tgt32 = src.cpu().numpy(), tgt.cpu().numpy()
+    plan = kde.k7_plan(tgt32, neg_inv_h2)
+    b = kde.k7_buckets(src32, plan)
+    order = torch.sort(torch.from_numpy(b), stable=True).indices
+    if not torch.equal(srt.view(torch.int32),
+                       src[order.to(src.device)].view(torch.int32)):
+        raise AssertionError("K7's bucketed order is not a stable sort")
+    info = info.cpu().numpy()
+    start = np.searchsorted(np.sort(b), np.arange(plan.nc + 4))
+    tiles = plan.ranges.shape[0]
+    tinfo = info[kde.K7_INFO:kde.K7_INFO + 4 * tiles].reshape(tiles, 4)
+    if (not (tinfo[:, 0] == start[plan.ranges[:, 0]]).all()
+            or not (tinfo[:, 1] == start[plan.ranges[:, 1] + 1]).all()
+            or info[1] != 0):
+        raise AssertionError("K7's plan differs from ops/kde.k7_plan")
+    return int((tinfo[:, 1] - tinfo[:, 0]).sum()) * kde.K7_TILE, \
+        bool(info[2])
+
+
+def _device_ms(fn, names, reps=10):
+    """{kernel name: device ms per call} of the kernels whose names hold
+    one of `names`, from torch.profiler over reps calls of fn; None when
+    the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        if t > 0 and any(n in ev.key for n in names):
+            out[ev.key] = t / reps / 1e3
+    return out or None
+
+
 # K7 may be this much farther than the plain version from the host f64
 # transform: both add the same f32 terms (k7_terms_bit_equal), whose own
 # error is that distance; only their summation orders differ.
 HOST_MARGIN = 1.01
+# K8's launch shapes, timed at these sizes (the run's lengths, then
+# seeded mixtures) and, beside K = 3, at K = 9 (the grouped E-step)
+EM_TIMED_N = (100_000, 1_000_000)
+EM_TIMED_ITERS = 50  # iterations of a timed fit at those sizes
+
+
+def _em_mixture(N, seed):
+    """N seeded ROH lengths from three modes (tests/test_phase24.py)."""
+    rng = np.random.default_rng(seed)
+    a, b = N * 25 // 52, N * 18 // 52
+    return np.concatenate([
+        rng.normal(2.2e5, 5e4, a), rng.normal(8.5e5, 1.8e5, b),
+        rng.normal(2.6e6, 6e5, N - a - b)]).clip(1e4, None)
+
+
+def _em_times(x, k, path, iters=None):
+    """K8 on the f64 points x (a CUDA tensor) with selectSizeClasses'
+    start, by `path`: (whole fit ms (to convergence, or `iters`
+    iterations with no convergence test), its iterations, us per
+    iteration ((fit - fit of one iteration) / (iterations - 1)), stats
+    mode ms per em_stats-style call)."""
+    import torch
+    from garlic_tpu_torch.ops import gmm
+    N = int(x.shape[0])
+    w, mu, var = (torch.from_numpy(v).to(x.device)
+                  for v in _gmm_init(x.cpu().numpy(), k))
+    out = torch.empty(3 * k + 4, dtype=torch.float64, device=x.device)
+    prec = 1e-5 if iters is None else -1.0
+
+    def fit(max_iter=iters or 1000):
+        gmm._em_launch(x, w, mu, var, out, fit=True, n=N, max_iter=max_iter,
+                       precision=prec, path=path)
+    n = 21 if N <= 100_000 else 7
+    full = _median_ms(fit, n=n)
+    it = int(out[3 * k + 1].item())
+    one = _median_ms(lambda: fit(1), n=n)
+
+    def stats():
+        o = torch.empty(3 * k + 1, dtype=torch.float64, device=x.device)
+        gmm._em_launch(x, w, mu, var, o, fit=False, path=path)
+    return full, it, (full - one) / max(it - 1, 1) * 1e3, _median_ms(stats)
 
 
 def _auto_kernels(pool, lengths):
@@ -1280,7 +1400,7 @@ def _auto_kernels(pool, lengths):
     a = kde.gauss_sums_cuda(src, tgt, nih2)
     b = kde.gauss_sums_cuda(src, tgt, nih2)
     p = kde.gauss_sums_plain(src, tgt, nih2)
-    f = f64_term_sums(src, tgt, nih2)
+    f, nonzero = f64_term_sums(src, tgt, nih2)
     torch.cuda.synchronize()
     a, b, p, f = (t.cpu().numpy() for t in (a, b, p, f))
     host = kde.gauss_transform_host(pool, targets, h)
@@ -1288,31 +1408,49 @@ def _auto_kernels(pool, lengths):
               for v in (a, p))
     fk, fp = (float(np.abs(v - f).max() / f.max()) for v in (a, p))
     terms = k7_terms_bit_equal(src, tgt, nih2)
+    computed, dense = k7_plan_checked(src, tgt, nih2)
     err["gauss_sums"] = float(np.abs(a - p).max())
-    say(f"  K7 gauss_sums on the pool ({n} sources x {M} targets): max "
-        f"|K7 - plain| = {err['gauss_sums'] / p.max():.3g} * max y; "
-        f"from the f64 sums of the same f32 terms {fk:.3g} * max y "
-        f"(plain {fp:.3g}); from the host f64 transform {dk:.3g} * max y "
+    say(f"  K7 gauss_sums on the pool ({n} sources x {M} targets, h "
+        f"{h:.6g}): max |K7 - plain| = {err['gauss_sums'] / p.max():.3g} "
+        f"* max y; from the f64 sums of the same f32 terms {fk:.3g} * max "
+        f"y (plain {fp:.3g}); from the host f64 transform {dk:.3g} * max y "
         f"(plain {dp:.3g}: the f32 terms' own error, the same terms in "
         f"both; ratio {dk / dp:.6f}, at most {HOST_MARGIN}); terms "
         f"bit-equal to the plain version's on 256 sources {terms}; two "
-        f"launches bit-equal {np.array_equal(a, b)}")
+        f"launches bit-equal {np.array_equal(a, b)}; bucketed order a "
+        f"stable sort and plan equal to k7_plan's: True; terms not +0 "
+        f"{nonzero} of {n * M} ({nonzero / (n * M):.2%}), computed by K7 "
+        f"{computed} ({computed / (n * M):.2%}; every tile dense {dense})")
     if (err["gauss_sums"] > 1e-6 * p.max() or fk > fp
             or dk > HOST_MARGIN * dp or not terms
             or not np.array_equal(a, b)):
         raise AssertionError("K7 differs from its plain version")
-    bound, by = gauss_bound_ms(n, M, card)
+    dense_bound, dense_by = gauss_bound_ms(n, M, card)
+    bound, by = gauss_needed_bound_ms(n, M, nonzero, card)
     t = {"ms": _median_ms(lambda: kde.gauss_sums_cuda(src, tgt, nih2)),
          "plain_ms": _median_ms(lambda: kde.gauss_sums_plain(src, tgt,
                                                              nih2)),
-         "bound_ms": bound, "bound_by": by, "library_ms": None}
+         "bound_ms": bound, "bound_by": by, "library_ms": None,
+         "dense_bound_ms": dense_bound}
     back = _median_ms(lambda: kde.gauss_sums_cuda(src, tgt, nih2), reps=10)
     times["gauss_sums"] = t
     say(f"  K7 at the bench shape: kernel {t['ms']:.4f} ms, back to back "
-        f"{back:.4f} ms, bound {bound:.4f} ms ({by}: {n * M:.3g} exps at "
-        f"{MUFU_LANES} a clock per SM), share of bound {bound / t['ms']:.1%}"
-        f" / {bound / back:.1%}, plain {t['plain_ms']:.4f} ms, library "
-        "none (no one PyTorch call computes it)")
+        f"{back:.4f} ms; bound over the terms these inputs need "
+        f"{bound:.4f} ms ({by}: {nonzero:.4g} exps at {MUFU_LANES} a clock"
+        f" per SM), share {bound / t['ms']:.1%} / {bound / back:.1%}; "
+        f"dense bound {dense_bound:.4f} ms ({dense_by}: {n * M:.4g} exps), "
+        f"share {dense_bound / t['ms']:.1%} / {dense_bound / back:.1%}; "
+        f"plain {t['plain_ms']:.4f} ms, library none (no one PyTorch call "
+        "computes it)")
+    try:
+        split = _device_ms(lambda: kde.gauss_sums_cuda(src, tgt, nih2),
+                           ("k7_",))
+    except Exception as e:  # the profiler is a reading, not a check
+        split = None
+        say(f"  K7's kernels: torch.profiler failed ({e!r})")
+    say("  K7's kernels, device ms per launch (torch.profiler, 10 "
+        "launches): " + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                         if split else "not measured (no device time)"))
     del src, tgt
 
     # K8 on the ROH lengths, K = 3 (the default --nclust)
@@ -1337,7 +1475,9 @@ def _auto_kernels(pool, lengths):
     err["gmm_em"] = max(float(np.abs(pk[0] - pk[2]).max()),
                         float((s1 - sp).abs().max()))
     it = fits[0].iterations
-    say(f"  K8 gmm_em on {N} ROH lengths, K={k}: fit mode {it} iterations "
+    shape = gmm.em_path(dev, N, k)
+    say(f"  K8 gmm_em on {N} ROH lengths, K={k} ({shape[0]}, {shape[1]} "
+        f"blocks, points resident {shape[2]}): fit mode {it} iterations "
         f"(plain loop {plain.iterations}), converged {fits[0].converged}, "
         f"%g parameters {'equal' if same else 'DIFFER'}, max rel |diff| "
         f"{float(np.max(np.abs(pk[0] - pk[2]) / np.abs(pk[2]))):.3g}; "
@@ -1345,27 +1485,59 @@ def _auto_kernels(pool, lengths):
         f"{bit}")
     if not same or not bit or srel > 1e-12:
         raise AssertionError("K8 differs from its plain version")
-    out = torch.empty(3 * k + 4, dtype=torch.float64, device=dev)
-
-    def fit(max_iter=1000):
-        gmm._em_launch(x, w, mu, var, out, fit=True, n=N,
-                       max_iter=max_iter, precision=1e-5)
+    # the other shapes and the grouped E-step on the same lengths
+    for kk in (3, 9):
+        ini = _gmm_init(lengths, kk)
+        want = gmm.fit_em_plain([x], kk, *ini, dev)
+        ws = [torch.from_numpy(v).to(dev) for v in ini]
+        for path in ("cluster", "grid"):
+            o = torch.empty(3 * kk + 4, dtype=torch.float64, device=dev)
+            gmm._em_launch(x, *ws, o, fit=True, n=N, max_iter=1000,
+                           precision=1e-5, path=path)
+            got = o.cpu().numpy()
+            so = torch.empty(3 * kk + 1, dtype=torch.float64, device=dev)
+            gmm._em_launch(x, *ws, so, fit=False, path=path)
+            ref = gmm._em_stats(x, *ws)
+            ok = (int(got[3 * kk + 1]) == want.iterations
+                  and [g(float(v)) for v in got[:3 * kk]]
+                  == [g(float(v)) for v in np.concatenate(
+                      [want.weights, want.means, want.variances])]
+                  and float(((so - ref).abs() / ref.abs()).max()) <= 1e-12)
+            if not ok:
+                raise AssertionError(f"K8 ({path}, K={kk}) differs from "
+                                     "its plain version")
+    say(f"  K8's shapes on the {N} lengths: cluster and grid, K = 3 and 9: "
+        "the plain loop's iterations and %g lines, stats within rtol "
+        "1e-12 of _em_stats")
     bound, by = em_bound_ms(N, k, it, card)
-    t = {"ms": _median_ms(fit),
+    full, _, per, stats = _em_times(x, k, "auto")
+    t = {"ms": full,
          "plain_ms": _median_ms(lambda: gmm.fit_em_plain([x], k, *init,
                                                          dev), n=7),
          "bound_ms": bound, "bound_by": by, "library_ms": None}
-    one = _median_ms(lambda: fit(1))
-    stats = _median_ms(lambda: gmm.em_stats(x, w, mu, var))
+    call = _median_ms(lambda: gmm.em_stats(x, w, mu, var))
     stats_plain = _median_ms(lambda: gmm._em_stats(x, w, mu, var))
     times["gmm_em"] = t
-    per = (t["ms"] - one) / max(it - 1, 1)
     say(f"  K8 at the bench shape: fit mode {t['ms']:.4f} ms for {it} "
-        f"iterations, {per * 1e3:.2f} us per iteration ((fit - fit with "
-        f"max_iter 1) / {it - 1}; max_iter 1: {one:.4f} ms), bound "
-        f"{bound:.4f} ms ({by}), share of bound {bound / t['ms']:.2%}, "
-        f"plain loop {t['plain_ms']:.4f} ms; stats mode {stats:.4f} ms "
-        f"per launch (plain _em_stats {stats_plain:.4f} ms); library none")
+        f"iterations, {per:.3f} us per iteration ((fit - fit with "
+        f"max_iter 1) / {it - 1}), bound {bound:.4f} ms ({by}), share of "
+        f"bound {bound / t['ms']:.2%}, plain loop {t['plain_ms']:.4f} ms; "
+        f"stats mode {stats:.4f} ms a launch, {call:.4f} ms an em_stats "
+        f"call (plain _em_stats {stats_plain:.4f} ms); library none")
+    rows = [(N, kk, path) + _em_times(x, kk, path)
+            for kk in (3, 9) for path in ("cluster", "grid")]
+    for big in EM_TIMED_N:
+        xb = torch.from_numpy(_em_mixture(big, big)).to(dev)
+        rows += [(big, 3, path) + _em_times(xb, 3, path, EM_TIMED_ITERS)
+                 for path in ("cluster", "grid")]
+        del xb
+    for N_, kk, path, full, it_, per, st in rows:
+        shp = gmm.em_path(dev, N_, kk, path)
+        say(f"  K8 {path} ({shp[1]} blocks, resident {shp[2]}), N={N_}, "
+            f"K={kk}: fit {full:.4f} ms for {it_} iterations, {per:.3f} us "
+            f"per iteration; stats mode {st:.4f} ms a launch"
+            + ("  <- the automatic choice" if shp[0] == gmm.em_path(
+                dev, N_, kk)[0] else ""))
     return err, times
 
 

@@ -129,14 +129,18 @@ def library() -> ctypes.CDLL:
                                               i, p]
         lib.gt_wlod_windows_terms.restype = i
         d, ll = ctypes.c_double, ctypes.c_longlong
-        lib.gt_gauss_blocks.argtypes = [i, ll]
-        lib.gt_gauss_blocks.restype = i
-        lib.gt_gauss_sums.argtypes = [i, p, p, fl, ll, i, i, p, p, p]
+        lib.gt_gauss_sums.argtypes = [i, p, p, fl, i, i, p, i, p, i, p, p, p,
+                                      p, p]
         lib.gt_gauss_sums.restype = i
-        lib.gt_gmm_em_blocks.argtypes = [i, i, i]
-        lib.gt_gmm_em_blocks.restype = i
-        lib.gt_gmm_em.argtypes = [i, p, i, i, d, p, p, p, p, p, p, i, i, d,
-                                  d, i, p]
+        u = ctypes.c_uint
+        lib.gt_expf_underflow.argtypes = [i, u, u, p, p]
+        lib.gt_expf_underflow.restype = i
+        lib.gt_gmm_em_scratch.argtypes = [i, i, i, i]
+        lib.gt_gmm_em_scratch.restype = ll
+        lib.gt_gmm_em_path.argtypes = [i, i, i, i]
+        lib.gt_gmm_em_path.restype = i
+        lib.gt_gmm_em.argtypes = [i, p, i, i, d, p, p, p, p, p, i, d, d, i,
+                                  i, p]
         lib.gt_gmm_em.restype = i
         _lib = lib
         return lib

@@ -139,13 +139,36 @@ def _em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
                       ((x * x)[:, None] * r).sum(dim=0), tmp.sum()[None]])
 
 
+# K8's launch paths (csrc/kde_gmm.cu gt_gmm_em): 0 lets the kernel choose
+# (em_auto_path: one cluster where N x the lanes a point takes fit in its
+# threads, else the grid-wide launch)
+EM_PATHS = {"auto": 0, "cluster": 1, "grid": 2}
+_em_scratch = {}  # (device index, N, K, path) -> doubles of scratch
+
+
+def em_path(device, N: int, K: int, path: str = "auto"):
+    """(path, blocks, points resident, lanes a point) K8 takes for N
+    points and K components on a CUDA device: path "cluster" or
+    "grid"."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        got = _build.library().gt_gmm_em_path(dev.index, N, K,
+                                               EM_PATHS[path])
+    if got < 0:
+        raise RuntimeError(f"gt_gmm_em_path failed: CUDA error {-got}")
+    return (("cluster", "grid")[got % 4 - 1], got % 4096 // 4,
+            bool(got // 4096 % 2), got // 8192)
+
+
 def _em_launch(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
                var: torch.Tensor, out: torch.Tensor, fit: bool,
                n: float = 0.0, max_iter: int = 0,
-               precision: float = 0.0) -> None:
+               precision: float = 0.0, path: str = "auto") -> None:
     """One launch of K8 (gt_gmm_em, csrc/kde_gmm.cu) over the f64 points
     x with the f64 [K] parameters w, mu, var, all on one CUDA device,
-    into out; raises on a launch error."""
+    into out; raises on a launch error.  The launch shape is the
+    library's, cached per (device, N, K, path); scratch is allocated only
+    where the shape needs it (the grid-wide launch's partials)."""
     k = int(w.shape[0])
     for t in (x, w, mu, var, out):
         if t.dtype != torch.float64 or t.dim() != 1 or not t.is_contiguous():
@@ -158,17 +181,23 @@ def _em_launch(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,
     if N < 1:
         raise ValueError("K8 needs at least one point")
     dev = x.device
-    with torch.cuda.device(dev):
-        nb = _build.library().gt_gmm_em_blocks(dev.index, N, k)
-    if nb < 1:
-        raise RuntimeError(f"gt_gmm_em_blocks failed: CUDA error {-nb}")
-    pt = torch.empty(2 * N, dtype=torch.float64, device=dev)
-    part = torch.empty((1 + fit) * (3 * k + 1) * nb, dtype=torch.float64,
-                       device=dev)
+    key = (dev.index, N, k, path)
+    need = _em_scratch.get(key)
+    if need is None:
+        with torch.cuda.device(dev):
+            need = _build.library().gt_gmm_em_scratch(dev.index, N, k,
+                                                      EM_PATHS[path])
+        if need < 0:
+            raise RuntimeError(f"gt_gmm_em_scratch failed: CUDA error "
+                               f"{-need}")
+        _em_scratch[key] = need
+    scratch = (torch.empty(need, dtype=torch.float64, device=dev)
+               if need else None)
     _launch("gt_gmm_em", "gmm_em", dev, x.data_ptr(), N, k, float(n),
-            w.data_ptr(), mu.data_ptr(), var.data_ptr(), pt.data_ptr(),
-            part.data_ptr(), out.data_ptr(), nb, int(max_iter),
-            float(precision), _LOG2PI_C, int(fit))
+            w.data_ptr(), mu.data_ptr(), var.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), int(max_iter), float(precision), _LOG2PI_C,
+            int(fit), EM_PATHS[path])
 
 
 def em_stats(x: torch.Tensor, w: torch.Tensor, mu: torch.Tensor,

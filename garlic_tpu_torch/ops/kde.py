@@ -25,6 +25,7 @@ over the exact pool at every pool size.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -212,12 +213,92 @@ def gauss_sums_plain(src: torch.Tensor, tgt: torch.Tensor,
     return out
 
 
-def gauss_sums_cuda(src: torch.Tensor, tgt: torch.Tensor,
-                    neg_inv_h2) -> torch.Tensor:
-    """K7 (gt_gauss_sums, csrc/kde_gmm.cu): gauss_sums_plain's function on
-    CUDA tensors, each term bit for bit the plain version's, summed in the
-    kernel's fixed order (f32 runs of 16 sources, f64 per block, the
-    blocks' f64 partials added in order); raises on a launch error."""
+# K7's constants (csrc/kde_gmm.cu)
+K7_MAX_CELLS = 1024  # cells of the bucket map
+K7_TILE = 32         # targets of a tile (a warp's lanes)
+K7_RUN = 16          # sources of an f32 run
+K7_CHUNK = 1024      # sources of a gather item (the bucketed array's cut)
+K7_BCHUNK = 8192     # sources a bucketing block takes
+K7_BWARPS = 8        # warps of a bucketing block
+K7_INFO = 4          # the plan's head: items, NaN sources, all dense, 0
+K7_HALF_WIDTH = 10.5  # hw = 10.5 / sqrt(-neg_inv_h2)
+
+
+@dataclass
+class K7Plan:
+    """K7's plan for f32 targets and neg_inv_h2: the bucket map (cells of
+    width 1 / inv_c from t0; nc cells, buckets 0 (under), 1..nc, nc + 1
+    (over), nc + 2 (NaN)) and each tile's first and last candidate bucket
+    ([tiles, 2])."""
+    t0: np.float32
+    inv_c: np.float32
+    nc: int
+    ranges: np.ndarray
+
+
+def k7_plan(targets, neg_inv_h2) -> K7Plan:
+    """K7's plan (csrc/kde_gmm.cu: k7_cells, k7_scan_kernel), in the same
+    IEEE operations as the kernel (f32 for the cell width, f64 for the
+    ranges): a source whose bucket lies outside tile tau's range is
+    farther than hw = 10.5 / sqrt(-neg_inv_h2) from every target of the
+    tile (two cells of margin cover the f32 cell arithmetic), so its
+    terms there have an argument of at most -110.25 (1 - 4 2^-24) and are
+    exactly +0; the kernel skips them.  A degenerate grid or bandwidth
+    plans every tile dense (every bucket but NaN's)."""
+    t = np.asarray(targets, dtype=np.float32)
+    M = t.size
+    nc = min(M - 1, K7_MAX_CELLS)
+    t0 = t[0]
+    span = float(t[M - 1]) - float(t[0])
+    with np.errstate(over="ignore"):
+        inv = np.float32(nc / span) if span > 0 else np.float32(0.0)
+    ok = M >= 2 and span > 0 and bool(np.isfinite(inv)) and inv > 0
+    inv_c = inv if ok else np.float32(0.0)
+    v = -float(np.float32(neg_inv_h2))
+    hw = K7_HALF_WIDTH / math.sqrt(v) if v > 0 else math.nan
+    dense = not ok or not hw > 0 or not math.isfinite(hw)
+    tiles = -(-M // K7_TILE)
+    ranges = np.empty((tiles, 2), dtype=np.int64)
+    for tau in range(tiles):
+        seg = t[tau * K7_TILE:(tau + 1) * K7_TILE].astype(np.float64)
+        lo = hi = math.nan
+        if not dense and not np.isnan(seg).any():
+            lo = ((float(seg.min()) - hw) - float(t0)) * float(inv_c)
+            hi = ((float(seg.max()) + hw) - float(t0)) * float(inv_c)
+        if math.isfinite(lo) and math.isfinite(hi):
+            ranges[tau] = [int(min(max(math.floor(lo) - 2.0, -1.0), nc)) + 1,
+                           int(min(max(math.floor(hi) + 2.0, -1.0), nc)) + 1]
+        else:
+            ranges[tau] = [0, nc + 1]
+    return K7Plan(t0=t0, inv_c=inv_c, nc=nc, ranges=ranges)
+
+
+def k7_buckets(sources, plan: K7Plan) -> np.ndarray:
+    """Each f32 source's bucket under K7's plan (csrc/kde_gmm.cu
+    k7_bucket): floor((x - t0) * inv_c) in f32, clamped to [-1, nc], + 1;
+    NaN sources nc + 2."""
+    x = np.asarray(sources, dtype=np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        u = np.floor((x - plan.t0) * plan.inv_c)
+    c = np.fmin(np.fmax(u, np.float32(-1.0)), np.float32(plan.nc))
+    b = c.astype(np.int64) + 1
+    b[np.isnan(x)] = plan.nc + 2
+    return b
+
+
+def _k7_sizes(n: int, m: int):
+    """(n_pad, bucketing blocks, buckets, info length, part rows) of K7's
+    scratch for n sources and m targets (csrc/kde_gmm.cu gt_gauss_sums)."""
+    n_pad = -(-n // K7_CHUNK) * K7_CHUNK
+    tiles = -(-m // K7_TILE)
+    buckets = min(m - 1, K7_MAX_CELLS) + 3
+    return (n_pad, -(-n // K7_BCHUNK), buckets,
+            K7_INFO + 4 * tiles + buckets + 1, tiles * (n_pad // K7_CHUNK))
+
+
+def _gauss_launch(src: torch.Tensor, tgt: torch.Tensor, neg_inv_h2):
+    """One K7 launch: (out f64 [M], the bucketed sources f32 [n], the plan
+    i32: csrc/kde_gmm.cu's info; None with no sources or targets)."""
     for t in (src, tgt):
         if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
             raise TypeError("sources and targets must be contiguous 1-D "
@@ -228,17 +309,55 @@ def gauss_sums_cuda(src: torch.Tensor, tgt: torch.Tensor,
     dev = src.device
     n, m = int(src.shape[0]), int(tgt.shape[0])
     if n == 0 or m == 0:
-        return torch.zeros(m, dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        nb = _build.library().gt_gauss_blocks(dev.index, n)
-    if nb < 1:
-        raise RuntimeError(f"gt_gauss_blocks failed: CUDA error {-nb}")
-    part = torch.empty((nb, m), dtype=torch.float64, device=dev)
+        return torch.zeros(m, dtype=torch.float64, device=dev), src, None
+    if n > 2**31 - 1 - K7_CHUNK:
+        raise ValueError(f"K7 takes fewer than 2^31 sources, not {n}")
+    n_pad, nblk, buckets, ninfo, rows = _k7_sizes(n, m)
+    sizes = [4 * n_pad, 4 * buckets * nblk, 4 * buckets * nblk * K7_BWARPS,
+             4 * ninfo, 8 * rows * K7_TILE]
+    offs = [0]
+    for z in sizes:
+        offs.append(offs[-1] + -(-z // 256) * 256)
+    ws = torch.empty(offs[-1], dtype=torch.uint8, device=dev)
+    sorted_, table, wtab, info, part = (
+        ws[o:o + z].view(dt) for o, z, dt in zip(
+            offs, sizes, (torch.float32, torch.int32, torch.int32,
+                          torch.int32, torch.float64)))
     out = torch.empty(m, dtype=torch.float64, device=dev)
     _launch("gt_gauss_sums", "gauss_sums", dev, src.data_ptr(),
-            tgt.data_ptr(), float(neg_inv_h2), n, m, nb, part.data_ptr(),
-            out.data_ptr())
-    return out
+            tgt.data_ptr(), float(neg_inv_h2), n, m, sorted_.data_ptr(),
+            n_pad, table.data_ptr(), nblk, wtab.data_ptr(), info.data_ptr(),
+            part.data_ptr(), out.data_ptr())
+    return out, sorted_[:n], info
+
+
+def gauss_sums_cuda(src: torch.Tensor, tgt: torch.Tensor,
+                    neg_inv_h2) -> torch.Tensor:
+    """K7 (gt_gauss_sums, csrc/kde_gmm.cu): gauss_sums_plain's function on
+    CUDA tensors.  The sources are bucketed by target cell (a stable
+    sort, by hand), each tile of 32 targets adds only the terms of its
+    candidate range (k7_plan: every term it skips is exactly +0), each
+    term bit for bit the plain version's, in the kernel's fixed order
+    (f32 runs of 16 bucketed sources, f64 per item of 1024, the items in
+    a fixed order); raises on a launch error."""
+    return _gauss_launch(src, tgt, neg_inv_h2)[0]
+
+
+def expf_underflow(device, lo: float = -104.0) -> int:
+    """K7's premise on a CUDA device: expf (as K7's terms call it) of every
+    f32 from lo down to -inf is exactly +0.  Returns 0, or the bits of an
+    f32 whose expf is not +0."""
+    dev = torch.device(device)
+    first = int(np.float32(lo).view(np.uint32))
+    count = 0xFF800000 - first + 1  # lo, the next f32 below, ..., -inf
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = _build.library().gt_expf_underflow(dev.index, first, count,
+                                                bad.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"gt_expf_underflow failed: CUDA error {rc}")
+    return int(bad.item()) & 0xFFFFFFFF
 
 
 def gauss_sums(sources: np.ndarray, targets: np.ndarray, h: float,
