@@ -206,15 +206,32 @@ Phases (any failure raises and exits non-zero, printing no result):
    - count_features_in_roh over the VCF with each BED: the two counts
      files equal, and equal to a plain numpy count of the homozygous
      carriers of each functional allele, classed by np.searchsorted
-     over each individual's intervals; each step's seconds.
+     over each individual's intervals; each step's seconds;
+11. the port's benchmark scripts, as a user runs them, in subprocesses:
+   - the bench panel's TPED and TFAM copied into .bench_cache/ under
+     bench_torch.ensure_panel's names where they are absent (the same
+     make_panel arguments and write_tped, so no second synthesis);
+   - `python3 bench_torch.py`: exit 0, its last stdout line bench.py's
+     JSON object (the four keys, lod_windows_per_sec, a value above
+     0), K1 run in its kernel diagnostic and K2 on every chromosome of
+     each of its 7 runs (its launches line); its windows/s printed
+     beside phase 4's fast_warm wall turned into windows/s (printed,
+     not gated: host-bound walls move by tens of percent);
+   - `python3 bench_scaling_torch.py`: exit 0, four JSON lines with
+     bench_scaling.py's keys and devices 1, 2, 4 and 8, K1 run (the
+     script itself holds every mesh's windows to one device's, bit for
+     bit);
+   - both outputs printed whole; what the phase added to .bench_cache/
+     is removed after it.
 Every run prints its --tpu-profile phase split; each phase prints its
 seconds, and the end the smoke's.
 
 The line before the last is {"kernels": [...]} (K1-K8; launches summed
 over the main path's runs), the last line {"ok": true, "device": {...}}.  The
 script imports no JAX (an import hook refuses it), writes only under
-build/chip_smoke/, removed at the end, and ends every subprocess it
-starts.
+build/chip_smoke/, removed at the end, and in phase 11 under
+.bench_cache/ (what it adds there is removed), and ends every subprocess
+it starts.
 """
 
 from __future__ import annotations
@@ -312,6 +329,12 @@ WORKFLOW_PANEL = dict(nind=200, nloci_per_chr=(100_000,), chrom_names=["22"],
                       seed=53, spacing_mean=400)
 HG18_CHR22_BP = 49_691_432
 WORKFLOW_SITES, WORKFLOW_SEED = 2000, 59
+# phase 11: a benchmark script's time limit, seconds; the keys of
+# bench.py's JSON line and of bench_scaling.py's, in order
+SCRIPT_TIMEOUT = 600
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+SCALING_KEYS = ["devices", "mesh", "windows_per_sec", "speedup",
+                "efficiency"]
 
 
 def say(*a):
@@ -2692,6 +2715,95 @@ def phase_workflow(mp):
     say(f"  phase 10: {time.perf_counter() - t0:.1f}s")
 
 
+def _script(args, label):
+    """`python3 args` from the repository root in a subprocess (killed
+    after SCRIPT_TIMEOUT seconds); prints its stderr and stdout whole.
+    Any exit but 0 raises.  Returns (stdout, stderr)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable] + args, cwd=REPO, text=True,
+                       capture_output=True, timeout=SCRIPT_TIMEOUT)
+    say(f"  {label}: exit {r.returncode} in {time.perf_counter() - t0:.1f}s")
+    for name, text in (("stderr", r.stderr), ("stdout", r.stdout)):
+        say(f"  --- {label}, {name}:\n{text.rstrip()}")
+    if r.returncode != 0:
+        raise AssertionError(f"{label} exited {r.returncode}")
+    return r.stdout, r.stderr
+
+
+def _script_launches(mp, err, prefix, label, least):
+    """Adds a script's launches line (`prefix launches {...}` on its
+    stderr: its process's counts, from 0) to the main path's and checks
+    each kernel of `least` ran at least that many times."""
+    m = re.search(rf"^{re.escape(prefix)} launches (\{{.*\}})$", err,
+                  flags=re.M)
+    if m is None:
+        raise AssertionError(f"{label} printed no launches line")
+    got = json.loads(m.group(1))
+    say(f"    launches: {got}")
+    for k in mp.launches:
+        mp.launches[k] += got[k]
+    for k, n in least.items():
+        if got[k] < n:
+            raise AssertionError(f"{label}: {k} ran {got[k]} times, "
+                                 f"expected >= {n}")
+
+
+def phase_bench_scripts(mp, tped, tfam, nchrom):
+    """The port's benchmark scripts (see the module docstring, phase
+    11)."""
+    import bench_torch
+    say("== phase 11: the benchmark scripts (bench_torch.py, "
+        "bench_scaling_torch.py)")
+    t0 = time.perf_counter()
+    if BENCH_PANEL != dict(nind=bench_torch.NIND,
+                           nloci_per_chr=bench_torch.NLOCI, seed=42,
+                           spacing_mean=4000):
+        raise AssertionError("the smoke's bench panel is not bench_torch's")
+    cache = bench_torch.CACHE
+    had = set(os.listdir(cache)) if os.path.isdir(cache) else None
+    os.makedirs(cache, exist_ok=True)
+    tag = f"{bench_torch.NIND}x{sum(bench_torch.NLOCI) // 1000}k"
+    try:
+        for src, name in ((tped, f"bench_{tag}.tped.gz"),
+                          (tfam, f"bench_{tag}.tfam")):
+            dst = os.path.join(cache, name)
+            if not os.path.exists(dst):
+                shutil.copy(src, dst)
+                say(f"  copied {os.path.basename(src)} to {dst}")
+        out, err = _script(["bench_torch.py"], "bench_torch.py")
+        line = json.loads(out.strip().splitlines()[-1])
+        if list(line) != BENCH_KEYS or line["metric"] != \
+                "lod_windows_per_sec" or not line["value"] > 0:
+            raise AssertionError(f"bench_torch.py's last line: {line}")
+        _script_launches(mp, err, "bench:", "bench_torch.py", {
+            "lod_windows": 6, "covered": bench_torch.RUNS * nchrom})
+        nwin, warm = bench_torch.total_windows(), mp.walls["fast_warm"]
+        say(f"  bench_torch.py, best of {bench_torch.RUNS}: "
+            f"{line['value']:,.1f} windows/s; phase 4's fast_warm, one "
+            f"profiled run: {nwin / warm:,.1f} windows/s ({nwin:,} windows"
+            f" in {warm:.3f}s); printed, not gated")
+        out, err = _script(["bench_scaling_torch.py"],
+                           "bench_scaling_torch.py")
+        lines = [json.loads(t) for t in out.strip().splitlines()]
+        if [d.get("devices") for d in lines] != [1, 2, 4, 8] or any(
+                list(d) != SCALING_KEYS or not d["windows_per_sec"] > 0
+                for d in lines):
+            raise AssertionError(f"bench_scaling_torch.py's lines: {lines}")
+        _script_launches(mp, err, "#", "bench_scaling_torch.py",
+                         {"lod_windows": 1})
+    finally:
+        for name in os.listdir(cache):
+            if had is None or name not in had:
+                path = os.path.join(cache, name)
+                if os.path.isdir(path):
+                    shutil.rmtree(path)
+                else:
+                    os.remove(path)
+        if had is None:
+            os.rmdir(cache)
+    say(f"  phase 11: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJaxPackage())
     all_cores = sorted(os.sched_getaffinity(0))
@@ -2791,6 +2903,8 @@ def main() -> int:
         mark("phase 9")
         phase_workflow(mp)
         mark("phase 10")
+        phase_bench_scripts(mp, tped, tfam, nchrom)
+        mark("phase 11")
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))

@@ -36,7 +36,9 @@ from util import make_panel, write_tgls, write_tped  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "garlic_tpu_torch")
-REFUSED = ("garlic_tpu", "jax", "jaxlib")
+# the JAX package, JAX, and the JAX package's benchmark scripts (the port's
+# bench_torch.py and bench_scaling_torch.py carry copies of what they need)
+REFUSED = ("garlic_tpu", "jax", "jaxlib", "bench", "bench_scaling")
 
 
 def _port_sources():
@@ -44,7 +46,9 @@ def _port_sources():
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out) + [os.path.join(REPO, f)
-                          for f in ("chip_smoke.py", "chip_ab.py")]
+                          for f in ("chip_smoke.py", "chip_ab.py",
+                                    "bench_torch.py",
+                                    "bench_scaling_torch.py")]
 
 
 # ---------------------------------------------------------------------------
@@ -52,9 +56,9 @@ def _port_sources():
 # ---------------------------------------------------------------------------
 
 def _refused_imports(path):
-    """(line, module) of every import of garlic_tpu or JAX in a file: import
-    statements, and __import__ / importlib.import_module with a constant
-    name."""
+    """(line, module) of every import of garlic_tpu, JAX, bench.py or
+    bench_scaling.py in a file: import statements, and __import__ /
+    importlib.import_module with a constant name."""
     tree = ast.parse(open(path).read())
     found = []
     for node in ast.walk(tree):
@@ -86,17 +90,23 @@ def test_refused_import_finder_sees_every_form(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import garlic_tpu.cli\nfrom jax import numpy\n"
                    "import garlic_tpu_torch.cli\nfrom . import x\n"
+                   "import bench_scaling\nfrom bench import run_ours\n"
+                   "import bench_torch\n"
                    "def f():\n    __import__('jaxlib')\n"
                    "    importlib.import_module('garlic_tpu.ops')\n")
     assert [n for _, n in _refused_imports(str(src))] == [
-        "garlic_tpu.cli", "jax", "jaxlib", "garlic_tpu.ops"]
+        "garlic_tpu.cli", "jax", "bench_scaling", "bench", "jaxlib",
+        "garlic_tpu.ops"]
 
 
 # ---------------------------------------------------------------------------
 # Copied definitions: the code is garlic_tpu's
 # ---------------------------------------------------------------------------
 
-_COPY = re.compile(r"Copy of garlic_tpu/(\S+?\.py):(\d+)\.")
+# a source file as a path from the repository's root: a module of
+# garlic_tpu, or one of its root benchmark scripts
+_SOURCE = r"(garlic_tpu/\S+?\.py|bench(?:_scaling)?\.py)"
+_COPY = re.compile(rf"Copy of {_SOURCE}:(\d+)\.")
 
 
 def _strip(node):
@@ -135,12 +145,68 @@ _COPY_MODULES = [p for p in _port_sources() if _copied(p)]
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_copied_definitions_are_garlic_tpus(path):
     for name, rel, line, node in _copied(path):
-        src = ast.parse(open(os.path.join(REPO, "garlic_tpu", rel)).read())
+        src = ast.parse(open(os.path.join(REPO, rel)).read())
         match = [n for n in src.body
                  if getattr(n, "name", None) == name and n.lineno == line]
-        assert match, f"{name}: no definition at garlic_tpu/{rel}:{line}"
+        assert match, f"{name}: no definition at {rel}:{line}"
         assert _strip(node) == _strip(match[0]), f"{name} differs from " \
-            f"garlic_tpu/{rel}:{line}"
+            f"{rel}:{line}"
+
+
+_COPY_LINES = re.compile(rf"^# Copy of {_SOURCE}:(\d+)-(\d+)\.$", re.M)
+
+
+def _copied_lines(path):
+    """(source file, first line, last line, the statements) of each block
+    of top-level statements after a comment that says it copies those
+    lines: as many statements as the source's top level has there."""
+    text = open(path).read()
+    body = ast.parse(text).body
+    out = []
+    for m in _COPY_LINES.finditer(text):
+        at = text.count("\n", 0, m.start()) + 1
+        rel, a, b = m.group(1), int(m.group(2)), int(m.group(3))
+        src = ast.parse(open(os.path.join(REPO, rel)).read()).body
+        n = sum(a <= s.lineno <= b for s in src)
+        out.append((rel, a, b, [s for s in body if s.lineno > at][:n]))
+    return out
+
+
+@pytest.mark.parametrize("path", [p for p in _port_sources()
+                                  if _copied_lines(p)],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_copied_statements_are_their_sources(path):
+    """Module-level statements copied as a block (bench_torch.py's
+    constants) are their source's statements on those lines."""
+    for rel, a, b, mine in _copied_lines(path):
+        src = ast.parse(open(os.path.join(REPO, rel)).read()).body
+        theirs = [s for s in src if a <= s.lineno <= b]
+        assert theirs, f"no statement at {rel}:{a}-{b}"
+        assert [ast.dump(s) for s in mine] == \
+            [ast.dump(s) for s in theirs], f"differs from {rel}:{a}-{b}"
+
+
+@pytest.mark.parametrize("rel,copies,adapted", [
+    ("bench_torch.py", ("log", "total_windows", "ensure_panel",
+                        "oracle_baseline"),
+     ("run_ours", "kernel_throughput", "start_warmup_thread", "main")),
+    ("bench_scaling_torch.py", (), ("main",)),
+], ids=["bench_torch", "bench_scaling_torch"])
+def test_bench_scripts_name_their_sources(rel, copies, adapted):
+    """The port's benchmark scripts: bench.py's definitions that they copy
+    (held to their code by test_copied_definitions_are_garlic_tpus) and
+    those adapted from bench.py or bench_scaling.py, each naming the
+    source definition of the same name; bench_torch.py's constants are
+    held by test_copied_statements_are_their_sources."""
+    path = os.path.join(REPO, rel)
+    assert {n for n, _, _, _ in _copied(path)} == set(copies)
+    named = {n: _source_defs(src)[line] for n, src, line in _adapted(path)}
+    assert named == {n: n for n in adapted}
+    if rel == "bench_torch.py":
+        names = {t.id for _, _, _, stmts in _copied_lines(path)
+                 for s in stmts for t in s.targets}
+        assert names == {"REPO", "CACHE", "ORACLE", "NIND", "NLOCI",
+                         "WINSIZE", "FLAGS"}
 
 
 def test_copies_cover_the_host_modules():
@@ -160,12 +226,13 @@ def test_copies_cover_the_host_modules():
         assert rel in rels, rel
 
 
-_ADAPTED = re.compile(r"Adapted from\s+garlic_tpu/(\S+?\.py):(\d+)")
+_ADAPTED = re.compile(rf"Adapted from\s+{_SOURCE}:(\d+)")
 
 
 def _adapted(path):
     """(name, source file, source line) of each top-level definition whose
-    docstring says it is adapted from garlic_tpu."""
+    docstring says it is adapted from garlic_tpu or its benchmark
+    scripts."""
     out = []
     for node in ast.parse(open(path).read()).body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
@@ -177,7 +244,7 @@ def _adapted(path):
 
 
 def _source_defs(rel):
-    src = ast.parse(open(os.path.join(REPO, "garlic_tpu", rel)).read())
+    src = ast.parse(open(os.path.join(REPO, rel)).read())
     return {n.lineno: n.name for n in src.body
             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
 
@@ -186,10 +253,10 @@ def _source_defs(rel):
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_adapted_definitions_name_a_source_definition(path):
     """An adapted definition (its code differs on purpose) names the line
-    of a top-level definition of garlic_tpu."""
+    of a top-level definition of garlic_tpu or its benchmark scripts."""
     for name, rel, line in _adapted(path):
         assert line in _source_defs(rel), \
-            f"{name}: no definition at garlic_tpu/{rel}:{line}"
+            f"{name}: no definition at {rel}:{line}"
 
 
 @pytest.mark.parametrize("rel,names,adapted", [
