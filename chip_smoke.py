@@ -222,7 +222,26 @@ Phases (any failure raises and exits non-zero, printing no result):
      script itself holds every mesh's windows to one device's, bit for
      bit);
    - both outputs printed whole; what the phase added to .bench_cache/
-     is removed after it.
+     is removed after it;
+12. the device trace (--tpu-profile with GARLIC_TPU_TRACE_DIR set:
+   runtime.PhaseProfiler's torch.profiler trace, one Chrome-trace JSON
+   a run): bench.py's pinned run, the GQ TGLS run, the automatic run,
+   the --weighted run and the pinned run streamed (phase 7's budget),
+   each on the sidecars and pools phases 4-7 made, one after another in
+   one subprocess (traced_child: a process pays the profiler's first
+   start on the card, ~9 s, once), each three times: untraced (warming
+   the process and the run's kernels), untraced, then traced.  Each
+   prints the traced and the untraced wall and --tpu-profile TOTAL
+   beside the same configuration's in-process run; from the trace
+   (trace_summary): the device's busy and idle shares of the traced
+   window (its first event to its last phase mark; busy is the union of
+   the kernels, copies and memsets), device time by kind, the TOP_OPS
+   longest device operations (hand kernels by their K-names), the
+   TOP_GAPS longest idle gaps with their phases and host operations, and
+   each hand kernel's device ms a launch beside its CUDA-event median.  Checks: one trace file that parses, holding
+   device events and the run's phase marks in order; every hand kernel
+   that the traced run's launches line counts among its kernels; all
+   three runs' .roh.bed byte-identical to the in-process run's.
 Every run prints its --tpu-profile phase split; each phase prints its
 seconds, and the end the smoke's.
 
@@ -335,6 +354,27 @@ SCRIPT_TIMEOUT = 600
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
 SCALING_KEYS = ["devices", "mesh", "windows_per_sec", "speedup",
                 "efficiency"]
+# phase 12: the traced runs, each (name, the phase 8 configuration it
+# repeats, GARLIC_TPU_HBM_BUDGET or None); the device operations and the
+# idle gaps each prints; each hand kernel's K-name, in KERNELS' order;
+# the trace's device events (kernels, copies, memsets) and its phase marks
+TRACED = (("pinned", "pinned", None), ("gq", "gq", None),
+          ("auto", "auto", None), ("weighted", "weighted", None),
+          ("streamed", "pinned", STREAM_BUDGET))
+TOP_OPS, TOP_GAPS = 8, 5
+K_NAMES = {k: f"K{i + 1}" for i, k in enumerate(KERNELS)}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+MARK = "garlic::mark:"
+# the phase whose CUDA-event median is each kernel's ms
+TIMED_IN = {**dict.fromkeys(LOD_KERNELS, 2), **dict.fromkeys(WLOD_KERNELS, 6),
+            **dict.fromkeys(AUTO_KERNELS, 5)}
+# a hand kernel's symbol, demangled or not, and its K-name: the first
+# pattern that matches names it (K6's symbol holds K1's name)
+K_SYMBOLS = ((r"wlod_windows_kernel", "K6"), (r"pair_counts_kernel", "K5"),
+             (r"lod_windows_kernel.*PlaneTerms", "K3"),
+             (r"lod_windows_kernel", "K1"),
+             (r"covered_kernel.*PlaneTerms", "K4"), (r"covered_kernel", "K2"),
+             (r"k7_[a-z]+_kernel", "K7"), (r"(?<![A-Za-z_])em_kernel", "K8"))
 
 
 def say(*a):
@@ -2804,6 +2844,295 @@ def phase_bench_scripts(mp, tped, tfam, nchrom):
     say(f"  phase 11: {time.perf_counter() - t0:.1f}s")
 
 
+def kernel_name(symbol):
+    """A device kernel's name in phase 12's lines: a hand kernel's
+    K-name (K_SYMBOLS), else the function's own name without its scope,
+    template and parameters, with the functor of a templated kernel
+    (elementwise, reduce) in brackets."""
+    for pattern, k in K_SYMBOLS:
+        if re.search(pattern, symbol):
+            return k
+    s = symbol.removeprefix("void ").replace("(anonymous namespace)::", "")
+    base = re.split(r"[<(]", s, maxsplit=1)[0]
+    rest = s[len(base):]
+    base = base.rsplit("::", 1)[-1]
+    fn = re.search(r"\b([A-Za-z_]\w*?(?:Functor\w*|_functor|_kernel_cuda|"
+                   r"_kernel_impl|_kernel))\b", rest)
+    return f"{base}[{fn.group(1)}]" if fn else base
+
+
+def _union(spans):
+    """The spans (start, end) merged: sorted, disjoint [start, end]s."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _copy_kind(name):
+    for tag, kind in (("HtoD", "H2D"), ("DtoH", "D2H"), ("DtoD", "D2D")):
+        if tag in name:
+            return kind
+    return "memcpy"
+
+
+def _gap_host(host, a, b):
+    """(name, share of the gap) of the host operation in the gap [a, b]:
+    the innermost (shortest) host event that covers at least half of it,
+    else "python" and the share of the gap no host event covers."""
+    best = None
+    for e in host:
+        cover = min(e["ts"] + e["dur"], b) - max(e["ts"], a)
+        if cover >= 0.5 * (b - a) and (best is None or e["dur"] < best[1]):
+            best = (e["name"], e["dur"], cover)
+    if best is not None:
+        return best[0], best[2] / (b - a)
+    covered = sum(y - x for x, y in _union(
+        (max(e["ts"], a), min(e["ts"] + e["dur"], b)) for e in host
+        if e["ts"] < b and e["ts"] + e["dur"] > a))
+    return "python", 1.0 - covered / (b - a)
+
+
+def trace_summary(doc, top_ops=TOP_OPS, top_gaps=TOP_GAPS):
+    """What phase 12 reads from a run's Chrome trace (`doc`, the parsed
+    JSON that runtime.PhaseProfiler writes through torch.profiler); times
+    in ms.  The traced window runs from the trace's first event to its
+    last garlic::mark:* (the run's last phase mark).  The device is busy
+    in the union of its kernels, copies and memsets inside the window;
+    the rest of the window is its idle gaps.  The span between two marks
+    is the phase the second one names, so each gap names the phases it
+    falls in, and the host operation in it (_gap_host).  Returns a dict:
+    window, busy (ms) and busy_share, idle_share; kinds, device ms by
+    kind (kernels, H2D, D2H, D2D, memcpy, memset); ops, the top_ops
+    device operations by total time as (name, count, ms), hand kernels by
+    their K-names (kernel_name); hand, K-name -> (count, ms); gaps, the
+    top_gaps longest as (ms, phases, host operation, its share); marks,
+    the phase names in order; device_events, their count."""
+    ev = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    marks = sorted((e["ts"], e["name"][len(MARK):]) for e in ev
+                   if e["name"].startswith(MARK))
+    if not marks:
+        raise ValueError(f"the trace holds no {MARK}* event")
+    t0, t1 = min(e["ts"] for e in ev), marks[-1][0]
+    dev = [e for e in ev if e.get("cat") in DEVICE_CATS]
+    busy = _union((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                  for e in dev if e["ts"] < t1 and e["ts"] + e["dur"] > t0)
+    edges = [t0] + [x for span in busy for x in span] + [t1]
+    gaps = sorted(((b - a, a, b) for a, b in zip(edges[::2], edges[1::2])
+                   if b > a), reverse=True)[:top_gaps]
+    phases = [(s, e, name) for s, (e, name)
+              in zip([t0] + [m[0] for m in marks[:-1]], marks)]
+    host = [e for e in ev if e.get("cat") not in DEVICE_CATS + (
+        "Trace", "gpu_user_annotation", "overhead")
+        and not e["name"].startswith(MARK)]
+    kinds = dict.fromkeys(("kernels", "H2D", "D2H", "D2D", "memcpy",
+                           "memset"), 0.0)
+    ops = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            name, kind = kernel_name(e["name"]), "kernels"
+        else:
+            name = e["name"]
+            kind = "memset" if e["cat"] == "gpu_memset" else \
+                _copy_kind(name)
+        kinds[kind] += e["dur"] / 1e3
+        n_ms = ops.setdefault(name, [0, 0.0])
+        n_ms[0] += 1
+        n_ms[1] += e["dur"] / 1e3
+    window = (t1 - t0) / 1e3
+    busy_ms = sum(b - a for a, b in busy) / 1e3
+    return {
+        "window": window, "busy": busy_ms,
+        "busy_share": busy_ms / window if window > 0 else 0.0,
+        "idle_share": 1.0 - busy_ms / window if window > 0 else 1.0,
+        "kinds": kinds,
+        "ops": sorted(((k, n, ms) for k, (n, ms) in ops.items()),
+                      key=lambda o: -o[2])[:top_ops],
+        "hand": {k: tuple(ops[k]) for k in K_NAMES.values() if k in ops},
+        "gaps": [(g / 1e3, "+".join(name for s, e, name in phases
+                                    if s < b and e > a),
+                  *_gap_host(host, a, b)) for g, a, b in gaps],
+        "marks": [name for _, name in marks],
+        "device_events": len(dev)}
+
+
+def traced_child(args):
+    """Phase 12's child process (`python3 -c`): args are a JSON file of
+    runs and a device.  Each run (name, flags, budget, trace directory,
+    output prefix) goes through run_main on the device three times in
+    this one process: untraced (warming the process and the run's own
+    kernels and files), untraced, then with GARLIC_TPU_TRACE_DIR set;
+    under GARLIC_TPU_HBM_BUDGET=budget where one is given; each with
+    the launch counters zeroed just before it and its own --out (prefix
+    .0, .1, .2).  A line `[traced] <name>` on stderr starts each run's
+    stderr; one JSON line a run on stdout gives its name, index, whether
+    it was traced, its exit code and its wall (host clock, closed by a
+    synchronize).  Returns 0, or 1 once a run exits otherwise."""
+    import torch
+    from garlic_tpu_torch.ops import cuda_lod, device_wlod
+    from garlic_tpu_torch.pipeline import run_main
+    with open(args[0]) as f:
+        runs = json.load(f)
+    device = args[1]
+    for run in runs:
+        print(f"[traced] {run['name']}", file=sys.stderr, flush=True)
+        os.environ.pop("GARLIC_TPU_HBM_BUDGET", None)
+        if run["budget"] is not None:
+            os.environ["GARLIC_TPU_HBM_BUDGET"] = run["budget"]
+        for i in range(3):
+            os.environ.pop("GARLIC_TPU_TRACE_DIR", None)
+            if i == 2:
+                os.environ["GARLIC_TPU_TRACE_DIR"] = run["tdir"]
+            for counts in (cuda_lod.LAUNCHES, device_wlod.CALLS):
+                for k in counts:
+                    counts[k] = 0
+            t0 = time.perf_counter()
+            rc = run_main(run["argv"] + ["--out", f"{run['out']}.{i}"],
+                          prog="garlic_tpu_torch", device=device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            print(json.dumps({"name": run["name"], "run": i,
+                              "traced": i == 2, "rc": rc,
+                              "wall": time.perf_counter() - t0}),
+                  flush=True)
+            if rc != 0:
+                return 1
+    return 0
+
+
+def traced_runs(runs, device="cuda:0"):
+    """traced_child over `runs` ({name: (flags, budget)}) in one
+    subprocess, killed after CHILD_TIMEOUT seconds; each run's trace
+    under WORK/trace_<name>/, its outputs WORK/traced_<name>.{0,1,2}.
+    Returns {name: (its three JSON lines, its stderr, its trace's
+    path)}; any exit but 0 raises, and so does a trace directory that
+    does not hold exactly one file."""
+    spec = [{"name": name, "argv": argv, "budget": budget,
+             "tdir": os.path.join(WORK, f"trace_{name}"),
+             "out": os.path.join(WORK, f"traced_{name}")}
+            for name, (argv, budget) in runs.items()]
+    path = os.path.join(WORK, "traced_runs.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.traced_child(sys.argv[1:]))", path, device],
+        cwd=REPO, text=True, capture_output=True, timeout=CHILD_TIMEOUT)
+    if r.returncode != 0:
+        raise AssertionError(f"the traced runs: exit {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    lines = [json.loads(t) for t in r.stdout.splitlines()
+             if t.startswith('{"name"')]
+    errs = dict(re.findall(r"^\[traced\] (\S+)\n(.*?)(?=^\[traced\] |\Z)",
+                           r.stderr, flags=re.M | re.S))
+    out = {}
+    for run in spec:
+        files = (os.listdir(run["tdir"]) if os.path.isdir(run["tdir"])
+                 else [])
+        if len(files) != 1:
+            raise AssertionError(f"traced {run['name']}: {run['tdir']} "
+                                 f"holds {files}, not one trace")
+        out[run["name"]] = ([t for t in lines if t["name"] == run["name"]],
+                            errs[run["name"]],
+                            os.path.join(run["tdir"], files[0]))
+    return out
+
+
+def phase_trace(mp, configs, times):
+    """The device trace (see the module docstring, phase 12).  configs:
+    phase 8's (flags, single-device run, ...) by name; times: the
+    kernels line's times, whose ms is each kernel's CUDA-event median."""
+    say("== phase 12: the device trace (--tpu-profile under "
+        "GARLIC_TPU_TRACE_DIR, torch.profiler)")
+    t0 = time.perf_counter()
+    refs = {name: (configs[config][1] if budget is None
+                   else f"{config}_streamed_1")
+            for name, config, budget in TRACED}
+    traced = traced_runs({name: (configs[config][0], budget)
+                          for name, config, budget in TRACED})
+    say(f"  the five runs, three times each in one subprocess: "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name, config, budget in TRACED:
+        ref = refs[name]
+        runs, err, path = traced[name]
+        bed = _read(mp.out(ref) + ".roh.bed")
+        for i in range(3):
+            if _read(os.path.join(WORK, f"traced_{name}.{i}.roh.bed")) \
+                    != bed:
+                raise AssertionError(f"traced {name}: run {i}'s .roh.bed "
+                                     f"differs from {ref}'s")
+        streamed = err.count("streaming per chromosome")
+        if (budget is not None) != (streamed > 0):
+            raise AssertionError(f"traced {name}: streamed {streamed} "
+                                 f"times, budget {budget}")
+        lines = [json.loads(t) for t in re.findall(
+            r"^\[profile\] launches (\{.*\})$", err, flags=re.M)]
+        totals = [float(t) for t in re.findall(
+            r"^\[profile\]\s+TOTAL\s+([0-9.]+)s", err, flags=re.M)]
+        if len(runs) != 3 or len(lines) != 3 or len(totals) != 3:
+            raise AssertionError(f"traced {name}: {len(runs)} runs, "
+                                 f"{len(lines)} launches lines, "
+                                 f"{len(totals)} TOTAL lines")
+        for got in lines:
+            for k in mp.launches:
+                mp.launches[k] += got[k]
+        with open(path) as f:
+            doc = json.load(f)
+        summ = trace_summary(doc)
+        say(f"  {name} ({ref}'s flags): walls untraced {runs[1]['wall']:.3f}"
+            f" s, traced {runs[2]['wall']:.3f} s (the profiler's start and "
+            f"export included; {ref} in this process: "
+            f"{mp.walls[ref]:.3f} s); --tpu-profile TOTAL untraced "
+            f"{totals[1]:.3f} s, traced {totals[2]:.3f} s; .roh.bed of all "
+            f"three runs byte-identical to {ref}'s")
+        say(f"    trace {os.path.relpath(path, REPO)} "
+            f"({os.path.getsize(path) / 1e6:.1f} MB, {len(doc['traceEvents'])}"
+            f" events, {summ['device_events']} on the device): window "
+            f"{summ['window']:.3f} ms, device busy {summ['busy']:.3f} ms = "
+            f"{summ['busy_share']:.2%}, idle {summ['idle_share']:.2%}")
+        say("    device ms by kind: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in summ["kinds"].items()))
+        say("    top device operations (count, total ms): " + "; ".join(
+            f"{k} {n} {ms:.3f}" for k, n, ms in summ["ops"]))
+        say("    longest idle gaps (ms, phase, host operation and its share"
+            " of the gap): " + "; ".join(
+                f"{g:.3f} {ph} {op} {share:.0%}"
+                for g, ph, op, share in summ["gaps"]))
+        if summ["device_events"] == 0:
+            raise AssertionError(f"traced {name}: no device event in "
+                                 f"{path}")
+        phases = [p for p in re.findall(
+            r"^\[profile\]\s+(\S+)\s+[0-9.]+s",
+            err.split("[profile] phase breakdown:")[-1], flags=re.M)
+            if p != "TOTAL"]
+        if summ["marks"] != phases:
+            raise AssertionError(f"traced {name}: the trace's marks "
+                                 f"{summ['marks']} are not the run's "
+                                 f"phases {phases}")
+        per = []
+        for k, kname in K_NAMES.items():
+            if not lines[2][k]:
+                continue
+            if kname not in summ["hand"]:
+                raise AssertionError(f"traced {name}: {k} ran "
+                                     f"{lines[2][k]} times, but no {kname}"
+                                     " kernel is in the trace")
+            n, ms = summ["hand"][kname]
+            per.append(f"{kname} ({k}) {ms / lines[2][k]:.4f} ms a launch "
+                       f"({lines[2][k]} launches, {n} kernels) beside "
+                       f"{times[k]['ms']:.4f} ms (CUDA events, phase "
+                       f"{TIMED_IN[k]})")
+        say("    hand kernels in the trace: " + "; ".join(per))
+        say("    trace_summary " + json.dumps(
+            {"run": name, **{k: summ[k] for k in (
+                "window", "busy", "busy_share", "idle_share", "kinds",
+                "ops", "hand", "gaps")}}))
+    say(f"  phase 12: {time.perf_counter() - t0:.1f}s")
+
+
 def main() -> int:
     sys.meta_path.insert(0, _NoJaxPackage())
     all_cores = sorted(os.sched_getaffinity(0))
@@ -2905,6 +3234,8 @@ def main() -> int:
         mark("phase 10")
         phase_bench_scripts(mp, tped, tfam, nchrom)
         mark("phase 11")
+        phase_trace(mp, configs, times)
+        mark("phase 12")
         say(f"  launches over the main path's runs: {mp.launches}")
         say("wall seconds: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in mp.walls.items()))

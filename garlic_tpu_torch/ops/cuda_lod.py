@@ -21,6 +21,7 @@ existed to bound XLA recompiles.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import numpy as np
@@ -38,6 +39,9 @@ from .lod import window_missing_mask
 LAUNCHES = {"lod_windows": 0, "covered": 0, "window_sums": 0,
             "covered_terms": 0, "pair_counts": 0, "wlod_windows": 0,
             "gauss_sums": 0, "gmm_em": 0}
+# True while runtime.PhaseProfiler's torch.profiler trace runs: each
+# launch then sits in a range garlic::<LAUNCHES key> of the trace
+TRACING = False
 
 
 def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
@@ -220,7 +224,9 @@ def _launch(fn: str, key: str, device, *args) -> None:
     afterwards, so a mesh shard's launch on another card leaves the
     process's current device as it was."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    span = (torch.profiler.record_function(f"garlic::{key}") if TRACING
+            else contextlib.nullcontext())
+    with torch.cuda.device(device), span:
         rc = getattr(_build.library(), fn)(device.index, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")

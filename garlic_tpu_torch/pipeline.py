@@ -235,14 +235,18 @@ class _FreqWriter:
         return self._exc.pop() if self._exc else None
 
 
-# copy of garlic_tpu/pipeline.py:154
+# garlic_tpu/pipeline.py:154, with the profiler made here so that its
+# trace closes on every exit of the run
 def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
          engine: str, mesh_err: Optional[str], mesh, group) -> int:
+    from .runtime import PhaseProfiler
     fw = _FreqWriter()
+    prof = PhaseProfiler(args[cli.ARG_PROFILE], mesh, group)
     try:
-        rc = _run_impl(args, argv, prog, log, fw, engine, mesh_err, mesh,
-                       group)
+        rc = _run_impl(args, argv, prog, log, fw, prof, engine, mesh_err,
+                       mesh, group)
     finally:
+        prof.close()  # the trace, on an early return or a raise too
         werr = fw.finish()
     if werr is not None:
         log.err("ERROR: Failed writing allele frequency data:", str(werr))
@@ -254,8 +258,8 @@ def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 # validation and .log lines are kept verbatim so the .log matches the JAX
 # package's
 def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-              fw: _FreqWriter, engine: str, mesh_err: Optional[str], mesh,
-              group) -> int:
+              fw: _FreqWriter, prof, engine: str, mesh_err: Optional[str],
+              mesh, group) -> int:
     outfile = args[cli.ARG_OUTFILE]
     # secondary processes write <out>.procN, so co-located processes do
     # not race on one file (pipeline.py:179-183)
@@ -448,8 +452,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             local[0] = np.random.default_rng().integers(0, 2 ** 31 - 1)
         eff_seed = int(group.broadcast(local, "seed")[0]) & 0x7FFFFFFF
     rng = np.random.default_rng(eff_seed)
-    from .runtime import PhaseProfiler
-    prof = PhaseProfiler(args[cli.ARG_PROFILE], mesh, group)
+    prof.start()
 
     if freq_only_flag:
         tped.freq_only(tpedfile, outfile, nresample, tped_missing, log,
@@ -472,6 +475,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             col_range=col_range)
         if col_range is not None and auto_freq:
             _global_freq(ds, mesh, nresample, rng)
+        if os.environ.get("GT_FREQ_DEBUG"):
+            _freq_debug(ds)
         if os.environ.get("GT_LOAD_STATS"):
             _load_stats(ds)
         log.log("Total loci:", num_loci)
@@ -995,6 +1000,18 @@ def _global_freq(ds, mesh, nresample: int, rng) -> None:
             # (src/garlic-data.cpp:142-148)
             counts = rng.binomial(nresample, np.clip(c.freq, 0.0, 1.0))
             c.freq = counts.astype(np.float64) / float(nresample)
+
+
+# garlic_tpu/pipeline.py:490-496
+def _freq_debug(ds) -> None:
+    """GT_FREQ_DEBUG: a hash of each chromosome's allele frequencies, on
+    stderr."""
+    import hashlib
+    for c in ds.chroms:
+        fh = hashlib.blake2b(np.ascontiguousarray(
+            np.asarray(c.freq, dtype=np.float64)).tobytes(),
+            digest_size=8).hexdigest()
+        print(f"[gt_freq] {c.chrom} {fh}", file=sys.stderr)
 
 
 def _load_stats(ds) -> None:
