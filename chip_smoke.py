@@ -240,7 +240,7 @@ Phases (any failure raises and exits non-zero, printing no result):
    TOP_GAPS longest idle gaps with their phases and host operations, and
    each hand kernel's device ms a launch beside its CUDA-event median.  Checks: one trace file that parses, holding
    device events and the run's phase marks in order; every hand kernel
-   that the traced run's launches line counts among its kernels; all
+   that the traced run's counters line counts among its kernels; all
    three runs' .roh.bed byte-identical to the in-process run's.
 Every run prints its --tpu-profile phase split; each phase prints its
 seconds, and the end the smoke's.
@@ -783,8 +783,24 @@ class _Tee:
         return getattr(self.stream, name)
 
     def profile(self):
+        """The phase breakdown's (phase, seconds), TOTAL last."""
         return re.findall(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s",
-                          "".join(self.parts), flags=re.M)
+                          phase_block("".join(self.parts)), flags=re.M)
+
+
+def phase_block(text):
+    """The --tpu-profile phase breakdown of a run's stderr: its last
+    `[profile] phase breakdown:` block, without the span breakdown that
+    follows it."""
+    return text.split("[profile] phase breakdown:")[-1].split(
+        "[profile] span breakdown:")[0]
+
+
+def profile_counters(text):
+    """The counters of each --tpu-profile report in a run's stderr (its
+    `[profile] counters {...}` lines), in order."""
+    return [json.loads(m) for m in re.findall(
+        r"^\[profile\] counters (\{.*\})$", text, flags=re.M)]
 
 
 def _run_port(argv, label, device=None):
@@ -2144,13 +2160,10 @@ def phase_weighted(mp, nchrom, tfam, wtped, wmap, split, runs, exact):
     base = wargs + ["--tpu-panel-cache"]
     mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_cold",
            WLOD_KERNELS, nchrom)
-    # the warm run prints the tie patrol's suspects and stage times
-    os.environ["GT_ASM_TIMING"] = "1"
-    try:
-        mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_warm",
-               WLOD_KERNELS, nchrom)
-    finally:
-        del os.environ["GT_ASM_TIMING"]
+    mp.run(base + ["--tpu-engine", "fast"], "weighted_fast_warm",
+           WLOD_KERNELS, nchrom)
+    say(f"    tie patrol: "
+        f"{profile_counters(mp.stderr['weighted_fast_warm'])[-1]['patrol']}")
 
     dev = torch.device("cuda")
     c, centro = _weighted_chrom(wtped, wmap)
@@ -2255,17 +2268,12 @@ def phase_streaming(mp, nchrom, tped, tfam, gq):
                                   "resident")):
             label = f"{name}_{mode}_{i}"
             labels.append(label)
-            if name == "pinned" and i == 0:  # the tie patrol's suspects
-                os.environ["GT_ASM_TIMING"] = "1"
-            try:
-                peaks[label] = _peak_run(
-                    mp, argv, label, kernel, nchrom, absent,
-                    STREAM_BUDGET if mode == "streamed" else None)
-            finally:
-                os.environ.pop("GT_ASM_TIMING", None)
-            for line in re.findall(r"^\[gt_asm\] c\d+ suspects.*$",
-                                   mp.stderr[label], flags=re.M):
-                say(f"    {line}")
+            peaks[label] = _peak_run(
+                mp, argv, label, kernel, nchrom, absent,
+                STREAM_BUDGET if mode == "streamed" else None)
+            if name == "pinned" and i == 0:  # the tie patrol's counts
+                say(f"    tie patrol: "
+                    f"{profile_counters(mp.stderr[label])[-1]['patrol']}")
             walls[label] = mp.walls[label]
         mp.same(labels[1:], labels[0])
         mp.same_log(labels[1:], labels[0])
@@ -2562,8 +2570,7 @@ def _child_profile(text):
     """(launches, device-memory peak in bytes, {tag: (calls, bytes,
     seconds)}, profiled TOTAL seconds) from a child's --tpu-profile
     lines."""
-    launches = json.loads(re.search(r"^\[profile\] launches (\{.*\})$",
-                                     text, flags=re.M).group(1))
+    launches = profile_counters(text)[-1]["launches"]
     peak = int(re.search(r"^\[profile\] device-memory peak (\d+) bytes",
                          text, flags=re.M).group(1))
     ex = {m[0]: (int(m[1]), int(m[2]), float(m[3])) for m in re.findall(
@@ -3068,13 +3075,12 @@ def phase_trace(mp, configs, times):
         if (budget is not None) != (streamed > 0):
             raise AssertionError(f"traced {name}: streamed {streamed} "
                                  f"times, budget {budget}")
-        lines = [json.loads(t) for t in re.findall(
-            r"^\[profile\] launches (\{.*\})$", err, flags=re.M)]
+        lines = [c["launches"] for c in profile_counters(err)]
         totals = [float(t) for t in re.findall(
             r"^\[profile\]\s+TOTAL\s+([0-9.]+)s", err, flags=re.M)]
         if len(runs) != 3 or len(lines) != 3 or len(totals) != 3:
             raise AssertionError(f"traced {name}: {len(runs)} runs, "
-                                 f"{len(lines)} launches lines, "
+                                 f"{len(lines)} counters lines, "
                                  f"{len(totals)} TOTAL lines")
         for got in lines:
             for k in mp.launches:
@@ -3105,9 +3111,8 @@ def phase_trace(mp, configs, times):
             raise AssertionError(f"traced {name}: no device event in "
                                  f"{path}")
         phases = [p for p in re.findall(
-            r"^\[profile\]\s+(\S+)\s+[0-9.]+s",
-            err.split("[profile] phase breakdown:")[-1], flags=re.M)
-            if p != "TOTAL"]
+            r"^\[profile\]\s+(\S+)\s+[0-9.]+s", phase_block(err),
+            flags=re.M) if p != "TOTAL"]
         if summ["marks"] != phases:
             raise AssertionError(f"traced {name}: the trace's marks "
                                  f"{summ['marks']} are not the run's "

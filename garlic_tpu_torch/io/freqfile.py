@@ -4,8 +4,9 @@ Reproduces writeFreqData/readFreqData (src/garlic-data.cpp:1311-1440).  On
 read, when the file's allele disagrees with the internal '1' allele coding
 the frequency flips to 1-freq (src/garlic-data.cpp:1419-1424).
 
-Copy of garlic_tpu/io/freqfile.py: the port imports nothing of
-garlic_tpu. Each function and class names its source line.
+Copy of garlic_tpu/io/freqfile.py (write_freq adapted: it counts the
+cached blob's hits): the port imports nothing of garlic_tpu. Each
+function and class names its source line.
 """
 
 from __future__ import annotations
@@ -36,13 +37,19 @@ def write_freq(freq_outfile: str, chroms: List[ChromData], log=None,
     On a digest match the blob is copied instead of re-formatting +
     re-deflating ~25 MB of text (~1 s for a 1M-locus genome); otherwise
     the normal write runs and refreshes blob + digest for the next run.
+    Under --tpu-profile the blob's hits and misses are counted
+    (runtime.count).
 
-    Copy of garlic_tpu/io/freqfile.py:23."""
+    Adapted from garlic_tpu/io/freqfile.py:23: the counters."""
+    from ..runtime import count
     path = freq_outfile + ".gz"
     key = _freq_content_key(chroms) if blob is not None else None
     if key is not None and _copy_freq_blob(blob, path, key):
+        count("freq_blob.hit")
         print(f"Wrote allele frequency data to {path}")
         return
+    if key is not None:
+        count("freq_blob.miss")
     try:
         from ..native import write_freq_chrom_native
         done = True

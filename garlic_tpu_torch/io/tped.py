@@ -5,7 +5,8 @@ pure-Python reader, peek_nind and the --freq-only stream as they are;
 load_tped, which asks the native parser for 2-bit codes (unphased) or
 int8 genotypes with the first-copy bits (--phased), writing a cold run's
 sidecar through io/panelcache.py here, or for one process's column
-range of individuals (col_range) on a multi-process run.
+range of individuals (col_range) on a multi-process run, and timing its
+steps (runtime.span) and the sidecar's hits under --tpu-profile.
 Each function names its source line.
 """
 
@@ -19,6 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..core.types import ChromData, Dataset, GarlicDataError
+from ..runtime import count, span
 from . import panelcache
 
 
@@ -286,41 +288,50 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
     native = None
     from_cache = False
     if panel_cache:
-        native = panelcache.load_cache(tpedfile, want_fc=phased,
-                                       tped_missing=tped_missing,
-                                       col_range=col_range)
+        with span("sidecar"):
+            native = panelcache.load_cache(tpedfile, want_fc=phased,
+                                           tped_missing=tped_missing,
+                                           col_range=col_range)
         from_cache = native is not None
+        count("sidecar.hit" if from_cache else "sidecar.miss")
         if from_cache:
             print(f"Loaded panel cache {panelcache.cache_path(tpedfile)}",
                   file=sys.stderr)
     if native is None:
         try:
             from ..native import parse_tped_native
-            native = parse_tped_native(tpedfile, tped_missing,
-                                       want_fc=phased, col_range=col_range)
+            with span("parse"):
+                native = parse_tped_native(tpedfile, tped_missing,
+                                           want_fc=phased,
+                                           col_range=col_range)
         except Exception:
             native = None
 
     if native is not None:
-        ds, num_loci = _assemble_from_native(native, phased, auto_freq, log)
+        with span("assemble"):
+            ds, num_loci = _assemble_from_native(native, phased, auto_freq,
+                                                 log)
         if panel_cache:
             ds.panel_cache_file = panelcache.cache_path(tpedfile)
         if panel_cache and not from_cache and col_range is None:
             # range-mode parses hold only a column slice: never write the
             # (full-panel) sidecar from one
-            digs = panelcache.save_cache(
-                tpedfile, native,
-                ds.nind if ds.ind_ids else
-                (ds.chroms[0].nind if ds.chroms else 0),
-                tped_missing=tped_missing)
+            with span("sidecar-write"):
+                digs = panelcache.save_cache(
+                    tpedfile, native,
+                    ds.nind if ds.ind_ids else
+                    (ds.chroms[0].nind if ds.chroms else 0),
+                    tped_missing=tped_missing)
             if digs:
                 # attach the payload digests to the COLD run's chroms too
                 # (warm loads read them from the sidecar header)
                 for c, d in zip(ds.chroms, digs):
                     c.geno2b_digest = d
     else:
-        ds, num_loci = _load_tped_python(tpedfile, tped_missing, phased,
-                                         auto_freq, log, col_range=col_range)
+        with span("parse"):
+            ds, num_loci = _load_tped_python(tpedfile, tped_missing, phased,
+                                             auto_freq, log,
+                                             col_range=col_range)
 
     if auto_freq and nresample > 0 and col_range is None:
         if rng is None:

@@ -11,35 +11,22 @@ covered by a window scoring >= cutoff accumulates coverage counts; runs
 start where coverage >= OVERLAP_THRESHOLD, split at >MAX_GAP gaps /
 centromere straddles, close where coverage drops or the chromosome ends,
 and are kept only if they span >= OVERLAP_THRESHOLD SNPs.
+
+Under --tpu-profile each step of the fast engine's assembly is a span
+(runtime.span: dispatch and edges in ops/device_win, patrol, scan,
+calls) and the tie patrol's suspect windows and flipped rows are
+counted (patrol.suspects, patrol.flip_rows).
 """
 
 from __future__ import annotations
 
-import os
-import time
 from dataclasses import dataclass, field
 from typing import List
 
 import numpy as np
 
+from ..runtime import count, span
 from .lod import pair_breaks
-
-
-# copy of garlic_tpu/ops/assembly.py:31
-def _asm_timing() -> bool:
-    # read per call (not at import), matching GT_PARSE_TIMING
-    return os.environ.get("GT_ASM_TIMING") is not None
-
-
-# copy of garlic_tpu/ops/assembly.py:37
-def _tmark(label: str, t0: float) -> float:
-    """GT_ASM_TIMING=1 stderr stage timings."""
-    t1 = time.perf_counter()
-    if _asm_timing():
-        import sys
-        print(f"[gt_asm] {label}: {(t1 - t0) * 1e3:.1f} ms",
-              file=sys.stderr)
-    return t1
 
 
 # copy of garlic_tpu/ops/assembly.py:48
@@ -208,10 +195,8 @@ def _repair_rows(packed: np.ndarray, sus, susw, chrom, exact_cover,
             rows = np.unique(si[flip])
         else:
             rows = si
-        if _asm_timing():
-            import sys
-            print(f"[gt_asm] c{ci} suspects={si.size} "
-                  f"flip-rows={rows.size}", file=sys.stderr)
+        count("patrol.suspects", int(si.size))
+        count("patrol.flip_rows", int(rows.size))
         if rows.size == 0:
             return
     fixed = exact_cover(ci, rows)          # bool [k, nloci]
@@ -233,7 +218,6 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
     from .device_win import (DeviceWin, FusedCov, LazyWin, covered_fetch,
                              covered_packed)
     sus = susw = None
-    t0 = time.perf_counter()
     if handle is not None:
         packed, sus, susw = covered_fetch(handle)
     elif isinstance(win, LazyWin):
@@ -251,18 +235,16 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
             above = win >= cutoff
             covered = coverage_counts_batch(above, winsize) >= threshold
             packed = np.packbits(covered, axis=1, bitorder="little")
-    t0 = _tmark(f"c{ci} fetch+reconstruct", t0)
     if sus is not None and exact_cover is not None:
-        if not packed.flags.writeable:
-            packed = np.array(packed)
-        _repair_rows(packed, sus, susw, chrom, exact_cover, exact_window,
-                     ci)
-        t0 = _tmark(f"c{ci} tie-repair", t0)
-    br = pair_breaks(chrom.positions, max_gap, cstart, cend)
-    out = assemble_runs_native(packed, br, chrom.positions, chrom.gpos,
-                               threshold, cm)
-    _tmark(f"c{ci} native-scan", t0)
-    return out
+        with span("patrol"):
+            if not packed.flags.writeable:
+                packed = np.array(packed)
+            _repair_rows(packed, sus, susw, chrom, exact_cover,
+                         exact_window, ci)
+    with span("scan"):
+        br = pair_breaks(chrom.positions, max_gap, cstart, cend)
+        return assemble_runs_native(packed, br, chrom.positions, chrom.gpos,
+                                    threshold, cm)
 
 
 # copy of garlic_tpu/ops/assembly.py:266, dispatching to this package's
@@ -288,12 +270,10 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
     # chromosome N+1's device compute overlaps chromosome N's host-side
     # fetch + scan; streamed entries (LazyWin, FusedCov.stream) are made,
     # dispatched, fetched and dropped in turn, to bound device memory
-    t0 = time.perf_counter()
     handles = [covered_dispatch(w, cutoff, winsize, threshold, tie_delta)
                if isinstance(w, DeviceWin)
                or (isinstance(w, FusedCov) and not w.stream) else None
                for w in win_by_chr]
-    t0 = _tmark("dispatch-all", t0)
     per_chrom = []
     for ci, chrom in enumerate(chroms):
         cstart = centro.start(chrom.chrom)
@@ -338,24 +318,23 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
             bounds = np.searchsorted(ind_arr, np.arange(nind + 1))
             per_chrom.append(("nat", (bounds, start_arr, stop_arr, size_arr)))
 
-    t0 = time.perf_counter()
-    lengths: List[float] = []
-    by_ind: List[IndividualROH] = []
-    for i, ind_id in enumerate(ind_ids):
-        rec = IndividualROH(ind_id=ind_id)
-        for ci in range(len(chroms)):
-            kind, data = per_chrom[ci]
-            if kind == "py":
-                for start, stop, size in data[i]:
-                    rec.calls.append(ROHCall(ci, start, stop, size))
-                    lengths.append(size)
-            else:
-                bounds, start_arr, stop_arr, size_arr = data
-                for k in range(bounds[i], bounds[i + 1]):
-                    rec.calls.append(ROHCall(ci, int(start_arr[k]),
-                                             int(stop_arr[k]),
-                                             float(size_arr[k])))
-                    lengths.append(float(size_arr[k]))
-        by_ind.append(rec)
-    _tmark("build-calls", t0)
+    with span("calls"):
+        lengths: List[float] = []
+        by_ind: List[IndividualROH] = []
+        for i, ind_id in enumerate(ind_ids):
+            rec = IndividualROH(ind_id=ind_id)
+            for ci in range(len(chroms)):
+                kind, data = per_chrom[ci]
+                if kind == "py":
+                    for start, stop, size in data[i]:
+                        rec.calls.append(ROHCall(ci, start, stop, size))
+                        lengths.append(size)
+                else:
+                    bounds, start_arr, stop_arr, size_arr = data
+                    for k in range(bounds[i], bounds[i + 1]):
+                        rec.calls.append(ROHCall(ci, int(start_arr[k]),
+                                                 int(stop_arr[k]),
+                                                 float(size_arr[k])))
+                        lengths.append(float(size_arr[k]))
+            by_ind.append(rec)
     return by_ind, np.asarray(lengths, dtype=np.float64)

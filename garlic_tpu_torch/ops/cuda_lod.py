@@ -21,27 +21,25 @@ existed to bound XLA recompiles.
 
 from __future__ import annotations
 
-import contextlib
 import warnings
 
 import numpy as np
 import torch
 
 from ..core.types import MISSING
+from ..runtime import kernel_range, span, to_device
 from . import _build
 from .lod import window_missing_mask
 
-# kernel launches by wrapper; chip_smoke.py zeroes and reads them.  K1-K4
-# keep the first four positions (resident_warps passes a key's position
-# to the library); K5 and K6, the weighted path's kernels, are launched
-# by ops/device_wlod.py, K7 (the Gauss transform) by ops/kde.py and K8
-# (the GMM-EM) by ops/gmm.py
+# kernel launches by wrapper, over the process; chip_smoke.py zeroes and
+# reads them, and --tpu-profile prints a call's (runtime.PhaseProfiler).
+# K1-K4 keep the first four positions (resident_warps passes a key's
+# position to the library); K5 and K6, the weighted path's kernels, are
+# launched by ops/device_wlod.py, K7 (the Gauss transform) by ops/kde.py
+# and K8 (the GMM-EM) by ops/gmm.py
 LAUNCHES = {"lod_windows": 0, "covered": 0, "window_sums": 0,
             "covered_terms": 0, "pair_counts": 0, "wlod_windows": 0,
             "gauss_sums": 0, "gmm_em": 0}
-# True while runtime.PhaseProfiler's torch.profiler trace runs: each
-# launch then sits in a range garlic::<LAUNCHES key> of the trace
-TRACING = False
 
 
 def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
@@ -222,11 +220,10 @@ def _launch(fn: str, key: str, device, *args) -> None:
     PyTorch's current stream of `device`; raises on a launch error.  The
     launcher sets the CUDA device it launches on; the guard sets it back
     afterwards, so a mesh shard's launch on another card leaves the
-    process's current device as it was."""
+    process's current device as it was.  In a trace the launch is the
+    range garlic::<key> (runtime.kernel_range)."""
     stream = torch.cuda.current_stream(device).cuda_stream
-    span = (torch.profiler.record_function(f"garlic::{key}") if TRACING
-            else contextlib.nullcontext())
-    with torch.cuda.device(device), span:
+    with torch.cuda.device(device), kernel_range(key):
         rc = getattr(_build.library(), fn)(device.index, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
@@ -311,12 +308,14 @@ def covered_terms(terms, miss, winsize: int, cutoff: float, thr: float,
 # ---------------------------------------------------------------------------
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
-    """Host array -> tensor on `device` (plain H2D copy).  Panel-cache
-    payloads are read-only memory maps; the tensor is only read."""
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message=".*not writable.*")
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device)
+    """Host array -> tensor on `device` (plain H2D copy, the span
+    `upload`).  Panel-cache payloads are read-only memory maps; the
+    tensor is only read."""
+    with span("upload"):
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*not writable.*")
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        return to_device(t, device)
 
 
 def _pack_numpy(geno: np.ndarray, L4: int) -> np.ndarray:

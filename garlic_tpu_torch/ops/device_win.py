@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core.types import MISSING
+from ..runtime import span, to_device, to_host, waiting
 from . import cuda_lod
 
 _warned_full_transfer = False
@@ -96,7 +97,7 @@ class DeviceWin:
         loci, on whichever process, in shard order: the columns
         range(*cols(sh)) of its [rows, nw] block (one allgather of every
         process's slices when the mesh spans processes)."""
-        mine = [(sh, win[:, slice(*cols(sh))].cpu().numpy())
+        mine = [(sh, to_host(win[:, slice(*cols(sh))]))
                 for sh, win in self._live()]
         if self.group is None or self.group.size == 1:
             return mine
@@ -147,8 +148,8 @@ class DeviceWin:
                 parts.append(held[sh][:, a - sh.c0:b - sh.c0].to(device))
             else:
                 t0, tail = tails[(sh.d, sh.s)]
-                parts.append(torch.from_numpy(
-                    np.ascontiguousarray(tail[:, a - t0:b - t0])).to(device))
+                parts.append(to_device(torch.from_numpy(
+                    np.ascontiguousarray(tail[:, a - t0:b - t0])), device))
         if not parts:
             rows = next(sh.rows for sh in self.shards if sh.d == d)
             return torch.empty((rows, 0), dtype=torch.float32, device=device)
@@ -161,25 +162,28 @@ class DeviceWin:
         them from its left neighbours (the coverage of its first locus
         and of the one before it).  When a row block's cells belong to
         several processes, every cell's last W windows are gathered
-        first (the left neighbours of another process's cells)."""
-        tails = None
-        if any(len({sh.owner for sh in self.shards
-                    if sh.d == d and sh.present}) > 1
-               for d in {sh.d for sh in self.shards}):
-            def cols(sh):
-                return (max(0, sh.nw - winsize), max(sh.nw, 0))
-            tails = {(sh.d, sh.s): (sh.c0 + cols(sh)[0], win)
-                     for sh, win in self._gather(cols, "window-halo")}
-        pieces = []
-        for sh, _ in self._live():
-            lo = max(0, sh.c0 - winsize)
-            hi = max(lo, min(sh.c1, self.nwin))
-            win = self._window_cols(sh.d, lo, hi, sh.device, tails)
-            pieces.append(_coverage(win, lo, sh.c0, sh.n, sh.nw, cutoff,
-                                    threshold,
-                                    self.tie_band(tie_delta, sh.device),
-                                    winsize, sh.r0))
-        return Coverage(pieces, self.nind, self.nloci, self.nwin, self.group)
+        first (the left neighbours of another process's cells).  The
+        span `dispatch`."""
+        with span("dispatch"):
+            tails = None
+            if any(len({sh.owner for sh in self.shards
+                        if sh.d == d and sh.present}) > 1
+                   for d in {sh.d for sh in self.shards}):
+                def cols(sh):
+                    return (max(0, sh.nw - winsize), max(sh.nw, 0))
+                tails = {(sh.d, sh.s): (sh.c0 + cols(sh)[0], win)
+                         for sh, win in self._gather(cols, "window-halo")}
+            pieces = []
+            for sh, _ in self._live():
+                lo = max(0, sh.c0 - winsize)
+                hi = max(lo, min(sh.c1, self.nwin))
+                win = self._window_cols(sh.d, lo, hi, sh.device, tails)
+                pieces.append(_coverage(win, lo, sh.c0, sh.n, sh.nw, cutoff,
+                                        threshold,
+                                        self.tie_band(tie_delta, sh.device),
+                                        winsize, sh.r0))
+            return Coverage(pieces, self.nind, self.nloci, self.nwin,
+                            self.group)
 
     def tie_band(self, tie_delta, device):
         """The tie band on `device`: tie_delta, times the device scalar
@@ -361,15 +365,16 @@ def _edges_payload(covered: torch.Tensor, susw: torch.Tensor,
     before[:, 1:] = covered[:, :-1]
     if prev is not None:
         before[:, 0] = prev.bool()
-    edges = torch.nonzero((covered != before).reshape(-1)).reshape(-1)
-    sidx = torch.nonzero(susw.reshape(-1)).reshape(-1)
+    with waiting(covered):  # nonzero reads its count from the device
+        edges = torch.nonzero((covered != before).reshape(-1)).reshape(-1)
+        sidx = torch.nonzero(susw.reshape(-1)).reshape(-1)
     sside = above.reshape(-1)[sidx].to(torch.int64)
     head = torch.tensor([edges.numel(), sidx.numel()], dtype=torch.int64,
                         device=covered.device)
     payload = torch.cat([head, last.to(torch.int64),
                          susw.any(dim=1).to(torch.int64), sidx, sside,
                          edges])
-    return payload.cpu().numpy()
+    return to_host(payload)
 
 
 def covered_dispatch(dwin, cutoff: float, winsize: int, threshold: float,
@@ -450,7 +455,13 @@ def covered_fetch(handle: Coverage):
     chromosome's rows and columns; the pieces of several shards are then
     merged into row-major order.  Across processes every process's
     payloads are gathered first (each behind its piece's r0, c0, rows,
-    n, nw and length), so every process gets every row."""
+    n, nw and length), so every process gets every row.  The span
+    `edges`, its blocking reads the spans `edges/wait`."""
+    with span("edges"):
+        return _covered_fetch(handle)
+
+
+def _covered_fetch(handle: Coverage):
     I, L, nwin = handle.nind, handle.nloci, handle.nwin
     got = [(p.r0, p.c0, p.cov.shape[0], p.cov.shape[1], p.susw.shape[1],
             _edges_payload(p.cov, p.susw, p.above, p.prev))

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..runtime import span, to_device, to_host, waiting
 from . import _build
 from .cuda_lod import _launch
 
@@ -225,8 +226,8 @@ def _em_result(w, mu, var, ll: float, done: bool, it: int, k: int,
 def _em_loop(stats, shards, k: int, w0, mu0, var0, device, max_iter: int,
              precision: float, n: int, reduce) -> GMMResult:
     """fit_em's loop, each shard's E-step by stats (see fit_em)."""
-    w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(device)
-                  for a in (w0, mu0, var0))
+    w, mu, var = (to_device(torch.from_numpy(np.array(a, dtype=np.float64)),
+                            device) for a in (w0, mu0, var0))
     last_ll = ll = -np.finfo(np.float64).max
     it, done = 0, False
     while not done and it < max_iter:
@@ -240,13 +241,15 @@ def _em_loop(stats, shards, k: int, w0, mu0, var0, device, max_iter: int,
         w, mu = s0 / float(n), s1 / s0
         var = s2 / s0 - mu * mu
         finite = torch.isfinite(mu).all() & torch.isfinite(var).all()
-        ll, ok = torch.stack([s[3 * k], finite.to(torch.float64)]).tolist()
+        with waiting(s):
+            ll, ok = torch.stack([s[3 * k],
+                                  finite.to(torch.float64)]).tolist()
         conv = abs(ll - last_ll) <= precision
         done = conv or not ok
         if not done:
             last_ll = ll
         it += 1
-    w, mu, var = (a.cpu().numpy() for a in (w, mu, var))
+    w, mu, var = (to_host(a) for a in (w, mu, var))
     return _em_result(w, mu, var, ll, done, it, k, n)
 
 
@@ -291,12 +294,12 @@ def fit_em(shards, k: int, w0: np.ndarray, mu0: np.ndarray,
     if (processes == 1 and len(shards) == 1
             and shards[0].device.type == "cuda"):
         x = shards[0]
-        w, mu, var = (torch.from_numpy(np.array(a, dtype=np.float64)).to(
-            x.device) for a in (w0, mu0, var0))
+        w, mu, var = (to_device(torch.from_numpy(
+            np.array(a, dtype=np.float64)), x.device) for a in (w0, mu0, var0))
         out = torch.empty(3 * k + 4, dtype=torch.float64, device=x.device)
         _em_launch(x, w, mu, var, out, fit=True, n=n, max_iter=max_iter,
                    precision=precision)
-        got = out.cpu().numpy()
+        got = to_host(out)
         return _em_result(got[:k].copy(), got[k:2 * k].copy(),
                           got[2 * k:3 * k].copy(), float(got[3 * k]),
                           bool(got[3 * k + 2]), int(got[3 * k + 1]), k, n)
@@ -326,18 +329,20 @@ def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
     w0 = np.full(k, 1.0 / k)
     mu0 = np.array([mean * (n + 1) / (k + 1) for n in range(k)])
     var0 = np.array([var * (n + 1) / k for n in range(k)])
-    if mesh is not None and (mesh.size > 1 or lengths.shape[0] >= 4096):
-        from ..parallel.engine import fit_gmm_sharded
-        print(f"Begin GMM estimation with k = {k} Gaussians...",
-              file=sys.stderr)
-        res = fit_gmm_sharded(lengths, k, w0, mu0, var0, mesh,
-                              max_iter=1000, precision=1e-5)
-        if not _g_format_stable(res):
+    with span("em"):
+        if mesh is not None and (mesh.size > 1
+                                 or lengths.shape[0] >= 4096):
+            from ..parallel.engine import fit_gmm_sharded
+            print(f"Begin GMM estimation with k = {k} Gaussians...",
+                  file=sys.stderr)
+            res = fit_gmm_sharded(lengths, k, w0, mu0, var0, mesh,
+                                  max_iter=1000, precision=1e-5)
+            if not _g_format_stable(res):
+                res = fit_gmm(lengths, k, w0, mu0, var0, max_iter=1000,
+                              precision=1e-5, verbose=False)
+        else:
             res = fit_gmm(lengths, k, w0, mu0, var0, max_iter=1000,
-                          precision=1e-5, verbose=False)
-    else:
-        res = fit_gmm(lengths, k, w0, mu0, var0, max_iter=1000,
-                      precision=1e-5, verbose=True)
+                          precision=1e-5, verbose=True)
     order = np.argsort(res.means, kind="stable")
     size_class = "A"
     for i in range(k):
@@ -351,10 +356,11 @@ def select_size_classes(lengths: np.ndarray, nclust: int, log=None,
             log.log(" )")
         size_class = chr(ord(size_class) + 1)
     bounds = []
-    for i in range(1, k):
-        a, b = order[i - 1], order[i]
-        bounds.append(find_boundary(
-            res.means[a], res.variances[a], res.weights[a],
-            res.means[b], res.variances[b], res.weights[b],
-            max_iter=1000, epsabs=1e-4))
+    with span("roots"):
+        for i in range(1, k):
+            a, b = order[i - 1], order[i]
+            bounds.append(find_boundary(
+                res.means[a], res.variances[a], res.weights[a],
+                res.means[b], res.variances[b], res.weights[b],
+                max_iter=1000, epsabs=1e-4))
     return bounds, res

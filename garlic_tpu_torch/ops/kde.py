@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..runtime import to_device
 from . import _build
 from .cuda_lod import _launch
 
@@ -367,8 +368,10 @@ def gauss_sums(sources: np.ndarray, targets: np.ndarray, h: float,
     sources and targets go up as f32; a CPU device runs the plain version
     (gauss_sums_plain), a CUDA device K7 (gauss_sums_cuda)."""
     dev = torch.device(device)
-    src = torch.from_numpy(np.asarray(sources, dtype=np.float32)).to(dev)
-    tgt = torch.from_numpy(np.asarray(targets, dtype=np.float32)).to(dev)
+    src = to_device(torch.from_numpy(np.asarray(sources, dtype=np.float32)),
+                    dev)
+    tgt = to_device(torch.from_numpy(np.asarray(targets, dtype=np.float32)),
+                    dev)
     neg_inv_h2 = -np.float32(1.0 / (h * h))
     if dev.type == "cpu":
         return gauss_sums_plain(src, tgt, neg_inv_h2)

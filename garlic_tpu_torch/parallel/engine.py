@@ -57,6 +57,7 @@ import torch
 
 from ..ops import cuda_lod
 from ..ops import device_wlod as dw
+from ..runtime import span, to_device, to_host
 from ..ops.device_win import Coverage, DeviceWin, _Piece
 from .mesh import AXIS_DP, AXIS_SP
 
@@ -246,8 +247,11 @@ def lod_windows_sharded(chrom, centro, winsize: int, error: float,
     W = winsize
     I, L = chrom.nind_global, chrom.nloci
     shards = shard_blocks(I, L, mesh, W, chrom.row0)
-    miss = _missing(chrom, centro, W, max_gap)
-    pk = cuda_lod.packed_host(chrom)
+    with span("inputs"):
+        with span("mask"):
+            miss = _missing(chrom, centro, W, max_gap)
+        with span("pack"):
+            pk = cuda_lod.packed_host(chrom)
     blocks = {}
     for sh in shards:
         if not sh.live:
@@ -257,10 +261,13 @@ def lod_windows_sharded(chrom, centro, winsize: int, error: float,
                               device=sh.device)
         else:
             a, b = sh.block(0, W - 1, L)
-            inp = _shard_inputs(_Block(chrom, pk, sh.h0, sh.h1, a, b), W,
-                                error, use_gl, miss[a:b - W + 1], sh.device)
-            win = (cuda_lod.window_sums if use_gl
-                   else cuda_lod.lod_windows)(*inp, W)
+            with span("inputs"):
+                inp = _shard_inputs(_Block(chrom, pk, sh.h0, sh.h1, a, b),
+                                    W, error, use_gl, miss[a:b - W + 1],
+                                    sh.device)
+            with span("dispatch"):
+                win = (cuda_lod.window_sums if use_gl
+                       else cuda_lod.lod_windows)(*inp, W)
             win = win[:, sh.c0 - a:sh.c0 - a + sh.nw]
         blocks[(sh.d, sh.s)] = win
     return DeviceWin(nind=I, nloci=L, nwin=max(L - W + 1, 0), shards=shards,
@@ -286,8 +293,11 @@ def covered_sharded(fc, cutoff: float, winsize: int, threshold: float,
     group = fc.mesh.group
     if nwin <= 0:
         return Coverage([], I, L, 0, group)
-    miss = _missing(c, fc.centro, W, fc.max_gap)
-    pk = cuda_lod.packed_host(c)
+    with span("inputs"):
+        with span("mask"):
+            miss = _missing(c, fc.centro, W, fc.max_gap)
+        with span("pack"):
+            pk = cuda_lod.packed_host(c)
     pieces = [covered_shard(fc, sh, pk, miss, cutoff, W, threshold,
                             tie_delta)
               for sh in shard_blocks(I, L, fc.mesh, W, c.row0) if sh.live]
@@ -298,14 +308,18 @@ def covered_shard(fc, sh: Shard, pk: np.ndarray, miss: np.ndarray,
                   cutoff: float, winsize: int, threshold: float,
                   tie_delta: float) -> _Piece:
     """One shard's K2 (K4) launch of covered_sharded: pk, the
-    chromosome's packed codes, miss its full_window_missing mask."""
+    chromosome's packed codes, miss its full_window_missing mask.  Its
+    steps are the spans `inputs` (their upload within) and `dispatch`."""
     W, L = winsize, fc.chrom.nloci
     a, b = sh.block(W, W - 1, L)
-    inp = _shard_inputs(_Block(fc.chrom, pk, sh.h0, sh.h1, a, b), W,
-                        fc.error, fc.use_gl, miss[a:b - W + 1], sh.device)
-    cov, susw, above = (cuda_lod.covered_terms if fc.use_gl
-                        else cuda_lod.covered)(*inp, W, cutoff, threshold,
-                                               tie_delta)
+    with span("inputs"):
+        inp = _shard_inputs(_Block(fc.chrom, pk, sh.h0, sh.h1, a, b), W,
+                            fc.error, fc.use_gl, miss[a:b - W + 1],
+                            sh.device)
+    with span("dispatch"):
+        cov, susw, above = (cuda_lod.covered_terms if fc.use_gl
+                            else cuda_lod.covered)(*inp, W, cutoff,
+                                                   threshold, tie_delta)
     o = sh.c0 - a
     return _Piece(cov[:, o:o + sh.n], susw[:, o:o + sh.nw],
                   above[:, o:o + sh.nw], cov[:, o - 1] if sh.c0 else None,
@@ -365,8 +379,8 @@ def _gathered(parts: list, owners: list, width: int, mesh, tag: str
     counts = [owners.count(r) for r in range(group.size)]
     mine = np.zeros((max(counts), width), dtype=np.float64)
     if parts:
-        mine[:len(parts)] = torch.stack(parts).cpu().numpy()
-    return [torch.from_numpy(row.copy()).to(device)
+        mine[:len(parts)] = to_host(torch.stack(parts))
+    return [to_device(torch.from_numpy(row.copy()), device)
             for r, block in enumerate(group.allgather(mine, tag))
             for row in block[:counts[r]]]
 
@@ -393,7 +407,7 @@ def gauss_transform_sharded(sources, targets, h, mesh) -> np.ndarray:
     acc = None
     for part in _gathered(parts, [r for *_, r in split], M, mesh, "kde"):
         acc = part if acc is None else acc + part
-    return acc.cpu().numpy()
+    return to_host(acc)
 
 
 def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
@@ -415,7 +429,7 @@ def fit_gmm_sharded(x, k: int, w0, mu0, var0, mesh, max_iter: int = 1000,
     from ..ops.gmm import fit_em
     x = np.ascontiguousarray(x, dtype=np.float64)
     split = _split(x.shape[0], mesh)
-    shards = [torch.from_numpy(x[lo:hi]).to(dev)
+    shards = [to_device(torch.from_numpy(x[lo:hi]), dev)
               for dev, lo, hi, r in split if r == mesh.group.rank]
     owners = [r for *_, r in split]
     return fit_em(shards, k, w0, mu0, var0, mesh.first, max_iter, precision,
@@ -468,14 +482,13 @@ def allele_freq_sharded(geno, mesh) -> np.ndarray:
     for sh in shard_blocks(I, L, mesh, 1):
         if not sh.live:
             continue
-        g = torch.from_numpy(np.ascontiguousarray(
-            geno[sh.r0:sh.r1, sh.c0:sh.c1])).to(sh.device)
+        g = to_device(torch.from_numpy(np.ascontiguousarray(
+            geno[sh.r0:sh.r1, sh.c0:sh.c1])), sh.device)
         valid = g >= 0
-        counts[0, sh.c0:sh.c1] += torch.where(
-            valid, g, torch.zeros_like(g)).sum(0, dtype=torch.int64).cpu(
-            ).numpy()
-        counts[1, sh.c0:sh.c1] += 2 * valid.sum(0, dtype=torch.int64).cpu(
-            ).numpy()
+        counts[0, sh.c0:sh.c1] += to_host(torch.where(
+            valid, g, torch.zeros_like(g)).sum(0, dtype=torch.int64))
+        counts[1, sh.c0:sh.c1] += 2 * to_host(
+            valid.sum(0, dtype=torch.int64))
     counts = mesh.group.sum_int(counts, "freq")
     return _freq_from_counts(counts[0], counts[1])
 
@@ -572,13 +585,13 @@ def ld_band_sharded(chrom, winsize: int, phased: bool, sub_idx, mesh
         T, X, tot, hom = _column_counts(chrom, pk, col, a, b, W, phased,
                                         sub, dev0, mesh)
         if group.size > 1:  # exact int32 sums over the processes
-            T, X = (torch.from_numpy(group.sum_int(t.cpu().numpy(),
-                                                   "ld-pairs")).to(dev0)
-                    for t in (T, X))
+            T, X = (to_device(torch.from_numpy(group.sum_int(
+                to_host(t), "ld-pairs")), dev0) for t in (T, X))
             if not phased:
-                th = group.sum_int(torch.stack([tot, hom]).cpu().numpy(),
+                th = group.sum_int(to_host(torch.stack([tot, hom])),
                                    "ld-hom")
-                tot, hom = (torch.from_numpy(v.copy()).to(dev0) for v in th)
+                tot, hom = (to_device(torch.from_numpy(v.copy()), dev0)
+                            for v in th)
         hf = freq = None
         if phased:
             freq = cuda_lod._upload(

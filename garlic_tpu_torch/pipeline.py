@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -62,6 +63,7 @@ from .ops import wiggle as wiggle_ops
 from .ops import wlod as wlod_ops
 from .parallel import multihost
 from .parallel.mesh import factor_devices, make_mesh, survey_devices
+from .runtime import count, span
 from .version import OUTPUT_COMPAT_VERSION
 
 AUTO_WINSIZE_THRESHOLD = 0.50  # garlic_tpu/pipeline.py:33
@@ -130,6 +132,7 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     GARLIC_TPU_* variables) `device` is this process's list.  A set of
     the variables that is incomplete, or a process group that does not
     form, exits 1 with one ERROR line."""
+    t_call = time.time_ns()  # --tpu-profile's call/start begins here
     log = RunLog()
     try:
         args = cli.parse_command_line(argv)
@@ -148,14 +151,14 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
               file=sys.stderr)
         return 1
     try:
-        return _main(args, argv, prog, log, device, group)
+        return _main(args, argv, prog, log, device, group, t_call)
     finally:
         log.close()
         group.close()
 
 
 def _main(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-          device, group) -> int:
+          device, group, t_call: int) -> int:
     """run_main once the process group (of one process, or several) is
     formed."""
     try:
@@ -182,7 +185,8 @@ def _main(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             mesh = _resolve_mesh(args[cli.ARG_MESH], devices, group)
         except CLIError as e:
             mesh_err = str(e)
-    return _run(args, argv, prog, log, engine, mesh_err, mesh, group)
+    return _run(args, argv, prog, log, engine, mesh_err, mesh, group,
+                t_call)
 
 
 # garlic_tpu/pipeline.py:36 (PipelineState) for one process
@@ -219,8 +223,9 @@ class _FreqWriter:
 
         def _write():
             try:
-                freqfile.write_freq(outfile + ".freq", chroms, log,
-                                    blob=blob)
+                with span("freq-writer"):
+                    freqfile.write_freq(outfile + ".freq", chroms, log,
+                                        blob=blob)
             except BaseException as e:  # surfaced at finish()
                 self._exc.append(e)
 
@@ -236,20 +241,26 @@ class _FreqWriter:
 
 
 # garlic_tpu/pipeline.py:154, with the profiler made here so that its
-# trace closes on every exit of the run
+# trace closes, and its report prints, on every exit of the run
 def _run(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
-         engine: str, mesh_err: Optional[str], mesh, group) -> int:
+         engine: str, mesh_err: Optional[str], mesh, group,
+         t_call: int) -> int:
     from .runtime import PhaseProfiler
     fw = _FreqWriter()
-    prof = PhaseProfiler(args[cli.ARG_PROFILE], mesh, group)
+    prof = PhaseProfiler(args[cli.ARG_PROFILE], mesh, group, t_call)
     try:
         rc = _run_impl(args, argv, prog, log, fw, prof, engine, mesh_err,
                        mesh, group)
     finally:
-        prof.close()  # the trace, on an early return or a raise too
-        werr = fw.finish()
+        prof.end_phases()  # an early return's, or a raise's, open phase
+        with span("call/finish"):
+            werr = fw.finish()
+            if werr is not None:
+                log.err("ERROR: Failed writing allele frequency data:",
+                        str(werr))
+            log.close()
+        prof.report()  # closes the trace too
     if werr is not None:
-        log.err("ERROR: Failed writing allele frequency data:", str(werr))
         return 1 if rc == 0 else rc
     return rc
 
@@ -474,13 +485,15 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             panel_cache=args[cli.ARG_PANEL_CACHE], phased=phased,
             col_range=col_range)
         if col_range is not None and auto_freq:
-            _global_freq(ds, mesh, nresample, rng)
+            with span("global-freq"):
+                _global_freq(ds, mesh, nresample, rng)
         if os.environ.get("GT_FREQ_DEBUG"):
             _freq_debug(ds)
         if os.environ.get("GT_LOAD_STATS"):
             _load_stats(ds)
         log.log("Total loci:", num_loci)
-        ds.ind_ids, ds.pop = tfam.read_tfam(tfamfile, log)
+        with span("tfam"):
+            ds.ind_ids, ds.pop = tfam.read_tfam(tfamfile, log)
         num_ind = ds.nind
         log.log("Population:", ds.pop)
         log.log("Total diploid individuals:", num_ind)
@@ -490,14 +503,16 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
                 return 1
 
         if tglsfile != cli.DEFAULT_TGLS:
-            tgls.read_tgls(tglsfile, ds.chroms, num_ind, gl_type, log,
-                           panel_cache=bool(args[cli.ARG_PANEL_CACHE]),
-                           col_range=col_range)
+            with span("tgls"):
+                tgls.read_tgls(tglsfile, ds.chroms, num_ind, gl_type, log,
+                               panel_cache=bool(args[cli.ARG_PANEL_CACHE]),
+                               col_range=col_range)
             use_gl = True
 
         scaffolds = None
         if weighted or cm:
-            scaffolds = genmap.load_map_scaffold(mapfile, centro, log)
+            with span("map"):
+                scaffolds = genmap.load_map_scaffold(mapfile, centro, log)
             if len(scaffolds) != len(ds.chroms):
                 log.err("ERROR: Scaffold genetic map does not have the same "
                         "number of chromosomes as data.")
@@ -533,17 +548,20 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
 
     # ---------------- Filtering ----------------
     if weighted or cm:
-        ds.chroms, new_loci = filters.filter_monomorphic_and_oob(ds.chroms,
-                                                                 scaffolds)
+        with span("monomorphic"):
+            ds.chroms, new_loci = filters.filter_monomorphic_and_oob(
+                ds.chroms, scaffolds)
         log.log("Monomorphic or out of bounds loci filtered:",
                 num_loci - new_loci)
         num_interp = 0
-        for c, s in zip(ds.chroms, scaffolds):
-            c.gpos, n = genmap.interpolate_genetic_map(c.positions, s)
-            num_interp += n
+        with span("interpolate"):
+            for c, s in zip(ds.chroms, scaffolds):
+                c.gpos, n = genmap.interpolate_genetic_map(c.positions, s)
+                num_interp += n
         log.log("Number of genetic map locations interpolated:", num_interp)
     else:
-        ds.chroms, new_loci = filters.filter_monomorphic(ds.chroms)
+        with span("monomorphic"):
+            ds.chroms, new_loci = filters.filter_monomorphic(ds.chroms)
         log.log("Monomorphic loci filtered:", num_loci - new_loci)
     log.log("Total loci used for analysis:", new_loci)
     num_loci = new_loci
@@ -657,9 +675,11 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             # pre-resolve the tie band + threshold so each chromosome's
             # K2 launch is enqueued during Phase I; automatic-cutoff runs
             # dispatch in assembly, once Phase II has chosen the cutoff
+            with span("tie-band"):
+                band = _tie_band(ds.chroms, winsize, error, use_gl)
             fused_args = (lod_cutoff,
                           assembly.overlap_threshold(overlap_frac, winsize),
-                          _tie_band(ds.chroms, winsize, error, use_gl))
+                          band)
         win_by_chr = _calc_lod_windows(engine, mesh, ds, centro, winsize,
                                        error, max_gap, use_gl, fused,
                                        fused_args)
@@ -706,7 +726,8 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
             ds, centro, winsize, error, max_gap, use_gl, mu, M, phased,
             sub_idx, wpair_cache, overlap_frac, lod_cutoff, row_group)
     elif engine == "fast":
-        tie_delta = _tie_band(ds.chroms, winsize, error, use_gl)
+        with span("tie-band"):
+            tie_delta = _tie_band(ds.chroms, winsize, error, use_gl)
 
         def exact_cover(ci, rows):
             thr = assembly.overlap_threshold(overlap_frac, winsize)
@@ -760,7 +781,6 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
                   [c.chrom for c in ds.chroms], bound_sizes, ds.pop,
                   OUTPUT_COMPAT_VERSION, cm, log)
     prof.mark("write-bed")
-    prof.report()
     print("Finished.")
     return 0
 
@@ -1287,19 +1307,30 @@ def _compute_kde_for(st: _PhaseII, win_by_chr, step: int, ind_idx, log,
     if exact is not None and st.exact_sampler is not None:
         wq, rows = exact
         grid = None
-        ent = (st.pool_cache.lookup(wq, step)
-               if rows is None and st.pool_cache is not None else None)
-        if ent is not None:
-            # warm hit: grid scalars replayed bit-exactly, the pool mapped
-            # in its original pooling order
-            grid, samples = ent.grid(), ent.pool
+        if rows is None and st.pool_cache is not None:
+            with span("pool-replay"):  # the lookup, and a hit's replay
+                ent = st.pool_cache.lookup(wq, step)
+                if ent is not None:
+                    # warm hit: grid scalars replayed bit-exactly, the
+                    # pool mapped in its original pooling order
+                    grid, samples = ent.grid(), ent.pool
         else:
-            samples = st.exact_sampler(wq, step, rows)
-            if rows is None and st.pool_cache is not None:
-                grid = st.pool_cache.store(wq, step, samples)
-        return kde.compute_kde(samples, log, grid=grid, mesh=st.mesh)
-    samples = convert.win_to_samples(win_by_chr, step, ind_idx=ind_idx)
-    return kde.compute_kde(samples, log)
+            ent = None
+        if ent is not None:
+            count("pool.replayed")
+        else:
+            with span("pool"):
+                samples = st.exact_sampler(wq, step, rows)
+                if rows is None and st.pool_cache is not None:
+                    grid = st.pool_cache.store(wq, step, samples)
+            count("pool.pooled")
+        with span("kde"):
+            return kde.compute_kde(samples, log, grid=grid, mesh=st.mesh)
+    with span("pool"):
+        samples = convert.win_to_samples(win_by_chr, step, ind_idx=ind_idx)
+    count("pool.pooled")
+    with span("kde"):
+        return kde.compute_kde(samples, log)
 
 
 # copy of garlic_tpu/pipeline.py:1727
@@ -1322,15 +1353,17 @@ def _select_lod_cutoff(st: _PhaseII, win_by_chr, ds, kde_subsample: int,
     kr = _compute_kde_for(st, win_by_chr, step, idx, log,
                           exact=(wsize, idx))
     try:
-        kdefile.write_kde(kr, kdeoutfile, log)
+        with span("write-kde"):
+            kdefile.write_kde(kr, kdeoutfile, log)
     except Exception:
         return -1.0
-    try:
-        c = cutoff_ops.get_min_btw_modes(kr.x, kr.y, wsize)
-    except Exception:
-        _cutoff_error(log)
-        return -1.0
-    _report_cutoff_rivals(kr, wsize, c)
+    with span("search"):
+        try:
+            c = cutoff_ops.get_min_btw_modes(kr.x, kr.y, wsize)
+        except Exception:
+            _cutoff_error(log)
+            return -1.0
+        _report_cutoff_rivals(kr, wsize, c)
     return c
 
 

@@ -21,6 +21,7 @@ killed when one times out, so no case can hang the suite.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import socket
@@ -504,11 +505,12 @@ def test_tie_patrol_repairs_each_processs_rows(panels):
                           "0.001", "--kde-subsample", "0", "--lod-cutoff",
                           _tie_cutoff(wd), "--size-bounds", "300000",
                           "800000"]
-    outs = cluster(wd, argv + FAST + ["--tpu-mesh", "2x4", "--out",
-                                      "MH_tie"], env={"GT_ASM_TIMING": "1"})
-    flips = [int(n) for _, _, err in outs
-             for n in re.findall(r"flip-rows=(\d+)", err)]
-    assert flips and max(flips) > 0
+    outs = cluster(wd, argv + FAST + ["--tpu-mesh", "2x4", "--tpu-profile",
+                                      "--out", "MH_tie"])
+    flips = [json.loads(m)["patrol"]["flip_rows"] for _, _, err in outs
+             for m in re.findall(r"^\[profile\] counters (\{.*\})$", err,
+                                 flags=re.M)]
+    assert len(flips) == 2 and max(flips) > 0
     garlic(wd, argv, "REF_tie")
     same_as(wd, "MH_tie", "REF_tie")
 

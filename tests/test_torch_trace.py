@@ -76,7 +76,10 @@ def _traces(tdir):
 
 
 def _profile_phases(err):
-    return [line.split()[1] for line in err.splitlines()
+    """The phases of the last --tpu-profile report in err: its phase
+    breakdown's lines, not the span breakdown's paths after them."""
+    return [line.split()[1]
+            for line in chip_smoke.phase_block(err).splitlines()
             if line.startswith("[profile]   ")
             and line.split()[1] != "TOTAL"]
 
@@ -385,7 +388,7 @@ def test_traced_runs_on_the_cpu(panel_dir, monkeypatch):
         assert len(beds) == 1
         assert err.count("streaming per chromosome") == \
             (3 if name == "streamed" else 0)
-        assert err.count("[profile] launches") == 3
+        assert err.count("[profile] counters") == 3
         with open(path) as f:
             s = chip_smoke.trace_summary(json.load(f))
         assert s["marks"] == PHASES == _profile_phases(
