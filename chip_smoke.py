@@ -24,7 +24,15 @@ Phases (any failure raises and exits non-zero, printing no result):
    and at W=60 of one launch (the `ms` of the kernels line), the bound,
    the plain version's time, cuDNN's conv1d over the same term plane and
    fill_ over tensors of the kernel's outputs (what writing them alone
-   takes);
+   takes); then gt_compact_2bit (compact_step), the column compaction of
+   the 2-bit codes whose monomorphic filter deferred it, at the WGS
+   benchmark's chromosome-1 shape (108 x 820,835 loci, ~1.75% dropped:
+   tests/test_torch_compact.WGS_CHR1): the whole chromosome and each
+   block of a 2x2 mesh byte for byte against its plain version and the
+   host pass (gt_filter_pack_2bit), and its CUDA-event medians (one
+   launch, 10 back to back) beside its byte bound, the plain version's
+   and, on the host clock, the host pass's and the route's (uploads,
+   launch, synchronize);
 3. tie band: max |win_f32 - win_f64| / (2^-23 * W * tmax) on the bench
    chromosome at W=60 and W=120, with the scalar --error (K1) and with
    the GQ error plane (K3, tmax with the TGLS corners), f64 from the
@@ -729,6 +737,82 @@ def phase_kernels(chrom, centro):
     return err, times
 
 
+def compact_step():
+    """gt_compact_2bit on the card (the module docstring, phase 2):
+    returns its kernels-line entry."""
+    import torch
+    from garlic_tpu_torch.io import filters
+    from garlic_tpu_torch.native import filter_pack_2bit_native
+    from garlic_tpu_torch.ops import cuda_lod
+    from garlic_tpu_torch.parallel import engine
+    from garlic_tpu_torch.parallel.mesh import make_mesh
+    from tests.test_torch_compact import WGS_CHR1, packed_chrom, wgs_chr1_keep
+    dev = torch.device("cuda")
+    I, L = WGS_CHR1["nind"], WGS_CHR1["nloci"]
+    keep = wgs_chr1_keep(seed=2)
+    fc = filters._apply(packed_chrom(I, L, seed=1), keep)
+    pb, idx = fc.geno2b_parent
+    n, W = fc.nloci, 60
+    got = cuda_lod.packed_device(fc, dev)
+    parent = torch.from_numpy(pb.reshape(-1)).to(dev)
+    rel = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    stride = pb.shape[1]
+    plain = cuda_lod.compact_2bit_plain(parent, stride, I, rel)
+    host = filter_pack_2bit_native(pb, L, keep)[0]
+    blocks = []
+    for sh in engine.shard_blocks(I, n, make_mesh(2, 2, [dev] * 4), W):
+        a, b = sh.block(W, W - 1, n)
+        k = np.zeros(L, dtype=bool)
+        k[idx[a:b]] = True
+        blocks.append(np.array_equal(cuda_lod.packed_device(
+            engine._Block(fc, None, sh.h0, sh.h1, a, b), dev).cpu().numpy(),
+            filter_pack_2bit_native(pb[sh.h0:sh.h1], L, k)[0]))
+    torch.cuda.synchronize()
+    checks = {"plain equal": torch.equal(got, plain),
+              "host equal": np.array_equal(got.cpu().numpy(), host),
+              "2x2 blocks equal": all(blocks)}
+    say(f"  compact_2bit at the WGS chr1 shape {I} x {L}, {n} kept "
+        f"({L - n} dropped): " + ", ".join(f"{k} {v}"
+                                           for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"gt_compact_2bit differs: {checks}")
+    card = _card()
+    nbytes = parent.numel() + 4 * n + got.numel()
+    b = nbytes / card[2] * 1e3
+    kern = lambda: cuda_lod.compact_2bit(parent, stride, I, rel)  # noqa: E731
+    t = {"ms": _median_ms(kern),
+         "plain_ms": _median_ms(
+             lambda: cuda_lod.compact_2bit_plain(parent, stride, I, rel)),
+         "bound_ms": b, "bound_by": "bytes", "library_ms": None}
+    back = _median_ms(kern, reps=10)
+    # the card's own time: both kernels of a launch (the plan and the
+    # compaction), from the profiler; at ~0.03 ms a launch the events
+    # above hold the wrapper's host work too
+    dev_ms = sum((_device_ms(kern, ("compact_plan_kernel",
+                                    "compact_2bit_kernel")) or {}).values())
+    t["device_ms"] = dev_ms or None
+
+    def route():
+        cuda_lod.packed_device(fc, dev)
+        torch.cuda.synchronize()
+
+    host_ms = _median_wall_ms(
+        lambda: filter_pack_2bit_native(pb, L, keep), 5)
+    say(f"  compact_2bit: kernel {t['ms']:.4f} ms, bound {b:.4f} ms (bytes: "
+        f"{nbytes / 1e6:.2f} MB, the parent rows, the int32 index and the "
+        f"codes once), share of bound {b / t['ms']:.1%} (CUDA events around "
+        f"one launch, median of 21); back to back {back:.4f} ms, share "
+        f"{b / back:.1%} (10 launches); device time {dev_ms:.4f} ms, "
+        f"share {b / dev_ms if dev_ms else 0:.1%} (torch.profiler, the plan "
+        f"and the compaction kernels, 10 launches); "
+        f"plain {t['plain_ms']:.4f} ms; "
+        f"library none; the host pass gt_filter_pack_2bit "
+        f"{host_ms:.4f} ms and the device route (uploads, launch, "
+        f"synchronize) {_median_wall_ms(route, 5):.4f} ms (host clock, "
+        "median of 5)")
+    return t
+
+
 def phase_tie_band(chrom, centro):
     import torch
     from garlic_tpu_torch import pipeline
@@ -942,7 +1026,7 @@ class _MainPath:
     def __init__(self):
         self.walls = {}
         self.stderr = {}
-        self.launches = dict.fromkeys(KERNELS, 0)
+        self.launches = dict.fromkeys([*KERNELS, "compact_2bit"], 0)
 
     def run(self, argv, label, kernel=None, at_least=0, absent=None,
             device=None):
@@ -3180,6 +3264,7 @@ def main() -> int:
                        seed=11)
         centro = _Centro(*HG18_CHR1_CENTROMERE)
         err, times = phase_kernels(chrom, centro)
+        times["compact_2bit"] = compact_step()
         mark("phase 2")
         phase_tie_band(chrom, centro)
         del chrom
@@ -3256,6 +3341,12 @@ def main() -> int:
                 "replaces": KERNELS[k], "launches": launches[k],
                 "max_abs_err": max(err[k], mesh_err.get(k, 0.0)),
                 **times[k]} for k in KERNELS]
+    kernels.append({"name": "compact_2bit", "route": "cuda",
+                    "source": "garlic_tpu_torch/csrc/compact_2bit.cu",
+                    "replaces": "no Pallas kernel: the host pass "
+                    "garlic_tpu_torch/native/garlic_native.cpp:217",
+                    "launches": launches["compact_2bit"], "max_abs_err": 0.0,
+                    **times["compact_2bit"]})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,8 @@ class ChromData:
     the panel-cache sidecar's stored digest) is enough to find the
     payload already in HBM.
 
-    Copy of garlic_tpu/core/types.py:60."""
+    Adapted from garlic_tpu/core/types.py:60: the thunk's firing counts
+    in --tpu-profile's counters (pack.host)."""
 
     __slots__ = ("chrom", "positions", "gpos", "locus_names", "alleles",
                  "_geno", "freq", "first_copy", "_gl", "gl_codes", "gl_lut",
@@ -158,8 +159,12 @@ class ChromData:
     @property
     def geno2b(self) -> Optional[np.ndarray]:
         if self._geno2b is None and self._geno2b_thunk is not None:
+            # the host compaction (under --tpu-profile, counted in
+            # pack.host; Phase I's device route is pack.device)
+            from ..runtime import count
             self._geno2b = self._geno2b_thunk()
             self._geno2b_thunk = None
+            count("pack.host")
         return self._geno2b
 
     @property

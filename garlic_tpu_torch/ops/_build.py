@@ -142,6 +142,8 @@ def library() -> ctypes.CDLL:
         lib.gt_gmm_em.argtypes = [i, p, i, i, d, p, p, p, p, p, i, d, d, i,
                                   i, p]
         lib.gt_gmm_em.restype = i
+        lib.gt_compact_2bit.argtypes = [i, p, ll, ll, p, p, p, i, i, i, p]
+        lib.gt_compact_2bit.restype = i
         _lib = lib
         return lib
 

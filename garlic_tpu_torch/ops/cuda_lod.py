@@ -11,9 +11,13 @@ kernels are hand-written CUDA in csrc/lod_windows.cu:
 
 K1/K2 read 2-bit genotype codes and an f32 [3, L] LOD table; K3/K4 (the
 TGLS path, per-genotype error) read an f32 [I, L] term plane that
-gl_terms_f32 builds.  Each wrapper checks its inputs, sends a CPU tensor
-to the plain version beside it and launches the kernel for a CUDA tensor
-(there is no fallback from one to the other), and counts its launches in
+gl_terms_f32 builds.  A fifth kernel, gt_compact_2bit
+(csrc/compact_2bit.cu), replaces no Pallas kernel: where the monomorphic
+filter's column compaction of a chromosome's codes is still deferred, it
+compacts them to the kept loci on the device (packed_device), in place of
+the host pass.  Each wrapper checks its inputs, sends a CPU tensor to the
+plain version beside it and launches the kernel for a CUDA tensor (there
+is no fallback from one to the other), and counts its launches in
 LAUNCHES.  Tensors are sized exactly (nwin = L - W + 1 window starts, L
 SNPs): the JAX package's power-of-two buckets and its _pad_codes_dev
 existed to bound XLA recompiles.
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core.types import MISSING
-from ..runtime import kernel_range, span, to_device
+from ..runtime import count, kernel_range, span, to_device
 from . import _build
 from .lod import window_missing_mask
 
@@ -36,10 +40,11 @@ from .lod import window_missing_mask
 # K1-K4 keep the first four positions (resident_warps passes a key's
 # position to the library); K5 and K6, the weighted path's kernels, are
 # launched by ops/device_wlod.py, K7 (the Gauss transform) by ops/kde.py
-# and K8 (the GMM-EM) by ops/gmm.py
+# and K8 (the GMM-EM) by ops/gmm.py; compact_2bit is the codes'
+# compaction (compact_2bit, here)
 LAUNCHES = {"lod_windows": 0, "covered": 0, "window_sums": 0,
             "covered_terms": 0, "pair_counts": 0, "wlod_windows": 0,
-            "gauss_sums": 0, "gmm_em": 0}
+            "gauss_sums": 0, "gmm_em": 0, "compact_2bit": 0}
 
 
 def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:
@@ -156,6 +161,22 @@ def covered_terms_plain(terms, miss, winsize: int, cutoff: float,
     cov = window_counts(above, winsize).to(torch.float32) >= t
     return (cov.to(torch.uint8), susw.to(torch.uint8),
             above.to(torch.uint8))
+
+
+def compact_2bit_plain(parent, stride: int, rows: int, idx) -> torch.Tensor:
+    """Plain version of gt_compact_2bit: u8 [rows, ceil(n/4)] 2-bit codes
+    whose code o in row r is the code at position idx[o] of parent row r
+    (its bytes from parent[r * stride]), missing codes (3) past n."""
+    n = idx.shape[0]
+    nb = (n + 3) // 4
+    pos = idx.to(torch.int64)
+    at = (torch.arange(rows, dtype=torch.int64, device=parent.device)[:, None]
+          * stride + (pos >> 2))
+    full = torch.full((rows, 4 * nb), 3, dtype=torch.uint8,
+                      device=parent.device)
+    full[:, :n] = (parent[at] >> ((pos & 3) * 2).to(torch.uint8)) & 3
+    q = full.view(rows, nb, 4)
+    return q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
 
 
 def lod_windows_plain(packed, table, miss, winsize: int) -> torch.Tensor:
@@ -279,6 +300,42 @@ def covered(packed, table, miss, winsize: int, cutoff: float, thr: float,
     return out
 
 
+def compact_2bit(parent, stride: int, rows: int, idx) -> torch.Tensor:
+    """gt_compact_2bit: u8 [rows, ceil(n/4)] codes of the n positions
+    idx (int32) of `rows` rows of 2-bit codes, row r at parent[r * stride]
+    (a flat u8 tensor), missing codes past n (compact_2bit_plain).  Every
+    position must lie in its row and in parent: the caller's to keep
+    (packed_device), since the values of a device tensor cannot be read
+    without waiting for it."""
+    if parent.dtype != torch.uint8 or parent.dim() != 1:
+        raise TypeError("parent must be a 1-D uint8 tensor")
+    if idx.dtype != torch.int32 or idx.dim() != 1 or idx.shape[0] < 1:
+        raise TypeError("idx must be a non-empty 1-D int32 tensor")
+    if rows < 1 or stride < 1 or (rows - 1) * stride >= parent.shape[0]:
+        raise ValueError(f"{rows} rows of {stride} bytes do not lie in "
+                         f"{parent.shape[0]} bytes")
+    if idx.device != parent.device:
+        raise ValueError("inputs lie on different devices")
+    if not (parent.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    if parent.device.type == "cpu":
+        return compact_2bit_plain(parent, stride, rows, idx)
+    if parent.device.type != "cuda":
+        raise ValueError(f"unsupported device {parent.device}")
+    if parent.data_ptr() % 4 or idx.data_ptr() % 16:
+        raise ValueError("parent must be 4-byte and idx 16-byte aligned")
+    n = idx.shape[0]
+    # the kernel's scratch: each group of 16 loci's runs
+    plan = torch.empty(32 * ((n + 15) // 16), dtype=torch.uint8,
+                       device=parent.device)
+    out = torch.empty((rows, (n + 3) // 4), dtype=torch.uint8,
+                      device=parent.device)
+    _launch("gt_compact_2bit", "compact_2bit", parent.device,
+            parent.data_ptr(), parent.shape[0], stride, idx.data_ptr(),
+            plan.data_ptr(), out.data_ptr(), rows, n, out.shape[1])
+    return out
+
+
 def window_sums(terms, miss, winsize: int) -> torch.Tensor:
     """K3: masked f32 window sums [I, nwin] of an f32 term plane."""
     I, L, nwin = _check_terms(terms, miss, winsize)
@@ -348,6 +405,41 @@ def packed_host(chrom) -> np.ndarray:
     return pack_codes(np.asarray(chrom.genotypes))
 
 
+def deferred(chrom) -> bool:
+    """Whether chrom's 2-bit codes still wait for the monomorphic
+    filter's column compaction (io/filters._apply): no filtered bytes
+    exist, and geno2b_parent holds the unfiltered parent payload and the
+    kept loci's positions in it."""
+    return (getattr(chrom, "geno2b_parent", None) is not None
+            and chrom._geno2b is None)
+
+
+def packed_device(chrom, device) -> torch.Tensor:
+    """u8 [I, ceil(L/4)] 2-bit codes of one chromosome (or shard block)
+    on `device`.  Where its compaction is still deferred, the host
+    compaction never runs: the parent rows' bytes that cover its kept
+    loci go up as they are (their row stride kept, no host copy), with
+    the kept loci's positions rebased to those bytes, and compact_2bit
+    compacts them there (counted in pack.device; the span `pack` holds
+    these host steps).  Both inputs are freed on return, before any
+    kernel's output planes are made.  Else packed_host's bytes go up."""
+    if not deferred(chrom):
+        return _upload(packed_host(chrom), device)
+    with span("pack"):
+        pb, idx = chrom.geno2b_parent
+        p0 = int(idx[0]) // 4
+        rows, stride = pb.shape[0], pb.strides[0]
+        size = (rows - 1) * stride + int(idx[-1]) // 4 + 1 - p0
+        flat = np.lib.stride_tricks.as_strided(pb[:, p0:], shape=(size,),
+                                               strides=(1,))
+        rel = np.empty(idx.shape[0], dtype=np.int32)
+        np.subtract(idx, 4 * p0, out=rel, casting="unsafe")
+        out = compact_2bit(_upload(flat, device), stride, rows,
+                           _upload(rel, device))
+        count("pack.device")
+    return out
+
+
 def _missing_mask(chrom, centro, winsize: int, max_gap: int, device,
                   miss=None):
     if miss is None:
@@ -362,13 +454,14 @@ def chrom_device_inputs(chrom, centro, winsize: int, error: float,
     """One chromosome's K1/K2 inputs on `device`: (packed u8
     [I, ceil(L/4)], table f32 [3, L], window-missing mask u8 [nwin]),
     with nwin = L - winsize + 1 >= 1.  The codes go up as they are (a
-    plain H2D copy) and the f32 table is built on the device; the input
-    stage of lod_windows_pallas_prepacked_raw (pallas_lod.py:1261) and
-    covered_pallas_prepacked_raw (:1352).  miss: the host mask [nwin] to
-    upload (a mesh shard's slice of its chromosome's), else the mask of
-    chrom.positions."""
+    plain H2D copy; packed_device compacts them on the device where the
+    filter's compaction is deferred) and the f32 table is built on the
+    device; the input stage of lod_windows_pallas_prepacked_raw
+    (pallas_lod.py:1261) and covered_pallas_prepacked_raw (:1352).  miss:
+    the host mask [nwin] to upload (a mesh shard's slice of its
+    chromosome's), else the mask of chrom.positions."""
     freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
-    return (_upload(packed_host(chrom), device), lod_table_f32(freq, error),
+    return (packed_device(chrom, device), lod_table_f32(freq, error),
             _missing_mask(chrom, centro, winsize, max_gap, device, miss))
 
 
@@ -382,7 +475,7 @@ def chrom_gl_inputs(chrom, centro, winsize: int, max_gap: int, device,
     (:773); the plane is decoded on the device (_gl_codes_masked_entry,
     :668, and _gl_entry, :638, without their padding).  miss: as in
     chrom_device_inputs."""
-    geno = decode_2bit(_upload(packed_host(chrom), device), chrom.nloci)
+    geno = decode_2bit(packed_device(chrom, device), chrom.nloci)
     freq = _upload(np.asarray(chrom.freq, dtype=np.float32), device)
     if chrom.gl_codes is not None:
         codes = _upload(chrom.gl_codes, device)

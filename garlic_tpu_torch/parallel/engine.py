@@ -4,10 +4,13 @@ Counterpart of garlic_tpu/parallel/engine.py, whose shard_map programs
 become one loop over the mesh's shards in the one process that drives
 every device.  Every fast run goes through here: one device is the 1x1
 mesh over it, whose one shard is the whole chromosome.  Each shard's
-inputs are sliced from the host panel and uploaded to its device, its
-work is enqueued on that device's current stream, and a reduction adds
-the shards' partials on the mesh's first device in shard order, so its
-result does not depend on the device count.  Whether shards on
+inputs are sliced from the host panel and uploaded to its device (where
+the monomorphic filter's column compaction of the 2-bit codes is still
+deferred, the shard's rows of the unfiltered codes go up and are
+compacted there: cuda_lod.packed_device), its work is enqueued on that
+device's current stream, and a reduction adds the shards' partials on
+the mesh's first device in shard order, so its result does not depend
+on the device count.  Whether shards on
 different cards overlap is not measured (only one card has run them,
 and the uploads are blocking copies from pageable host memory).
 
@@ -186,15 +189,24 @@ def shard_blocks(nind: int, nloci: int, mesh, winsize: int,
 class _Block:
     """Rows [r0, r1) of the host panel and loci [a, b) of a chromosome
     (a a multiple of 4), with what cuda_lod's input builders read of a
-    chromosome: the 2-bit codes (a byte slice of pk, the chromosome's
-    packed codes), freq and the TGLS error plane."""
+    chromosome: the 2-bit codes, freq and the TGLS error plane.  The codes
+    are a byte slice of pk, the chromosome's packed codes; where pk is
+    None, the chromosome's compaction is still deferred and the block
+    holds it so too: the parent payload's rows and its own loci's parent
+    positions (geno2b_parent), which cuda_lod.packed_device compacts on
+    the shard's device."""
 
     geno_is_packed_only = True
 
-    def __init__(self, chrom, pk: np.ndarray, r0: int, r1: int, a: int,
-                 b: int):
+    def __init__(self, chrom, pk: Optional[np.ndarray], r0: int, r1: int,
+                 a: int, b: int):
         self.nind, self.nloci = r1 - r0, b - a
-        self.geno2b = pk[r0:r1, a // 4:(b + 3) // 4]
+        if pk is None:
+            pb, idx = chrom.geno2b_parent
+            self._geno2b, self.geno2b_parent = None, (pb[r0:r1], idx[a:b])
+        else:
+            self._geno2b = pk[r0:r1, a // 4:(b + 3) // 4]
+            self.geno2b_parent = None
         self.freq = chrom.freq[a:b]
         self.gl_codes = None if chrom.gl_codes is None \
             else chrom.gl_codes[r0:r1, a:b]
@@ -202,9 +214,23 @@ class _Block:
         self._chrom, self._cut = chrom, (r0, r1, a, b)
 
     @property
+    def geno2b(self) -> Optional[np.ndarray]:
+        return self._geno2b
+
+    @property
     def gl(self) -> np.ndarray:
         r0, r1, a, b = self._cut
         return np.asarray(self._chrom.gl)[r0:r1, a:b]
+
+
+def _host_codes(c) -> Optional[np.ndarray]:
+    """c's packed codes on the host (the span `pack`), or None where its
+    column compaction is still deferred: each shard's block is then
+    compacted on its device (cuda_lod.packed_device)."""
+    if cuda_lod.deferred(c):
+        return None
+    with span("pack"):
+        return cuda_lod.packed_host(c)
 
 
 def _missing(chrom, centro, winsize: int, max_gap: int) -> np.ndarray:
@@ -250,8 +276,7 @@ def lod_windows_sharded(chrom, centro, winsize: int, error: float,
     with span("inputs"):
         with span("mask"):
             miss = _missing(chrom, centro, W, max_gap)
-        with span("pack"):
-            pk = cuda_lod.packed_host(chrom)
+        pk = _host_codes(chrom)
     blocks = {}
     for sh in shards:
         if not sh.live:
@@ -296,20 +321,21 @@ def covered_sharded(fc, cutoff: float, winsize: int, threshold: float,
     with span("inputs"):
         with span("mask"):
             miss = _missing(c, fc.centro, W, fc.max_gap)
-        with span("pack"):
-            pk = cuda_lod.packed_host(c)
+        pk = _host_codes(c)
     pieces = [covered_shard(fc, sh, pk, miss, cutoff, W, threshold,
                             tie_delta)
               for sh in shard_blocks(I, L, fc.mesh, W, c.row0) if sh.live]
     return Coverage(pieces, I, L, nwin, group)
 
 
-def covered_shard(fc, sh: Shard, pk: np.ndarray, miss: np.ndarray,
-                  cutoff: float, winsize: int, threshold: float,
-                  tie_delta: float) -> _Piece:
+def covered_shard(fc, sh: Shard, pk: Optional[np.ndarray],
+                  miss: np.ndarray, cutoff: float, winsize: int,
+                  threshold: float, tie_delta: float) -> _Piece:
     """One shard's K2 (K4) launch of covered_sharded: pk, the
-    chromosome's packed codes, miss its full_window_missing mask.  Its
-    steps are the spans `inputs` (their upload within) and `dispatch`."""
+    chromosome's packed codes (None: compacted on the device, _Block),
+    miss its full_window_missing mask.  Its steps are the spans `inputs`
+    (their upload, or the device compaction's `pack`, within) and
+    `dispatch`."""
     W, L = winsize, fc.chrom.nloci
     a, b = sh.block(W, W - 1, L)
     with span("inputs"):

@@ -171,7 +171,9 @@ class PhaseProfiler:
         (ops/cuda_lod.LAUNCHES and ops/device_wlod.CALLS since start()),
         h2d_bytes and d2h_bytes (to_device, to_host), the pool's pooled
         and replayed, the sidecar's and the .freq.gz blob's hit and
-        miss, and the tie patrol's suspects and flip_rows;
+        miss, the tie patrol's suspects and flip_rows, and the 2-bit
+        codes' column compactions on a device (pack.device, one a shard)
+        and on the host (pack.host, one a chromosome);
       * on a fast run its device budget on the mesh's first device (its
         share of the card), its device-memory peak on a CUDA device, and
         the exchanges of a multi-process run's group.
@@ -274,7 +276,8 @@ class PhaseProfiler:
             "freq_blob": {k: c.get(f"freq_blob.{k}", 0)
                           for k in ("hit", "miss")},
             "patrol": {k: c.get(f"patrol.{k}", 0)
-                       for k in ("suspects", "flip_rows")}}
+                       for k in ("suspects", "flip_rows")},
+            "pack": {k: c.get(f"pack.{k}", 0) for k in ("device", "host")}}
 
     # -- the call ------------------------------------------------------------
     def start(self) -> None:

@@ -356,3 +356,116 @@ def test_pinned_run_on_card_matches_exact(panel_dir):
     assert _run(port_main, wd, base + ["--tpu-engine", "exact",
                                        "--out", "gpux"]) == 0
     _same_outputs(wd, "gpu", "gpux")
+
+
+# ---------------------------------------------------------------------------
+# The 2-bit codes' column compaction on the device (cuda_lod.packed_device)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mono_dir(tmp_path_factory):
+    """A panel with monomorphic loci on both chromosomes (the first and
+    last locus, a run, scattered ones) and its warm sidecar: its filtered
+    chromosomes' compaction is deferred on every warm load."""
+    wd = tmp_path_factory.mktemp("mono_panel")
+    panel = make_panel(nind=35, nloci_per_chr=(5000, 4000), seed=29,
+                       big_gap_every=700)
+    rng = np.random.default_rng(5)
+    for g in panel.genotypes:
+        L = g.shape[1]
+        cols = np.r_[0, L - 1, 1200:1209, rng.choice(L, L // 50)]
+        g[:, cols] = 2
+    write_tped(panel, str(wd / "m.tped.gz"), str(wd / "m.tfam"))
+    assert _run(port_main, str(wd), _mono_args(str(wd), PINNED) + [
+        "--tpu-engine", "fast", "--out", "cold"], device="cpu") == 0
+    assert os.path.exists(f"{wd}/m.tped.gz.gtpc")
+    return str(wd)
+
+
+def _mono_args(wd, flags):
+    return ["--tped", f"{wd}/m.tped.gz", "--tfam", f"{wd}/m.tfam",
+            "--build", "hg18", "--tpu-panel-cache"] + flags
+
+
+def _tie_flags(wd):
+    """PINNED with the cutoff on an exact f64 window of chromosome 1 (its
+    median live window): inside the tie band, so the patrol flips its
+    row (the multi-process test's _tie_cutoff)."""
+    from garlic_tpu_torch.centromeres import Centromere
+    from garlic_tpu_torch.io import filters, tped
+    from garlic_tpu_torch.logger import RunLog
+    from garlic_tpu_torch.ops import lod
+    ds, _ = tped.load_tped(f"{wd}/m.tped.gz")
+    ds.chroms, _ = filters.filter_monomorphic(ds.chroms)
+    w = lod.calc_lod_windows(ds.chroms[0], Centromere("hg18", "none", "none",
+                                                      RunLog()),
+                             40, 0.001, 200000, False)
+    live = w[(w != -9999) & (w > 0)]
+    flags = list(PINNED)
+    flags[flags.index("--lod-cutoff") + 1] = repr(
+        float(np.sort(live)[live.size // 2]))
+    return flags
+
+
+def _profiled(wd, args, out):
+    """A fast warm call under --tpu-profile: its [profile] counters."""
+    import contextlib
+    import io
+    import json
+    import re
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = _run(port_main, wd, args + ["--tpu-engine", "fast",
+                                         "--tpu-profile", "--out", out],
+                  device="cpu")
+    assert rc == 0, err.getvalue()
+    (c,) = [json.loads(m) for m in re.findall(
+        r"^\[profile\] counters (\{.*\})$", err.getvalue(), flags=re.M)]
+    return c
+
+
+# pinned: Phase I compacts on the device; tie: the patrol flips a row and
+# decodes the suspects and that row from the parent payload; auto: the
+# automatic cutoff's pool (20 rows, pooled again every call) fires the
+# host compaction before Phase III's K2; auto-replay: the pool cache
+# replays the whole panel's pool, so Phase III's K2 compacts on the device
+@pytest.mark.parametrize("case,pack", [
+    ("pinned", {"device": 2, "host": 0}),
+    ("tie", {"device": 2, "host": 0}),
+    ("auto", {"device": 0, "host": 2}),
+    ("auto-replay", {"device": 2, "host": 0}),
+])
+def test_device_compaction_gives_the_host_routes_bed(mono_dir, monkeypatch,
+                                                     case, pack):
+    """A warm sidecar call whose chromosomes' compaction is deferred: the
+    route the call takes is the counters' (pack.device, one a chromosome
+    on the 1x1 mesh; pack.host, one a fired compaction), and its BED is
+    the host route's (the compaction forced onto the host) and the exact
+    engine's, byte for byte."""
+    wd = mono_dir
+    flags = {"pinned": PINNED, "tie": _tie_flags(wd),
+             "auto": ["--winsize", "40", "--error", "0.001",
+                      "--kde-subsample", "20", "--tpu-seed", "3",
+                      "--size-bounds", "300000", "800000"],
+             "auto-replay": ["--winsize", "40", "--error", "0.001",
+                             "--kde-subsample", "0", "--size-bounds",
+                             "300000", "800000"]}[case]
+    args = _mono_args(wd, flags)
+    if case == "auto-replay":  # the pool cache's first call pools
+        _profiled(wd, args, f"{case}_prime")
+    c = _profiled(wd, args, f"{case}_dev")
+    assert c["pack"] == pack
+    if case == "tie":
+        assert c["patrol"]["flip_rows"] > 0
+    if case == "auto-replay":
+        assert c["pool"] == {"pooled": 0, "replayed": 1}
+    with monkeypatch.context() as m:
+        m.setattr(cuda_lod, "deferred", lambda chrom: False)
+        host = _profiled(wd, args, f"{case}_host")
+    assert host["pack"] == {"device": 0, "host": 2}
+    assert _run(port_main, wd, args + ["--tpu-engine", "exact",
+                                       "--out", f"{case}_x"]) == 0
+    bed = read_text(f"{wd}/{case}_x.roh.bed")
+    assert bed.count("\nchr") >= 5
+    for out in ("dev", "host"):
+        assert read_text(f"{wd}/{case}_{out}.roh.bed") == bed

@@ -163,6 +163,7 @@ def test_counters_count_a_call_and_bytes_to_a_device(monkeypatch):
         cuda_lod.LAUNCHES["covered"] += 2
         runtime.count("sidecar.hit")
         runtime.count("patrol.suspects", 7)
+        runtime.count("pack.device", 2)
         runtime.to_device(torch.zeros(10, dtype=torch.float64), "meta")
         runtime.to_device(torch.zeros(4, dtype=torch.uint8), "cpu")
     finally:
@@ -171,9 +172,10 @@ def test_counters_count_a_call_and_bytes_to_a_device(monkeypatch):
     assert c["launches"]["covered"] == 2 and c["launches"]["lod_windows"] == 0
     assert c["sidecar"] == {"hit": 1, "miss": 0}
     assert c["patrol"] == {"suspects": 7, "flip_rows": 0}
+    assert c["pack"] == {"device": 2, "host": 0}
     assert c["h2d_bytes"] == 80 and c["d2h_bytes"] == 0
     assert set(c) == {"launches", "h2d_bytes", "d2h_bytes", "pool",
-                      "sidecar", "freq_blob", "patrol"}
+                      "sidecar", "freq_blob", "patrol", "pack"}
 
 
 def test_disabled_recorder_is_one_shared_no_op(monkeypatch):
