@@ -24,19 +24,22 @@ if __name__ == "__main__":
 
 import numpy as np  # noqa: E402
 
-from roh_bench import compare, harness, panel, reference  # noqa: E402
+from roh_bench import compare, harness, panel  # noqa: E402
 
 
 def readings(cfg: dict, traffic: dict, seed: int) -> dict:
     """compare.check's numbers over the panels a run of this seed makes,
     each panel called once by the control: rows_off the worst panel's,
     the others counted over panels."""
-    flags = list(cfg["flags"]) + ["--tpu-seed", str(seed % 2147483647)]
+    reference = harness.reference_for(cfg)
     work = tempfile.mkdtemp(prefix="roh_bench.control.")
     try:
         outs, refs = [], []
         for k in range(int(traffic["panels"])):
             pan = panel.make_panel(cfg, seed + k)
+            flags = (list(cfg["flags"])
+                     + harness.panel_inputs(pan, cfg, work, k)
+                     + ["--tpu-seed", str(seed % 2147483647)])
             refs.append(reference.call(pan, flags))
             outs.append(os.path.join(work, f"panel{k}"))
             compare.write_outputs(outs[-1],

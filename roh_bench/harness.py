@@ -2,11 +2,14 @@
 garlic_tpu_torch calls in a closed loop with one caller, the check of
 every call against the NumPy reference, and the result line.
 
-Everything a cell is sits in data files found by name: the workload
+Everything a cell is sits in files found by name: the workload
 (workloads/<cell>.json: its config and traffic), the configuration
-(configs/<config>.json: shapes, flags, generator), the traffic
-(traffic/<traffic>.json: panels, extra flags, set-up calls) and each
-metric's reader (metrics/<metric>.py), listed for the cell in
+(configs/<config>.json: shapes, flags, generator; optionally "inputs",
+side files a panel such as a genetic map, each written by
+inputs/<writer>.py and passed as `<flag> <path>`, and "reference", the
+module under roh_bench that judges its calls, reference.py by default),
+the traffic (traffic/<traffic>.json: panels, extra flags, set-up calls)
+and each metric's reader (metrics/<metric>.py), listed for the cell in
 BENCHMARK.json.  See PERF.md for what each metric measures and why.
 """
 
@@ -28,7 +31,7 @@ import tempfile
 import time
 from collections import defaultdict
 
-from . import compare, panel as panels, reference
+from . import compare, panel as panels
 from .metrics.common import CallRecord, Window
 from .trace import trace_summary
 
@@ -37,6 +40,7 @@ ROOT = os.path.dirname(HERE)
 # top-level module names that no run may hold once its window closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "garlic_tpu")
 _PHASE = re.compile(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s", re.M)
+_COUNTERS = re.compile(r"^\[profile\] counters (\{.*\})\s*$", re.M)
 
 
 def log(*a) -> None:
@@ -46,6 +50,50 @@ def log(*a) -> None:
 def load(kind: str, name: str) -> dict:
     with open(os.path.join(HERE, kind, name + ".json")) as f:
         return json.load(f)
+
+
+def reference_for(cfg: dict):
+    """The module that judges a configuration's calls: roh_bench.<its
+    "reference">, roh_bench.reference by default.  It has parse(argv),
+    which raises ValueError on a flag it does not implement, and
+    call(panel, argv, dt=np.float64) -> reference.Call."""
+    return importlib.import_module(
+        f"roh_bench.{cfg.get('reference', 'reference')}")
+
+
+def panel_inputs(pan, cfg: dict, work: str, k: int) -> list:
+    """Writes panel k's side inputs (the configuration's "inputs") into
+    work, panel{k}.<writer>; returns their flags, [flag, path, ...]."""
+    out = []
+    for spec in cfg.get("inputs", []):
+        writer = importlib.import_module(
+            f"roh_bench.inputs.{spec['writer']}")
+        path = os.path.join(work, f"panel{k}.{spec['writer']}")
+        writer.write(pan, cfg, spec, path)
+        out += [spec["flag"], path]
+    return out
+
+
+def call_flags(cfg: dict, traffic: dict, seed: int, inputs=()) -> list:
+    """A call's flags after its files: the configuration's, the
+    traffic's, a panel's side inputs, the engine and the seed.  The
+    reference reads the same."""
+    return (list(cfg["flags"]) + list(traffic["flags"]) + list(inputs)
+            + ["--tpu-engine", "fast", "--tpu-seed", str(seed % 2147483647)])
+
+
+def call_argv(files, out: str, flags: list) -> list:
+    """A call's argv: its panel's TPED and TFAM, its output prefix, its
+    flags (call_flags)."""
+    tped, tfam = files
+    return ["--tped", tped, "--tfam", tfam, "--out", out] + flags
+
+
+def profile_counters(err: str) -> dict:
+    """The last `[profile] counters {json}` line of a call's stderr,
+    parsed; {} without one."""
+    found = _COUNTERS.findall(err)
+    return json.loads(found[-1]) if found else {}
 
 
 def metric_specs(cell: str, traced: bool, bench: dict) -> list:
@@ -159,14 +207,17 @@ def _run(cell, cfg, traffic, specs, seed, seconds, traced, device,
     t1 = time.perf_counter()
     files = [panels.panel_files(p, work, f"panel{k}", cfg["tped"] == "gz")
              for k, p in enumerate(made)]
+    flags = [call_flags(cfg, traffic, seed,
+                        panel_inputs(p, cfg, work, k))
+             for k, p in enumerate(made)]
     log(f"[roh_bench] set-up: {npan} panel(s) {t1 - t:.3f} s, their files "
         f"{time.perf_counter() - t1:.3f} s")
-    flags = list(cfg["flags"]) + list(traffic["flags"]) + [
-        "--tpu-engine", "fast", "--tpu-seed", str(seed % 2147483647)]
+    ref = reference_for(cfg)
+    for f in flags:  # a cell its reference cannot judge fails here
+        ref.parse(f)
 
     def argv(k: int, out: str):
-        tped, tfam = files[k % npan]
-        return ["--tped", tped, "--tfam", tfam, "--out", out] + flags
+        return call_argv(files[k % npan], out, flags[k % npan])
 
     setup = [(k, False) for k in range(int(traffic["setup_calls"]))]
     if traced:  # the profiler's first start, outside the window
@@ -196,6 +247,7 @@ def _run(cell, cfg, traffic, specs, seed, seconds, traced, device,
         if traced:
             rec.phases = {n: float(v) for n, v in _PHASE.findall(err)
                           if n != "TOTAL"}
+            rec.counters = profile_counters(err)
             tr = caller.traces()
             rec.trace = tr[-1] if tr else None
         calls.append(rec)
@@ -215,7 +267,7 @@ def _run(cell, cfg, traffic, specs, seed, seconds, traced, device,
 
     t_ref = time.perf_counter()
     used = sorted({c.panel for c in calls})
-    refs = [reference.call(made[p], flags) if p in used else None
+    refs = [ref.call(made[p], flags[p]) if p in used else None
             for p in range(npan)]
     checks = compare.check(outs, [c.panel for c in calls], refs)
     log(f"[roh_bench] reference and check: "
@@ -229,7 +281,8 @@ def _run(cell, cfg, traffic, specs, seed, seconds, traced, device,
     w = Window(calls=calls, seconds=window_s, setup_s=setup_s,
                peak_bytes=peak, nind=int(cfg["individuals"]),
                winsize=int(cfg["winsize"]), snps=list(cfg["snps"]),
-               kept=kept, peaks=peaks)
+               kept=kept, peaks=peaks,
+               flags=call_flags(cfg, traffic, seed))
     metrics = {}
     for spec in specs:
         mod = importlib.import_module(f"roh_bench.metrics.{spec['name']}")

@@ -10,12 +10,15 @@ from typing import List, Optional
 class CallRecord:
     """One call of the window: its wall (host clock, closed by a device
     synchronize), exit code, panel, and on a traced run its phase split
-    (--tpu-profile's lines, seconds) and its trace (trace.trace_summary)."""
+    (--tpu-profile's lines, seconds), its counters (the last
+    `[profile] counters {json}` line, parsed) and its trace
+    (trace.trace_summary)."""
     wall: float
     rc: int
     panel: int
     phases: dict = field(default_factory=dict)
     trace: Optional[dict] = None
+    counters: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -31,6 +34,8 @@ class Window:
     kept: List[List[int]]   # loci a chromosome after the monomorphic
                             # filter, a panel each
     peaks: Optional[dict] = None   # the card's row of peaks.json
+    flags: List[str] = field(default_factory=list)  # a call's flags after
+                            # its files, without the side inputs' paths
 
 
 def phase_ms(w: Window, *names: str) -> Optional[float]:

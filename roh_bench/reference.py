@@ -13,6 +13,12 @@ imports nothing of the program under test.
 `dtype` is the precision of every floating-point step: float64 is
 GARLIC's; float32 is the benchmark's control (PERF.md), which has to
 come out as not correct.
+
+The default reference of a configuration (harness.reference_for): a
+configuration's own, named by its "reference" key, has the same
+parse(argv) and call(panel, argv, dt) and may import this module's
+phases.  parse refuses a flag that changes a call's outputs and that the
+reference does not implement (refuse_unread).
 """
 
 from __future__ import annotations
@@ -40,6 +46,40 @@ def g(x: float) -> str:
     return f"{float(x):g}"
 
 
+# the flags the reference implements; of the others it lets pass only
+# those that leave a call's outputs as they are (the engine's --tpu-*,
+# --threads, --out)
+READS = frozenset({"--build", "--winsize", "--error", "--lod-cutoff",
+                   "--size-bounds", "--nclust", "--kde-subsample",
+                   "--tpu-seed", "--max-gap", "--overlap-frac"})
+NEUTRAL = frozenset({"--threads", "--out"})
+
+
+def flag_values(argv: List[str]) -> dict:
+    """{flag: [its values]} of a call's flags."""
+    kv, i = {}, 0
+    while i < len(argv):
+        name = argv[i]
+        vals = []
+        i += 1
+        while i < len(argv) and not argv[i].startswith("--"):
+            vals.append(argv[i])
+            i += 1
+        kv[name] = vals
+    return kv
+
+
+def refuse_unread(kv: dict, reads=READS) -> None:
+    """Raises ValueError naming every flag of kv outside `reads` that
+    can change a call's outputs: a reference that ignored one would
+    judge the call against another call's outputs."""
+    bad = [n for n in kv if n not in reads and n not in NEUTRAL
+           and not n.startswith("--tpu-")]
+    if bad:
+        raise ValueError(f"the reference does not implement {' '.join(bad)}"
+                         ": it cannot judge a call with them")
+
+
 @dataclass
 class Flags:
     """The flags of a call that the reference reads."""
@@ -56,15 +96,8 @@ class Flags:
 
     @classmethod
     def parse(cls, argv: List[str]) -> "Flags":
-        kv, i = {}, 0
-        while i < len(argv):
-            name = argv[i]
-            vals = []
-            i += 1
-            while i < len(argv) and not argv[i].startswith("--"):
-                vals.append(argv[i])
-                i += 1
-            kv[name] = vals
+        kv = flag_values(argv)
+        refuse_unread(kv)
         f = cls(build=kv["--build"][0], winsize=int(kv["--winsize"][0]),
                 error=float(kv["--error"][0]))
         if "--lod-cutoff" in kv:
@@ -536,9 +569,15 @@ def bed_lines(panel, chroms, roh, bounds) -> List[str]:
     return lines
 
 
+def parse(argv: List[str]) -> Flags:
+    """The call's flags as the reference reads them; ValueError on one
+    that it does not implement (refuse_unread)."""
+    return Flags.parse(argv)
+
+
 def call(panel, argv: List[str], dt=np.float64) -> Call:
     """The reference's outputs of `garlic --tped <panel> ... argv`."""
-    fl = Flags.parse(argv)
+    fl = parse(argv)
     chroms = phase1(panel, fl, dt)
     nind = len(panel.ind_ids)
     cutoff, npts = fl.lod_cutoff, 0

@@ -11,9 +11,11 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "garlic_tpu", "bench", "bench_scaling",
              "tests", "chip_smoke"}
-# the reference and what it imports: no part of the program either
+# the reference, what it imports and the side inputs' writers, which
+# write what the program and the reference both read: no part of the
+# program either
 REFERENCE = ("reference.py", "centromeres.py", "panel.py", "compare.py",
-             "control.py")
+             "control.py", "inputs/genetic_map.py")
 
 
 def top_level_imports(source: str) -> set:
