@@ -173,7 +173,9 @@ class PhaseProfiler:
         and replayed, the sidecar's and the .freq.gz blob's hit and
         miss, the tie patrol's suspects and flip_rows, and the 2-bit
         codes' column compactions on a device (pack.device, one a shard)
-        and on the host (pack.host, one a chromosome);
+        and on the host (pack.host, one a chromosome), and the densities
+        the cutoff search scanned (cutoff.scans: 42 per cutoff selected,
+        the selection and its rivals' probe);
       * on a fast run its device budget on the mesh's first device (its
         share of the card), its device-memory peak on a CUDA device, and
         the exchanges of a multi-process run's group.
@@ -277,7 +279,8 @@ class PhaseProfiler:
                           for k in ("hit", "miss")},
             "patrol": {k: c.get(f"patrol.{k}", 0)
                        for k in ("suspects", "flip_rows")},
-            "pack": {k: c.get(f"pack.{k}", 0) for k in ("device", "host")}}
+            "pack": {k: c.get(f"pack.{k}", 0) for k in ("device", "host")},
+            "cutoff": {"scans": c.get("cutoff.scans", 0)}}
 
     # -- the call ------------------------------------------------------------
     def start(self) -> None:

@@ -502,8 +502,9 @@ def _density(seed):
     return kr.x, kr.y
 
 
-@pytest.mark.parametrize("fn", ["get_min_btw_modes", "cutoff_tie_probe"])
-@pytest.mark.parametrize("seed", [21, 22, 23])
+@pytest.mark.parametrize("fn", ["get_min_btw_modes", "cutoff_tie_probe",
+                                "get_min_btw_modes_indices"])
+@pytest.mark.parametrize("seed", [21, 22, 23, 24, 25, 26])
 def test_cutoff_search_equals_garlic_tpu(fn, seed):
     x, y = _density(seed)
     got = getattr(cutoff, fn)(x, y, 40)

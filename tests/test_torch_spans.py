@@ -174,8 +174,9 @@ def test_counters_count_a_call_and_bytes_to_a_device(monkeypatch):
     assert c["patrol"] == {"suspects": 7, "flip_rows": 0}
     assert c["pack"] == {"device": 2, "host": 0}
     assert c["h2d_bytes"] == 80 and c["d2h_bytes"] == 0
+    assert c["cutoff"] == {"scans": 0}
     assert set(c) == {"launches", "h2d_bytes", "d2h_bytes", "pool",
-                      "sidecar", "freq_blob", "patrol", "pack"}
+                      "sidecar", "freq_blob", "patrol", "pack", "cutoff"}
 
 
 def test_disabled_recorder_is_one_shared_no_op(monkeypatch):
@@ -322,6 +323,25 @@ def test_identical_warm_calls_print_identical_counters(wd):
     assert warm1["freq_blob"] == {"hit": 1, "miss": 0}
     assert cold["pool"] == {"pooled": 1, "replayed": 0}
     assert warm1["pool"] == {"pooled": 0, "replayed": 1}
+
+
+def test_cutoff_search_splits_its_span_and_counts_its_scans(wd):
+    """An automatic cutoff's search: the selection (search/modes) and its
+    rivals' probe (search/rivals), 1 + 41 density scans; a pinned cutoff
+    scans none."""
+    rc, err = _port(wd, AUTO + ["--tpu-profile", "--out", "s0"])
+    assert rc == 0, err
+    spans = {ln.split()[1] for ln in _span_block(err).splitlines()
+             if ln.startswith("[profile]   ")}
+    assert {"phase2-cutoff/search", "phase2-cutoff/search/modes",
+            "phase2-cutoff/search/rivals"} <= spans
+    (c,) = _counters(err)
+    assert c["cutoff"] == {"scans": 42}
+    rc, err = _port(wd, PINNED + ["--tpu-profile", "--out", "s1"])
+    assert rc == 0, err
+    (c,) = _counters(err)
+    assert c["cutoff"] == {"scans": 0}
+    assert "phase2-cutoff/search" not in _span_block(err)
 
 
 def test_warm_sidecar_call_counts_a_hit(wd):
