@@ -211,7 +211,7 @@ def start_warmup_thread():
         try:
             torch.zeros(8, device="cuda").cpu()
             _build.library()
-            native.native_available()
+            native.library()
         except Exception as e:  # re-raised by the caller after join()
             errors.append(e)
             return

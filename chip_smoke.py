@@ -510,8 +510,7 @@ def phase_environment():
     if bad:
         raise AssertionError(f"expf of the f32 {bad:#010x} is not +0")
     t0 = time.perf_counter()
-    if not native.native_available():
-        raise AssertionError("the native host library did not build (g++)")
+    native.library()  # raises native.BuildError with g++'s stderr
     say(f"native host library "
         f"{os.path.relpath(native.build.loaded_path, REPO)}: g++ build and "
         f"load {time.perf_counter() - t0:.3f}s")

@@ -9,7 +9,8 @@ mask), so H(parent_digest, keep_digest) identifies them without touching
 the big array.  Every 16-byte value is domain-separated so a derived digest
 can never alias a raw content hash.
 
-Copy of garlic_tpu/core/digest.py: the port imports nothing of
+Copy of garlic_tpu/core/digest.py (content_digest adapted: the native
+hash alone, the port requires the library): the port imports nothing of
 garlic_tpu. Each function and class names its source line.
 """
 
@@ -22,18 +23,13 @@ import numpy as np
 
 
 def content_digest(arr: np.ndarray) -> bytes:
-    """16-byte digest of a C-contiguous array's bytes (native OpenMP
-    gt_hash128 at memory-bandwidth speed; blake2b fallback).
+    """16-byte digest of an array's bytes, made C-contiguous (native
+    OpenMP gt_hash128 at memory-bandwidth speed).
 
-    Copy of garlic_tpu/core/digest.py:21."""
+    Adapted from garlic_tpu/core/digest.py:21: the native library is
+    required."""
     from ..native import hash128_native
-    cp = np.ascontiguousarray(arr)
-    d = hash128_native(cp)
-    if d is None:
-        h = hashlib.blake2b(digest_size=16)
-        h.update(cp.data)
-        d = h.digest()
-    return d
+    return hash128_native(np.ascontiguousarray(arr))
 
 
 def derived_digest(parent: Optional[bytes], keep: np.ndarray) -> Optional[bytes]:

@@ -193,15 +193,10 @@ class ChromData:
 
 
 def _unpack_geno2b(packed: np.ndarray, L: int) -> np.ndarray:
-    """Copy of garlic_tpu/core/types.py:181."""
+    """Adapted from garlic_tpu/core/types.py:181: the native library is
+    required."""
     from garlic_tpu_torch.native import unpack_2bit_native
-    g = unpack_2bit_native(packed, L)
-    if g is None:  # numpy fallback (several large temporaries)
-        I = packed.shape[0]
-        codes = np.stack([(packed >> s) & 3 for s in (0, 2, 4, 6)],
-                         axis=-1).reshape(I, -1)
-        g = np.where(codes == 3, -9, codes).astype(np.int8)[:, :L]
-    return g
+    return unpack_2bit_native(packed, L)
 
 
 @dataclass

@@ -45,30 +45,29 @@ class _FilteredNames:
 def _compact(arr, keep: np.ndarray):
     """Column compaction: in-place C++ memmove of kept spans when
     possible (a fresh compacted copy costs seconds of page faults at WGS
-    scale under virtualization), numpy fallback otherwise.  The result
-    may be a [:, :nkeep] view over the original buffer.
+    scale under virtualization), a numpy copy for non-contiguous arrays.
+    The result may be a [:, :nkeep] view over the original buffer.
 
     Read-only arrays (zero-copy views into a sidecar mmap, e.g. the TGLS
     .gtlc code matrix) must NOT take the in-place path: ctypes bypasses
     numpy's writeable flag and the store into the read-only mapping
-    segfaults — they get the copying fallback.
+    segfaults — they get the numpy copy too.
 
-    Copy of garlic_tpu/io/filters.py:40."""
+    Adapted from garlic_tpu/io/filters.py:40: the native library is
+    required."""
     if arr is None:
         return None
     if arr.flags.writeable:
-        try:
-            from ..native import filter_columns_native
-            out = filter_columns_native(arr, keep)
-            if out is not None:
-                return out
-        except ImportError:
-            pass
+        from ..native import filter_columns_native
+        out = filter_columns_native(arr, keep)
+        if out is not None:
+            return out
     return np.ascontiguousarray(np.compress(keep, arr, axis=1))
 
 
 def _apply(c: ChromData, keep: np.ndarray) -> ChromData:
-    """Copy of garlic_tpu/io/filters.py:63."""
+    """Adapted from garlic_tpu/io/filters.py:63: the native library is
+    required."""
     if keep.all():
         return c  # nothing filtered: avoid copying the [I, L] matrices
     idx = np.flatnonzero(keep)
@@ -82,17 +81,16 @@ def _apply(c: ChromData, keep: np.ndarray) -> ChromData:
         # DEFERRED (thunk): with a sidecar digest the filtered payload's
         # content key is derivable without touching the bytes, and on a
         # device-cache hit nothing ever reads them.
-        from ..native import filter_pack_2bit_native, native_available
-        if native_available():
-            from ..core.digest import derived_digest
-            parent2b, parent_L = c.geno2b, c.nloci
-            k = keep.copy()
+        from ..core.digest import derived_digest
+        from ..native import filter_pack_2bit_native
+        parent2b, parent_L = c.geno2b, c.nloci
+        k = keep.copy()
 
-            def geno2b_thunk(_p=parent2b, _L=parent_L, _k=k):
-                return filter_pack_2bit_native(_p, _L, _k)[0]
+        def geno2b_thunk(_p=parent2b, _L=parent_L, _k=k):
+            return filter_pack_2bit_native(_p, _L, _k)[0]
 
-            digest = derived_digest(c.geno2b_digest, keep)
-    if geno2b_thunk is None:
+        digest = derived_digest(c.geno2b_digest, keep)
+    else:
         geno = _compact(c.genotypes, keep)
     out = ChromData(
         chrom=c.chrom,

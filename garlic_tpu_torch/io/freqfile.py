@@ -4,9 +4,11 @@ Reproduces writeFreqData/readFreqData (src/garlic-data.cpp:1311-1440).  On
 read, when the file's allele disagrees with the internal '1' allele coding
 the frequency flips to 1-freq (src/garlic-data.cpp:1419-1424).
 
-Copy of garlic_tpu/io/freqfile.py (write_freq adapted: it counts the
-cached blob's hits): the port imports nothing of garlic_tpu. Each
-function and class names its source line.
+Copy of garlic_tpu/io/freqfile.py (write_freq, _freq_content_key and
+read_freq adapted: the native library, which the port requires, writes
+the file and hashes its content, and write_freq counts the cached blob's
+hits): the port imports nothing of garlic_tpu. Each function and class
+names its source line.
 """
 
 from __future__ import annotations
@@ -16,7 +18,6 @@ from typing import List
 
 import numpy as np
 
-from ..core.fmt import g
 from ..core.types import ChromData, GarlicDataError
 
 
@@ -40,7 +41,8 @@ def write_freq(freq_outfile: str, chroms: List[ChromData], log=None,
     Under --tpu-profile the blob's hits and misses are counted
     (runtime.count).
 
-    Adapted from garlic_tpu/io/freqfile.py:23: the counters."""
+    Adapted from garlic_tpu/io/freqfile.py:23: the counters; the native
+    library is required."""
     from ..runtime import count
     path = freq_outfile + ".gz"
     key = _freq_content_key(chroms) if blob is not None else None
@@ -50,36 +52,10 @@ def write_freq(freq_outfile: str, chroms: List[ChromData], log=None,
         return
     if key is not None:
         count("freq_blob.miss")
-    try:
-        from ..native import write_freq_chrom_native
-        done = True
-        for ci, c in enumerate(chroms):
-            if not write_freq_chrom_native(path, ci > 0, c.chrom,
-                                           c.locus_names, c.positions,
-                                           c.alleles, c.freq):
-                done = False
-                break
-        if done:
-            if key is not None:
-                _save_freq_blob(blob, path, key)
-            print(f"Wrote allele frequency data to {path}")
-            return
-    except ImportError:
-        pass
-    # Python fallback.  compresslevel 1: the decompressed content is the
-    # comparison artifact, not the container bytes.
-    with gzip.open(path, "wt", compresslevel=1) as fout:
-        fout.write("CHR\tSNP\tPOS\tALLELE\tFREQ\n")
-        for c in chroms:
-            chrom = c.chrom
-            names = c.locus_names
-            pos = c.positions
-            alleles = c.alleles
-            freq = c.freq
-            fout.write("".join(
-                f"{chrom}\t{names[locus]}\t{int(pos[locus])}\t"
-                f"{alleles[locus]}\t{g(freq[locus])}\n"
-                for locus in range(c.nloci)))
+    from ..native import write_freq_chrom_native
+    for ci, c in enumerate(chroms):
+        write_freq_chrom_native(path, ci > 0, c.chrom, c.locus_names,
+                                c.positions, c.alleles, c.freq)
     if key is not None:
         _save_freq_blob(blob, path, key)
     print(f"Wrote allele frequency data to {path}")
@@ -88,14 +64,13 @@ def write_freq(freq_outfile: str, chroms: List[ChromData], log=None,
 def _freq_content_key(chroms) -> bytes:
     """Digest of everything the freq file's text depends on: chromosome
     names, locus names, positions, alleles, and the freq values.  ~10 ms
-    per 1M-locus genome via the native hash (blake2b fallback).
+    per 1M-locus genome via the native hash.
 
-    Copy of garlic_tpu/io/freqfile.py:75."""
+    Adapted from garlic_tpu/io/freqfile.py:75: the native library is
+    required."""
     import hashlib
-    try:
-        from ..native import hash128_native
-    except ImportError:
-        hash128_native = lambda a: None  # noqa: E731
+
+    from ..native import hash128_native
     h = hashlib.blake2b(digest_size=16)
     for c in chroms:
         h.update(c.chrom.encode())
@@ -107,8 +82,7 @@ def _freq_content_key(chroms) -> bytes:
                                          if np.asarray(c.alleles).dtype.kind == "U"
                                          else np.asarray(c.alleles)),
                     np.ascontiguousarray(c.freq)):
-            d = hash128_native(arr)
-            h.update(d if d is not None else arr.tobytes())
+            h.update(hash128_native(arr))
     return h.digest()
 
 
@@ -157,7 +131,8 @@ def read_freq(freqfile: str, chroms: List[ChromData], log=None) -> None:
     """Reads frequencies into each ChromData in place, validating row counts,
     column counts and locus-name agreement.
 
-    Copy of garlic_tpu/io/freqfile.py:137."""
+    Adapted from garlic_tpu/io/freqfile.py:137: the native library is
+    required."""
     expected_rows = 1 + sum(c.nloci for c in chroms)
     opener = gzip.open if freqfile.endswith(".gz") else open
     import sys
@@ -165,24 +140,20 @@ def read_freq(freqfile: str, chroms: List[ChromData], log=None) -> None:
     # native fast path: one OpenMP pass (~0.1 s/1M loci vs ~1.8 s for the
     # line loop below).  Any anomaly -> None -> the Python loop re-parses
     # and produces the reference's exact error text.
-    try:
-        from ..native import read_freq_native
-        names_raw = b"\n".join(
-            c.locus_names.raw if hasattr(c.locus_names, "raw")
-            else "\n".join(c.locus_names).encode() for c in chroms)
-        alleles = np.concatenate(
-            [np.asarray(c.alleles) for c in chroms]) if chroms else \
-            np.empty(0, dtype="S1")
-        freqs = read_freq_native(freqfile, names_raw, alleles,
-                                 expected_rows - 1)
-        if freqs is not None:
-            o = 0
-            for c in chroms:
-                c.freq = freqs[o:o + c.nloci].copy()
-                o += c.nloci
-            return
-    except ImportError:
-        pass
+    from ..native import read_freq_native
+    names_raw = b"\n".join(
+        c.locus_names.raw if hasattr(c.locus_names, "raw")
+        else "\n".join(c.locus_names).encode() for c in chroms)
+    alleles = np.concatenate(
+        [np.asarray(c.alleles) for c in chroms]) if chroms else \
+        np.empty(0, dtype="S1")
+    freqs = read_freq_native(freqfile, names_raw, alleles, expected_rows - 1)
+    if freqs is not None:
+        o = 0
+        for c in chroms:
+            c.freq = freqs[o:o + c.nloci].copy()
+            o += c.nloci
+        return
     with opener(freqfile, "rt") as fin:
         fin.readline()  # header
         line_num = 1

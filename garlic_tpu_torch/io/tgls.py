@@ -83,8 +83,9 @@ def read_tgls(filename: str, chroms: List[ChromData], expected_ind: int,
     style files with <= 255 distinct tokens come back as a u8 code
     matrix + converted-value lut (`gl_codes`/`gl_lut`) — 8x smaller than
     the double matrix, shipped to the TPU verbatim — with the f64 `gl`
-    matrix materializing lazily for consumers that need it.  Falls back
-    to the pure-Python line reader when the native library is absent.
+    matrix materializing lazily for consumers that need it.  The
+    pure-Python line reader reads a file the native reader cannot open,
+    and gives the reference's error.
 
     With panel_cache=True (--tpu-panel-cache) the parse result also
     round-trips through a `<tgls>.gtlc` sidecar holding the RAW values
@@ -98,7 +99,8 @@ def read_tgls(filename: str, chroms: List[ChromData], expected_ind: int,
     host must scan every line anyway) and slices afterward, so only
     its steady-state memory shrinks.
 
-    Copy of garlic_tpu/io/tgls.py:69."""
+    Adapted from garlic_tpu/io/tgls.py:69: the native library is
+    required."""
     from ..native import parse_tgls_native
     row_counts = [c.nloci for c in chroms]
     r = None
@@ -107,10 +109,7 @@ def read_tgls(filename: str, chroms: List[ChromData], expected_ind: int,
         r = load_tgls_cache(filename, expected_ind, row_counts)
     fresh = r is None
     if r is None:
-        try:
-            r = parse_tgls_native(filename, expected_ind, row_counts)
-        except Exception:
-            r = None
+        r = parse_tgls_native(filename, expected_ind, row_counts)
     if r is None:
         _read_tgls_python(filename, chroms, expected_ind, gl_type, log)
         if col_range is not None:

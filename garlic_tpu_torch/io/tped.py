@@ -261,8 +261,9 @@ def _assemble_from_native(native, phased: bool, auto_freq: bool, log):
     return ds, num_loci
 
 
-# copy of garlic_tpu/io/tped.py:128: unphased genotypes parsed to 2-bit
-# codes (packed_geno=True), phased ones to int8 with the first-copy bits
+# adapted from garlic_tpu/io/tped.py:128: unphased genotypes parsed to
+# 2-bit codes (packed_geno=True), phased ones to int8 with the first-copy
+# bits; the native library is required
 def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
               auto_freq: bool = True, log=None,
               rng: Optional[np.random.Generator] = None,
@@ -298,14 +299,14 @@ def load_tped(tpedfile: str, tped_missing: str = "0", nresample: int = 0,
             print(f"Loaded panel cache {panelcache.cache_path(tpedfile)}",
                   file=sys.stderr)
     if native is None:
+        from ..native import parse_tped_native
         try:
-            from ..native import parse_tped_native
             with span("parse"):
                 native = parse_tped_native(tpedfile, tped_missing,
                                            want_fc=phased,
                                            col_range=col_range)
-        except Exception:
-            native = None
+        except OSError:  # the parser rejects the file: the Python reader
+            native = None  # gives the reference's error
 
     if native is not None:
         with span("assemble"):

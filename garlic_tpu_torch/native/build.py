@@ -1,12 +1,15 @@
 """Build and bind the port's native host kernels (native/garlic_native.cpp).
 
-A copy of garlic_tpu/native/build.py for the entry points the port calls.
-g++ compiles the source at first use into <repo>/build/garlic_tpu_torch/,
+Adapted from garlic_tpu/native/build.py for the entry points the port
+calls: the library is required, as the CUDA kernels' library is
+(ops/_build.py).  g++ compiles the source at first use into
+<repo>/build/garlic_tpu_torch/, with OpenMP if it can, else without,
 under a file name that carries a hash of the source and the flags, so an
 edited source builds anew and an unchanged one loads the existing file;
 a file lock keeps concurrent processes from building the same library
-twice.  Each wrapper returns None (or False) when the library cannot be
-built, and its caller falls back to numpy, as in garlic_tpu.  Each
+twice.  When g++ fails, library() raises BuildError with g++'s stderr.
+A wrapper returns None only where its input decides (an anomalous freq
+file, a TGLS file that cannot be opened, a non-contiguous array).  Each
 function names its source line.
 """
 
@@ -31,8 +34,11 @@ FLAGS = (["-O3", "-fPIC", "-shared", "-fopenmp"], ["-O3", "-fPIC", "-shared"])
 
 _lock = threading.Lock()
 _lib = None
-_tried = False
 loaded_path = None  # the library this process loaded, once it has
+
+
+class BuildError(RuntimeError):
+    """g++ built the library with neither set of FLAGS."""
 
 
 def library_path(flags: List[str]) -> str:
@@ -43,10 +49,14 @@ def library_path(flags: List[str]) -> str:
     return os.path.join(BUILD_DIR, f"libgarlic_native_{h.hexdigest()[:16]}.so")
 
 
-def _build() -> Optional[str]:
-    """The built library's path (built now if absent), or None when g++
-    fails with and without OpenMP."""
+def _build() -> str:
+    """The built library's path (built now if absent); raises BuildError
+    with g++'s stderr when g++ fails with and without OpenMP.
+
+    Adapted from garlic_tpu/native/build.py:22: the native library is
+    required."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    errors = []
     with open(os.path.join(BUILD_DIR, "native.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # one build at a time
         for flags in FLAGS:
@@ -57,25 +67,30 @@ def _build() -> Optional[str]:
             cmd = ["g++"] + flags + ["-o", tmp, SRC, "-lz"]
             try:
                 subprocess.run(cmd, check=True, capture_output=True)
-            except (OSError, subprocess.CalledProcessError):
+            except OSError as e:
+                errors.append(f"{' '.join(cmd)}: {e}")
+                continue
+            except subprocess.CalledProcessError as e:
+                errors.append(f"{' '.join(cmd)}:\n"
+                              f"{e.stderr.decode(errors='replace')}")
                 continue
             os.replace(tmp, so)
             return so
-    return None
+    raise BuildError(f"g++ could not build the native host library into "
+                     f"{BUILD_DIR}/\n" + "\n".join(errors))
 
 
-# copy of garlic_tpu/native/build.py:38, binding the entry points above
-def _load():
-    global _lib, _tried, loaded_path
+def library() -> ctypes.CDLL:
+    """The native library, built on first use; raises BuildError with
+    g++'s stderr when the build fails.
+
+    Adapted from garlic_tpu/native/build.py:38 (_load): the native library
+    is required."""
+    global _lib, loaded_path
     with _lock:
-        if _lib is not None or _tried:
+        if _lib is not None:
             return _lib
-        _tried = True
-        if os.environ.get("GARLIC_TPU_NO_NATIVE"):
-            return None
         so = _build()
-        if so is None:
-            return None
         lib = ctypes.CDLL(so)
         loaded_path = so
         lib.gt_tped_open.restype = ctypes.c_void_p
@@ -177,8 +192,6 @@ def _load():
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int8)]
         lib.gt_set_threads.restype = None
         lib.gt_set_threads.argtypes = [ctypes.c_int]
-        lib.gt_get_max_threads.restype = ctypes.c_int
-        lib.gt_get_max_threads.argtypes = []
         lib.gt_assemble_runs.restype = ctypes.c_int64
         lib.gt_assemble_runs.argtypes = [
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
@@ -216,17 +229,12 @@ def _load():
         return _lib
 
 
-def native_available() -> bool:
-    """Copy of garlic_tpu/native/build.py:205."""
-    return _load() is not None
-
-
 def parse_tgls_native(path: str, nind: int, row_counts):
     """Parse a TGLS file via the C++ reader (chunked gz + parallel
     tokenize + token dictionary; reference: readTGLSData,
-    src/garlic-data.cpp:1516-1586).  Returns None when the native
-    library is unavailable or the file cannot be opened (callers fall
-    back to the Python reader).  Otherwise one of:
+    src/garlic-data.cpp:1516-1586).  Returns None when the file cannot
+    be opened (the caller's Python reader then gives the reference's
+    error).  Otherwise one of:
 
       {"bad_cols": N} — the first row the reference would read had N
          columns instead of nind+4 (a truncated file reads as 0, like
@@ -236,10 +244,9 @@ def parse_tgls_native(path: str, nind: int, row_counts):
       {"mode": "vals", "chroms": [f64 [nind, L]]} — fallback (the file
          has > 255 distinct tokens or tokens > 16 chars).
 
-    Copy of garlic_tpu/native/build.py:209."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:209: the native
+    library is required."""
+    lib = library()
     h = lib.gt_tgls_open(path.encode(), int(nind))
     if not h:
         return None
@@ -280,12 +287,11 @@ def parse_tgls_native(path: str, nind: int, row_counts):
 
 def filter_pack_2bit_native(packed: np.ndarray, L: int, keep: np.ndarray):
     """Column-compact a packed [I, rb] genotype matrix by keep[L]; returns
-    ([I, ceil(nkeep/4)] u8, nkeep) or None if the lib is unavailable.
+    ([I, ceil(nkeep/4)] u8, nkeep).
 
-    Copy of garlic_tpu/native/build.py:264."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:264: the native
+    library is required."""
+    lib = library()
     p = np.ascontiguousarray(packed, dtype=np.uint8)
     I, rb = p.shape
     k = np.ascontiguousarray(keep, dtype=np.uint8)
@@ -301,12 +307,11 @@ def filter_pack_2bit_native(packed: np.ndarray, L: int, keep: np.ndarray):
 
 def unpack_2bit_native(packed: np.ndarray, L: int):
     """[I, row_bytes] u8 2-bit codes -> [I, L] int8 (0/1/2/-9) in one C++
-    pass; None if the native lib is unavailable.
+    pass.
 
-    Copy of garlic_tpu/native/build.py:326."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:326: the native
+    library is required."""
+    lib = library()
     p = np.ascontiguousarray(packed, dtype=np.uint8)
     I, rb = p.shape
     out = np.empty((I, L), dtype=np.int8)
@@ -319,12 +324,11 @@ def unpack_2bit_native(packed: np.ndarray, L: int):
 def gsl_sd_native(x: np.ndarray) -> Optional[float]:
     """gsl_stats_sd with GSL's exact FP semantics (80-bit x87 running-mean
     recurrences; see gt_gsl_sd) — the reference's nrd0 bandwidth input
-    (src/garlic-kde.cpp:130-140).  None when the library is unavailable.
+    (src/garlic-kde.cpp:130-140).
 
-    Copy of garlic_tpu/native/build.py:341."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:341: the native
+    library is required."""
+    lib = library()
     x = np.ascontiguousarray(x, dtype=np.float64)
     if x.shape[0] < 2:
         return 0.0
@@ -334,26 +338,19 @@ def gsl_sd_native(x: np.ndarray) -> Optional[float]:
 def set_native_threads(n: int) -> None:
     """Cap the native library's OpenMP fan-out at n workers (--threads N,
     matching the reference's fixed thread count, src/garlic-roh.cpp:184-194).
-    No-op when n <= 0 or the library is unavailable.
+    No-op when n <= 0.
 
-    Copy of garlic_tpu/native/build.py:354."""
-    lib = _load()
-    if lib is not None and n > 0:
-        lib.gt_set_threads(int(n))
-
-
-def get_native_max_threads() -> int:
-    """Current OpenMP worker cap (1 if the library is unavailable).
-
-    Copy of garlic_tpu/native/build.py:363."""
-    lib = _load()
-    return int(lib.gt_get_max_threads()) if lib is not None else 1
+    Adapted from garlic_tpu/native/build.py:354: the native
+    library is required."""
+    if n > 0:
+        library().gt_set_threads(int(n))
 
 
 def parse_tped_native(path: str, missing: str, want_fc: bool = False,
                       col_range=None) -> Optional[List[dict]]:
-    """Parse a TPED via the C++ parser.  Returns per-chromosome dicts or
-    None if the native library is unavailable (callers fall back).
+    """Parse a TPED via the C++ parser.  Returns per-chromosome dicts;
+    raises IOError on a file the parser rejects (the caller's Python
+    reader then gives the reference's error).
     Unphased (want_fc=False): genotypes emitted straight as 2-bit codes
     (fused transpose+pack, the int8 matrix never exists; want_packed=True
     there).  Phased (want_fc=True): int8 genotypes and the first-copy
@@ -365,9 +362,7 @@ def parse_tped_native(path: str, missing: str, want_fc: bool = False,
 
     Adapted from garlic_tpu/native/build.py:369: the two genotype forms
     chosen by want_fc alone."""
-    lib = _load()
-    if lib is None:
-        return None
+    lib = library()
     if col_range is None:
         h = lib.gt_tped_open(path.encode(), missing.encode()[0:1] or b"0",
                              1 if want_fc else 0)
@@ -450,12 +445,11 @@ def parse_tped_native(path: str, missing: str, want_fc: bool = False,
 
 def pack_2bit_padded_native(geno: np.ndarray, I2: int, L2: int):
     """Fused pad+pack: [I, L] int8 (rows may be strided views) ->
-    [I2, L2/4] u8 2-bit codes with missing padding; None if unavailable.
+    [I2, L2/4] u8 2-bit codes with missing padding.
 
-    Copy of garlic_tpu/native/build.py:471."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:471: the native
+    library is required."""
+    lib = library()
     I, L = geno.shape
     if geno.strides[1] != 1:
         geno = np.ascontiguousarray(geno)
@@ -471,12 +465,11 @@ def pack_2bit_padded_native(geno: np.ndarray, I2: int, L2: int):
 def covered_pack_native(win: np.ndarray, winsize: int, cutoff: float,
                         threshold: float):
     """One-pass coverage+threshold+packbits over a f64 [I, L] window
-    matrix; None if the native lib is unavailable.
+    matrix.
 
-    Copy of garlic_tpu/native/build.py:489."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:489: the native
+    library is required."""
+    lib = library()
     w = np.ascontiguousarray(win, dtype=np.float64)
     I, L = w.shape
     row_bytes = (L + 7) // 8
@@ -489,12 +482,13 @@ def covered_pack_native(win: np.ndarray, winsize: int, cutoff: float,
 
 
 def filter_columns_native(arr: np.ndarray, keep: np.ndarray):
-    """In-place column compaction; returns a [:, :nkeep] view or None if
-    the native lib is unavailable.  arr must be C-contiguous [I, L].
+    """In-place column compaction; returns a [:, :nkeep] view, or None
+    when arr [I, L] is not C-contiguous.
 
-    Copy of garlic_tpu/native/build.py:507."""
-    lib = _load()
-    if lib is None or not arr.flags.c_contiguous:
+    Adapted from garlic_tpu/native/build.py:507: the native
+    library is required."""
+    lib = library()
+    if not arr.flags.c_contiguous:
         return None
     keep_u8 = np.ascontiguousarray(keep, dtype=np.uint8)
     I, L = arr.shape
@@ -506,11 +500,12 @@ def filter_columns_native(arr: np.ndarray, keep: np.ndarray):
 
 def hash128_native(arr: np.ndarray) -> Optional[bytes]:
     """16-byte content digest of a C-contiguous array (OpenMP chunked
-    mixing, ~memory-bandwidth speed), or None when the lib is absent.
+    mixing, ~memory-bandwidth speed), or None when arr is not.
 
-    Copy of garlic_tpu/native/build.py:521."""
-    lib = _load()
-    if lib is None or not arr.flags.c_contiguous:
+    Adapted from garlic_tpu/native/build.py:521: the native
+    library is required."""
+    lib = library()
+    if not arr.flags.c_contiguous:
         return None
     out = (ctypes.c_uint64 * 2)()
     lib.gt_hash128(arr.ctypes.data_as(ctypes.c_void_p), arr.nbytes, out)
@@ -520,13 +515,12 @@ def hash128_native(arr: np.ndarray) -> Optional[bytes]:
 def read_freq_native(path: str, names_raw: bytes, alleles: np.ndarray,
                      nloci: int) -> "np.ndarray | None":
     """Happy-path freq-file parse (5-column validation, locus-name match,
-    allele flip); None on any anomaly or missing lib — the caller falls
+    allele flip); None on any anomaly — the caller falls
     back to the Python reader, whose error text matches the reference.
 
-    Copy of garlic_tpu/native/build.py:532."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:532: the native
+    library is required."""
+    lib = library()
     al = np.ascontiguousarray(alleles.astype("S1"))
     out = np.empty(nloci, dtype=np.float64)
     rc = lib.gt_read_freq(
@@ -538,14 +532,13 @@ def read_freq_native(path: str, names_raw: bytes, alleles: np.ndarray,
 
 def write_freq_chrom_native(path: str, append: bool, chrom: str,
                             names: List[str], positions: np.ndarray,
-                            alleles: np.ndarray, freq: np.ndarray) -> bool:
-    """Append one chromosome to the gz freq file; False -> caller falls back
-    to the Python writer.
+                            alleles: np.ndarray, freq: np.ndarray) -> None:
+    """Append one chromosome to the gz freq file; raises IOError when
+    the write fails.
 
-    Copy of garlic_tpu/native/build.py:549."""
-    lib = _load()
-    if lib is None:
-        return False
+    Adapted from garlic_tpu/native/build.py:549: the native
+    library is required."""
+    lib = library()
     names_raw = names.raw if hasattr(names, "raw") else \
         "\n".join(names).encode()
     pos = np.ascontiguousarray(positions, dtype=np.int64)
@@ -560,7 +553,6 @@ def write_freq_chrom_native(path: str, append: bool, chrom: str,
         pos.shape[0])
     if rc != 0:
         raise IOError(f"native freq write failed for {path}")
-    return True
 
 
 def assemble_runs_native(covered_packed: np.ndarray, br: np.ndarray,
@@ -569,12 +561,11 @@ def assemble_runs_native(covered_packed: np.ndarray, br: np.ndarray,
     """ROH runs for one chromosome from bit-packed coverage.
 
     Returns (ind[int32], start[i64], stop[i64], size[f64]) in individual-major
-    order, or None if the native library is unavailable.
+    order.
 
-    Copy of garlic_tpu/native/build.py:574."""
-    lib = _load()
-    if lib is None:
-        return None
+    Adapted from garlic_tpu/native/build.py:574: the native
+    library is required."""
+    lib = library()
     cp = np.ascontiguousarray(covered_packed, dtype=np.uint8)
     I, row_bytes = cp.shape
     brr = np.ascontiguousarray(br, dtype=np.uint8)
@@ -608,13 +599,12 @@ def lod_windows_exact_tbl_native(geno: np.ndarray, table: np.ndarray,
                                  winsize: int) -> Optional[np.ndarray]:
     """Exact f64 rolling LOD straight from genotypes + a [4, L] per-locus
     table (row 3 = missing = 0); skips materializing the [I, L] terms
-    matrix.  None if the native lib is unavailable.
+    matrix.
 
-    Copy of garlic_tpu/native/build.py:612."""
+    Adapted from garlic_tpu/native/build.py:612: the native
+    library is required."""
     from ..core.types import MISSING
-    lib = _load()
-    if lib is None:
-        return None
+    lib = library()
     g = np.ascontiguousarray(geno, dtype=np.int8)
     t = np.ascontiguousarray(table, dtype=np.float64)
     I, L = g.shape
@@ -639,13 +629,12 @@ def lod_windows_exact_thin_native(geno: np.ndarray, table: np.ndarray,
     """Thinned exact f64 rolling LOD: the identical rolling recurrence as
     lod_windows_exact_tbl_native, writing only columns 0, step, 2*step...
     -> [I, ceil(L/step)] (== win[:, ::step]); the full [I, L] matrix
-    never exists.  None if the native lib is unavailable.
+    never exists.
 
-    Copy of garlic_tpu/native/build.py:639."""
+    Adapted from garlic_tpu/native/build.py:639: the native
+    library is required."""
     from ..core.types import MISSING
-    lib = _load()
-    if lib is None:
-        return None
+    lib = library()
     g = np.ascontiguousarray(geno, dtype=np.int8)
     t = np.ascontiguousarray(table, dtype=np.float64)
     I, L = g.shape
@@ -667,11 +656,10 @@ def lod_windows_exact_thin_native(geno: np.ndarray, table: np.ndarray,
 
 def lod_windows_exact_native(terms: np.ndarray, missing: np.ndarray,
                              winsize: int) -> np.ndarray:
-    """Copy of garlic_tpu/native/build.py:670."""
+    """Adapted from garlic_tpu/native/build.py:670: the native
+    library is required."""
     from ..core.types import MISSING
-    lib = _load()
-    if lib is None:
-        raise RuntimeError("native library unavailable")
+    lib = library()
     terms = np.ascontiguousarray(terms, dtype=np.float64)
     I, L = terms.shape
     nwin = max(L - winsize + 1, 0)

@@ -1,10 +1,12 @@
 """Phase III: ROH assembly from window scores or device coverage.
 
 Copies of the host code in garlic_tpu/ops/assembly.py, whose module
-imports garlic_tpu.ops.lod and therefore JAX.  The run extraction, the
-tie-patrol repair and the reference's edge quirks are unchanged; only
-_chrom_runs_native and assemble_roh dispatch to this package's
-ops/device_win (torch tensors and the CUDA coverage kernel).
+imports garlic_tpu.ops.lod and therefore JAX.  The tie-patrol repair is
+unchanged; _chrom_runs_native and assemble_roh dispatch to this
+package's ops/device_win (torch tensors and the CUDA coverage kernel)
+and extract the runs with the native library alone
+(native.assemble_runs_native, the reference's edge quirks included),
+which the port requires.
 
 Reproduces assembleROHWindows (src/garlic-roh.cpp:409-546): every SNP
 covered by a window scoring >= cutoff accumulates coverage counts; runs
@@ -54,109 +56,6 @@ def overlap_threshold(overlap_frac: float, winsize: int) -> float:
     return t
 
 
-# copy of garlic_tpu/ops/assembly.py:70
-def coverage_counts(above: np.ndarray, winsize: int) -> np.ndarray:
-    """int64 [L] counts of cutoff-passing windows covering each SNP."""
-    k = np.ones(winsize, dtype=np.int64)
-    return np.convolve(above.astype(np.int64), k, mode="full")[: above.shape[0]]
-
-
-# copy of garlic_tpu/ops/assembly.py:79
-def assemble_chromosome(win_row: np.ndarray, positions: np.ndarray,
-                        gpos: np.ndarray, cutoff: float, winsize: int,
-                        max_gap: int, cstart: int, cend: int,
-                        threshold: float, cm: bool) -> List[tuple]:
-    """ROH for one (individual, chromosome): list of (start, stop, size)."""
-    above = win_row >= cutoff
-    counts = coverage_counts(above, winsize)
-    covered = counts >= threshold
-    br = pair_breaks(positions, max_gap, cstart, cend)
-    if np.any(positions <= 0):
-        return _assemble_scan(covered, br, positions, gpos, threshold, cm)
-    return _assemble_segments(covered, br, positions, gpos, threshold, cm)
-
-
-# copy of garlic_tpu/ops/assembly.py:93
-def _emit(out, positions, gpos, ps, pe, threshold, cm):
-    if pe - ps + 1 >= threshold:
-        if cm:
-            size = float(gpos[pe] - gpos[ps])
-        else:
-            size = float(int(positions[pe]) - int(positions[ps]) + 1)
-        out.append((int(positions[ps]), int(positions[pe]), size))
-
-
-# copy of garlic_tpu/ops/assembly.py:102
-def _assemble_segments(covered, br, positions, gpos, threshold, cm):
-    L = covered.shape[0]
-    out: List[tuple] = []
-    c = covered.astype(np.int8)
-    diffs = np.diff(c)
-    starts = list(np.flatnonzero(diffs == 1) + 1)
-    ends = list(np.flatnonzero(diffs == -1))
-    if c[0]:
-        starts.insert(0, 0)
-    if c[-1]:
-        ends.append(L - 1)
-    for s, e in zip(starts, ends):
-        # split points strictly inside (s, e]
-        splits = np.flatnonzero(br[s + 1:e + 1]) + s + 1
-        ps = s
-        for w in splits:
-            _emit(out, positions, gpos, ps, int(w) - 1, threshold, cm)
-            ps = int(w)
-        if ps == L - 1 and e == L - 1 and ps != s:
-            # reopened at the chromosome's last SNP: lost (loop ends).
-            continue
-        if ps == s == e == L - 1:
-            # opened at the chromosome's last SNP: lost.
-            continue
-        _emit(out, positions, gpos, ps, e, threshold, cm)
-    return out
-
-
-# copy of garlic_tpu/ops/assembly.py:130
-def _assemble_scan(covered, br, positions, gpos, threshold, cm):
-    """Faithful per-locus transliteration of src/garlic-roh.cpp:462-532."""
-    L = covered.shape[0]
-    out: List[tuple] = []
-    win_start = -1
-    win_start_idx = -1
-    for w in range(L):
-        if win_start < 0 and covered[w]:
-            win_start = int(positions[w])
-            win_start_idx = w
-        elif covered[w] and br[w]:
-            stop_idx = w - 1
-            if stop_idx - win_start_idx + 1 >= threshold:
-                _emit(out, positions, gpos, win_start_idx, stop_idx, threshold, cm)
-            win_start = int(positions[w])
-            win_start_idx = w
-        elif win_start > 0 and not covered[w]:
-            stop_idx = w - 1
-            if stop_idx - win_start_idx + 1 >= threshold:
-                _emit(out, positions, gpos, win_start_idx, stop_idx, threshold, cm)
-            win_start = -1
-            win_start_idx = -1
-        elif win_start > 0 and w + 1 >= L:
-            if w - win_start_idx + 1 >= threshold:
-                _emit(out, positions, gpos, win_start_idx, w, threshold, cm)
-            win_start = -1
-            win_start_idx = -1
-    return out
-
-
-# copy of garlic_tpu/ops/assembly.py:160
-def assemble_from_covered(covered_row: np.ndarray, positions: np.ndarray,
-                          gpos: np.ndarray, max_gap: int, cstart: int,
-                          cend: int, threshold: float, cm: bool) -> List[tuple]:
-    """Run extraction given a precomputed covered mask (device fast path)."""
-    br = pair_breaks(positions, max_gap, cstart, cend)
-    if np.any(positions <= 0):
-        return _assemble_scan(covered_row, br, positions, gpos, threshold, cm)
-    return _assemble_segments(covered_row, br, positions, gpos, threshold, cm)
-
-
 # copy of garlic_tpu/ops/assembly.py:170
 def coverage_counts_batch(above: np.ndarray, winsize: int) -> np.ndarray:
     """Vectorized coverage_counts over [I, L] window-above flags."""
@@ -204,14 +103,14 @@ def _repair_rows(packed: np.ndarray, sus, susw, chrom, exact_cover,
     packed[rows, :fb.shape[1]] = fb
 
 
-# copy of garlic_tpu/ops/assembly.py:223, dispatching to this package's
-# device_win
+# adapted from garlic_tpu/ops/assembly.py:223: dispatching to this
+# package's device_win; the native library is required
 def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
                        cstart: int, cend: int, threshold: float, cm: bool,
                        handle=None, tie_delta: float = 0.0,
                        exact_cover=None, exact_window=None, ci: int = 0):
     """(ind, start, stop, size) arrays for one chromosome via the C++
-    extractor, or None to fall back to Python.  handle: a pre-dispatched
+    extractor.  handle: a pre-dispatched
     covered_dispatch result (assemble_roh enqueues every chromosome's
     device kernels before the first blocking fetch)."""
     from ..native import assemble_runs_native
@@ -231,10 +130,6 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
     else:
         from ..native import covered_pack_native
         packed = covered_pack_native(win, winsize, cutoff, threshold)
-        if packed is None:
-            above = win >= cutoff
-            covered = coverage_counts_batch(above, winsize) >= threshold
-            packed = np.packbits(covered, axis=1, bitorder="little")
     if sus is not None and exact_cover is not None:
         with span("patrol"):
             if not packed.flags.writeable:
@@ -247,8 +142,9 @@ def _chrom_runs_native(win, chrom, cutoff: float, winsize: int, max_gap: int,
                                     threshold, cm)
 
 
-# copy of garlic_tpu/ops/assembly.py:266, dispatching to this package's
-# device_win; streamed FusedCov entries stay sequential like LazyWin
+# adapted from garlic_tpu/ops/assembly.py:266: dispatching to this
+# package's device_win (streamed FusedCov entries stay sequential like
+# LazyWin); the native library is required
 def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
                  centro, cutoff: float, winsize: int, max_gap: int,
                  overlap_frac: float, cm: bool,
@@ -263,7 +159,7 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
 
     tie_delta/exact_cover/exact_window: the fast engine's tie patrol
     (_repair_rows)."""
-    from .device_win import DeviceWin, FusedCov, LazyWin, covered_dispatch
+    from .device_win import DeviceWin, FusedCov, covered_dispatch
     threshold = overlap_threshold(overlap_frac, winsize)
     nind = len(ind_ids)
     # enqueue every resident chromosome's coverage kernels up front so
@@ -276,65 +172,26 @@ def assemble_roh(win_by_chr, chroms, ind_ids: List[str],
                for w in win_by_chr]
     per_chrom = []
     for ci, chrom in enumerate(chroms):
-        cstart = centro.start(chrom.chrom)
-        cend = centro.end(chrom.chrom)
-        runs = _chrom_runs_native(win_by_chr[ci], chrom, cutoff, winsize,
-                                  max_gap, cstart, cend, threshold, cm,
-                                  handle=handles[ci], tie_delta=tie_delta,
-                                  exact_cover=exact_cover,
-                                  exact_window=exact_window, ci=ci)
-        if runs is None:
-            w = win_by_chr[ci]
-            covered = None
-            h = handles[ci]
-            if h is None and isinstance(w, (LazyWin, FusedCov)):
-                h = covered_dispatch(w.make() if isinstance(w, LazyWin)
-                                     else w, cutoff, winsize, threshold,
-                                     tie_delta)
-            if h is not None:
-                from .device_win import covered_fetch
-                packed, sus, _ = covered_fetch(h)
-                bits = np.unpackbits(packed, axis=1, bitorder="little")
-                covered = bits[:, :chrom.nloci].astype(bool)
-                if exact_cover is not None and sus is not None:
-                    rows = np.flatnonzero(sus[:nind])
-                    if rows.size:
-                        covered[rows] = exact_cover(ci, rows)[:, :chrom.nloci]
-            calls_by_ind = []
-            for i in range(nind):
-                if covered is not None:
-                    calls = assemble_from_covered(
-                        covered[i], chrom.positions, chrom.gpos, max_gap,
-                        cstart, cend, threshold, cm)
-                else:
-                    calls = assemble_chromosome(
-                        w[i], chrom.positions, chrom.gpos, cutoff, winsize,
-                        max_gap, cstart, cend, threshold, cm)
-                calls_by_ind.append(calls)
-            per_chrom.append(("py", calls_by_ind))
-        else:
-            ind_arr, start_arr, stop_arr, size_arr = runs
-            # individual-major: slice boundaries via searchsorted
-            bounds = np.searchsorted(ind_arr, np.arange(nind + 1))
-            per_chrom.append(("nat", (bounds, start_arr, stop_arr, size_arr)))
+        ind_arr, start_arr, stop_arr, size_arr = _chrom_runs_native(
+            win_by_chr[ci], chrom, cutoff, winsize, max_gap,
+            centro.start(chrom.chrom), centro.end(chrom.chrom), threshold,
+            cm, handle=handles[ci], tie_delta=tie_delta,
+            exact_cover=exact_cover, exact_window=exact_window, ci=ci)
+        # individual-major: slice boundaries via searchsorted
+        bounds = np.searchsorted(ind_arr, np.arange(nind + 1))
+        per_chrom.append((bounds, start_arr, stop_arr, size_arr))
 
     with span("calls"):
         lengths: List[float] = []
         by_ind: List[IndividualROH] = []
         for i, ind_id in enumerate(ind_ids):
             rec = IndividualROH(ind_id=ind_id)
-            for ci in range(len(chroms)):
-                kind, data = per_chrom[ci]
-                if kind == "py":
-                    for start, stop, size in data[i]:
-                        rec.calls.append(ROHCall(ci, start, stop, size))
-                        lengths.append(size)
-                else:
-                    bounds, start_arr, stop_arr, size_arr = data
-                    for k in range(bounds[i], bounds[i + 1]):
-                        rec.calls.append(ROHCall(ci, int(start_arr[k]),
-                                                 int(stop_arr[k]),
-                                                 float(size_arr[k])))
-                        lengths.append(float(size_arr[k]))
+            for ci, (bounds, start_arr, stop_arr, size_arr) in \
+                    enumerate(per_chrom):
+                for k in range(bounds[i], bounds[i + 1]):
+                    rec.calls.append(ROHCall(ci, int(start_arr[k]),
+                                             int(stop_arr[k]),
+                                             float(size_arr[k])))
+                    lengths.append(float(size_arr[k]))
             by_ind.append(rec)
     return by_ind, np.asarray(lengths, dtype=np.float64)

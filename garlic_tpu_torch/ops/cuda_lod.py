@@ -377,7 +377,8 @@ def _upload(arr: np.ndarray, device) -> torch.Tensor:
 
 def _pack_numpy(geno: np.ndarray, L4: int) -> np.ndarray:
     """Pad to L4 loci with missing codes and pack 2-bit codes: the numpy
-    branch of pallas_lod.pack_genotypes (:863-867)."""
+    branch of pallas_lod.pack_genotypes (:863-867), the tests' reference
+    for the native packer."""
     I, L = geno.shape
     gp = np.full((I, L4), -9, dtype=np.int8)
     gp[:, :L] = geno
@@ -390,11 +391,10 @@ def _pack_numpy(geno: np.ndarray, L4: int) -> np.ndarray:
 
 def pack_codes(geno: np.ndarray) -> np.ndarray:
     """u8 [I, ceil(L/4)] 2-bit codes of int8 [I, L] genotypes, missing
-    codes past L: the native C++ packer, else numpy."""
+    codes past L: the native C++ packer."""
     rb = (geno.shape[1] + 3) // 4
     from ..native import pack_2bit_padded_native
-    packed = pack_2bit_padded_native(geno, geno.shape[0], 4 * rb)
-    return packed if packed is not None else _pack_numpy(geno, 4 * rb)
+    return pack_2bit_padded_native(geno, geno.shape[0], 4 * rb)
 
 
 def packed_host(chrom) -> np.ndarray:

@@ -63,7 +63,7 @@ def nrd0(data: np.ndarray) -> float:
     x87 extended precision (verified by disassembling the oracle binary);
     np.std's pairwise f64 summation differs in the last ulps, which the
     %g-printed grid exposes.  Native gt_gsl_sd replicates the exact op
-    sequence; the fallback runs the same recurrence via np.longdouble.
+    sequence.
 
     Copy of garlic_tpu/ops/kde.py:61."""
     x = np.sort(np.asarray(data, dtype=np.float64))
@@ -79,28 +79,10 @@ def nrd0(data: np.ndarray) -> float:
 def _gsl_sd_sorted(x: np.ndarray) -> float:
     """gsl_stats_sd on (already sorted) f64 data — see nrd0.
 
-    Copy of garlic_tpu/ops/kde.py:83."""
+    Adapted from garlic_tpu/ops/kde.py:83: the native library is
+    required."""
     from ..native import gsl_sd_native
-    s = gsl_sd_native(x)
-    if s is not None:
-        return s
-    n = x.shape[0]
-    if n < 2:
-        return 0.0
-    # Pure-Python mirror of gt_gsl_sd: np.longdouble is the same 80-bit
-    # x87 format on x86-64 Linux.  O(n) Python-loop fallback — the native
-    # path is the production one.
-    mean = np.longdouble(0.0)
-    for i in range(n):
-        mean += (np.longdouble(x[i]) - mean) / np.longdouble(i + 1)
-    mean_d = np.float64(mean)
-    var = np.longdouble(0.0)
-    for i in range(n):
-        delta = np.float64(x[i] - mean_d)
-        var += (np.longdouble(delta) * np.longdouble(delta) - var) \
-            / np.longdouble(i + 1)
-    var_d = np.float64(var)
-    return float(np.sqrt(np.float64(n) / np.float64(n - 1) * var_d))
+    return gsl_sd_native(x)
 
 
 def _gsl_quantile_sorted(x: np.ndarray, f: float) -> float:

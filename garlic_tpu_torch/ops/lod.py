@@ -130,7 +130,7 @@ def window_missing_mask(positions: np.ndarray, winsize: int, max_gap: int,
     return any_break | first_in_centro
 
 
-# copy of garlic_tpu/ops/lod.py:166
+# adapted from garlic_tpu/ops/lod.py:166: the native library is required
 def lod_windows_exact(terms: np.ndarray, missing: np.ndarray,
                       winsize: int) -> np.ndarray:
     """win [I, L] float64 (MISSING-padded) from per-locus terms [I, L].
@@ -138,46 +138,13 @@ def lod_windows_exact(terms: np.ndarray, missing: np.ndarray,
     Reproduces the rolling-sum order of calcLOD (src/garlic-roh.cpp:46-126):
     the first window of each non-missing run is a fresh left-to-right sum;
     subsequent windows are (prev - head) + tail."""
-    try:
-        from ..native import lod_windows_exact_native
-        return lod_windows_exact_native(terms, missing, winsize)
-    except Exception:
-        return _lod_windows_exact_numpy(terms, missing, winsize)
+    from ..native import lod_windows_exact_native
+    return lod_windows_exact_native(terms, missing, winsize)
 
 
-# copy of garlic_tpu/ops/lod.py:180
-def _lod_windows_exact_numpy(terms: np.ndarray, missing: np.ndarray,
-                             winsize: int) -> np.ndarray:
-    I, L = terms.shape
-    win = np.full((I, L), float(MISSING), dtype=np.float64)
-    nwin = L - winsize + 1
-    if nwin <= 0:
-        return win
-    a = terms
-    l = 0
-    acc = None
-    while l < nwin:
-        if missing[l]:
-            l += 1
-            acc = None
-            continue
-        if acc is None:
-            # fresh left-to-right sum (src/garlic-roh.cpp:55-75)
-            acc = np.zeros(I, dtype=np.float64)
-            for k in range(winsize):
-                acc = acc + a[:, l + k]
-        else:
-            # rolling update (src/garlic-roh.cpp:91-101): (prev - head) + tail
-            acc = (acc - a[:, l - 1]) + a[:, l + winsize - 1]
-        win[:, l] = acc
-        if l + 1 < nwin and missing[l + 1]:
-            acc = None
-        l += 1
-    return win
-
-
-# copy of the exact branch of garlic_tpu/ops/lod.py:310 (calc_lod_windows);
-# the fast engine is parallel/engine.lod_windows_sharded
+# adapted from the exact branch of garlic_tpu/ops/lod.py:310
+# (calc_lod_windows): the native library is required; the fast engine is
+# parallel/engine.lod_windows_sharded
 def calc_lod_windows(chrom, centro, winsize: int, error: float,
                      max_gap: int, use_gl: bool = False,
                      bar=None) -> np.ndarray:
@@ -194,35 +161,23 @@ def calc_lod_windows(chrom, centro, winsize: int, error: float,
     if not use_gl:
         # table-driven native kernel: same per-(genotype, locus) f64
         # values, no [I, L] terms materialization
-        try:
-            from ..native import lod_windows_exact_tbl_native
-            table = lod_table(chrom.freq, error)
-            I = chrom.genotypes.shape[0]
-            if bar is None or I <= 1:
-                win = lod_windows_exact_tbl_native(chrom.genotypes, table,
-                                                   missing, winsize)
-                if win is not None:
-                    return win
-            else:
-                # tick as individuals complete: chunk the kernel over
-                # individual blocks (rows are independent; OpenMP still
-                # fans out within each block)
-                step = max(1, -(-I // 8))
-                outs = []
-                for s in range(0, I, step):
-                    w = lod_windows_exact_tbl_native(
-                        chrom.genotypes[s:s + step], table, missing, winsize)
-                    if w is None:
-                        outs = None
-                        break
-                    outs.append(w)
-                    bar.advance(min(step, I - s))
-                if outs is not None:
-                    return np.concatenate(outs, axis=0)
-        except ImportError:
-            pass
-    err = chrom.gl if use_gl else error
-    terms = lod_terms(chrom.genotypes, chrom.freq, err)
+        from ..native import lod_windows_exact_tbl_native
+        table = lod_table(chrom.freq, error)
+        I = chrom.genotypes.shape[0]
+        if bar is None or I <= 1:
+            return lod_windows_exact_tbl_native(chrom.genotypes, table,
+                                                missing, winsize)
+        # tick as individuals complete: chunk the kernel over individual
+        # blocks (rows are independent; OpenMP still fans out within each
+        # block)
+        step = max(1, -(-I // 8))
+        outs = []
+        for s in range(0, I, step):
+            outs.append(lod_windows_exact_tbl_native(
+                chrom.genotypes[s:s + step], table, missing, winsize))
+            bar.advance(min(step, I - s))
+        return np.concatenate(outs, axis=0)
+    terms = lod_terms(chrom.genotypes, chrom.freq, chrom.gl)
     win = lod_windows_exact(terms, missing, winsize)
     if bar is not None:
         bar.advance(chrom.genotypes.shape[0])

@@ -48,7 +48,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from . import cli
+from . import cli, native
 from .centromeres import Centromere
 from .cli import CLIError, ParsedArgs
 from .core.types import MISSING, ChromData, GarlicDataError
@@ -131,7 +131,8 @@ def run_main(argv: List[str], prog: str = "garlic-tpu-torch",
     ["cpu"] * 8 for meshes.  On a multi-process run (the three
     GARLIC_TPU_* variables) `device` is this process's list.  A set of
     the variables that is incomplete, or a process group that does not
-    form, exits 1 with one ERROR line."""
+    form, exits 1 with one ERROR line; so does a native host library
+    that g++ cannot build (native.library)."""
     t_call = time.time_ns()  # --tpu-profile's call/start begins here
     log = RunLog()
     try:
@@ -176,6 +177,11 @@ def _main(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
                   f"CUDA device: {e}; run {cli.ARG_ENGINE} exact on the CPU",
                   file=sys.stderr)
             return 1
+    try:
+        native.library()
+    except native.BuildError as e:
+        print(f"ERROR: {str(e).splitlines()[0]}", file=sys.stderr)
+        return 1
     # garlic_tpu resolves --tpu-mesh on the fast engine only, after
     # --freq-only has returned (pipeline.py:382-393): a spec it would
     # refuse is logged there by _run_impl
@@ -385,8 +391,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
     num_threads = args[cli.ARG_THREADS]
     argerr = argerr or cli.check_threads(log, num_threads)
     log.log("Threads:", num_threads)
-    from .native import set_native_threads
-    set_native_threads(num_threads)  # caps OpenMP in the host kernels
+    native.set_native_threads(num_threads)  # caps OpenMP in the host kernels
 
     error = args[cli.ARG_ERROR]
     argerr = argerr or cli.check_error(log, error, tglsfile)
@@ -1128,7 +1133,7 @@ def _exact_thinned_samples_sharded(chroms, centro, winsize: int,
     return np.concatenate(out) if out else np.zeros(0)
 
 
-# copy of garlic_tpu/pipeline.py:1392
+# adapted from garlic_tpu/pipeline.py:1392: the native library is required
 def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
                            max_gap: int, use_gl: bool, step: int,
                            rows) -> np.ndarray:
@@ -1139,16 +1144,12 @@ def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
     convertWinData2DoubleData (src/garlic-data.cpp:2026-2150).  Row
     chunks of 64 bound the [k, L] f64 temporaries; without TGLS the
     native thinned kernel never builds the full window matrix."""
+    from .native import lod_windows_exact_thin_native
     parts = []
-    thin_native = None
-    if not use_gl:
-        from .native import lod_windows_exact_thin_native
-        thin_native = lod_windows_exact_thin_native
     for c in chroms:
         r = np.arange(c.nind) if rows is None \
             else np.asarray(rows, dtype=np.int64)
-        table = miss8 = None
-        if thin_native is not None:
+        if not use_gl:
             table = lod_ops.lod_table(c.freq, error)
             nwin = max(c.nloci - winsize + 1, 0)
             miss8 = np.zeros(max(nwin, 1), dtype=np.uint8)
@@ -1158,13 +1159,12 @@ def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
                     centro.end(c.chrom)).astype(np.uint8)
         for s in range(0, r.size, 64):
             sub = _subset_chrom(c, r[s:s + 64])
-            w = None
-            if thin_native is not None:
-                w = thin_native(sub.genotypes, table, miss8, winsize, step)
-            if w is None:
-                wf = lod_ops.calc_lod_windows(sub, centro, winsize, error,
-                                              max_gap, use_gl)
-                w = wf[:, ::step]
+            if use_gl:
+                w = lod_ops.calc_lod_windows(sub, centro, winsize, error,
+                                             max_gap, use_gl)[:, ::step]
+            else:
+                w = lod_windows_exact_thin_native(sub.genotypes, table,
+                                                  miss8, winsize, step)
             flat = w.reshape(-1)
             m = (flat != MISSING) & ~np.isnan(flat)
             parts.append(flat[m])

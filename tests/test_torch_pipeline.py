@@ -233,6 +233,32 @@ def test_fast_engine_without_cuda_exits_nonzero(panel_dir, monkeypatch,
     assert not os.path.exists(f"{panel_dir}/nocuda.log")
 
 
+@pytest.mark.parametrize("surface", ["cli", "api"])
+def test_failed_native_build_ends_the_run(panel_dir, monkeypatch, capsys,
+                                          surface):
+    """The native host library is required, as the kernels' library is.
+    With flags g++ refuses, and no library loaded yet, g++ really runs
+    and fails: a CLI run exits 1 with one stderr line, an ERROR naming
+    g++ and build/garlic_tpu_torch/, before it writes any output, and
+    api.load_panel raises the build error with g++'s stderr."""
+    from garlic_tpu_torch import api, native
+    monkeypatch.setattr(native.build, "FLAGS", (["--no-such-g++-flag"],))
+    monkeypatch.setattr(native.build, "_lib", None)
+    if surface == "cli":
+        rc = _run(port_main, panel_dir, _base(panel_dir) + [
+            "--tpu-engine", "exact", "--out", "nonative"])
+        assert rc == 1
+        err = capsys.readouterr().err.strip().splitlines()
+        assert len(err) == 1, err
+        assert err[0].startswith("ERROR:") and "g++" in err[0]
+        assert os.path.join("build", "garlic_tpu_torch") + "/" in err[0]
+        assert not os.path.exists(f"{panel_dir}/nonative.log")
+    else:
+        with pytest.raises(native.BuildError,
+                           match="(?s)g\\+\\+.*--no-such-g\\+\\+-flag"):
+            api.load_panel(f"{panel_dir}/p.tped.gz", f"{panel_dir}/p.tfam")
+
+
 def test_auto_engine_without_cuda_runs_exact(panel_dir, monkeypatch,
                                              capsys):
     """The default --tpu-engine auto means the fast engine: without a
