@@ -32,7 +32,15 @@ Phases (any failure raises and exits non-zero, printing no result):
    host pass (gt_filter_pack_2bit), and its CUDA-event medians (one
    launch, 10 back to back) beside its byte bound, the plain version's
    and, on the host clock, the host pass's and the route's (uploads,
-   launch, synchronize);
+   launch, synchronize); then gt_exact_pool (pool_step), Phase II's
+   exact f64 pool, at the example benchmark's pool (20 of 45 rows on its
+   22 chromosomes, W 60, step 60), deferred codes: bit for bit against
+   its plain version (CPU tensors) and its route against the host pass
+   (gt_lod_windows_exact_thin), and its CUDA-event median of one launch
+   beside its bounds, its bytes at 3.35 TB/s and its serial chain (2 x
+   the longest chain's window steps x one dependent f64 add's latency,
+   from gt_dadd_chain's one-thread chains), and, on the host clock, the
+   route's and the host pass's times;
 3. tie band: max |win_f32 - win_f64| / (2^-23 * W * tmax) on the bench
    chromosome at W=60 and W=120, with the scalar --error (K1) and with
    the GQ error plane (K3, tmax with the TGLS corners), f64 from the
@@ -812,6 +820,128 @@ def compact_step():
     return t
 
 
+# the example benchmark's pool: 20 of its 45 rows (--kde-subsample 20) on
+# each of its 22 chromosomes, W = 60, step W (roh_bench/configs/
+# garlic-example.json)
+EXAMPLE_CONFIG = os.path.join(REPO, "roh_bench", "configs",
+                              "garlic-example.json")
+POOL_ROWS, POOL_W = 20, 60
+# gt_dadd_chain's rounds, two dependent adds each: the latency is the
+# difference of the two times over the difference of their adds
+DADD_ROUNDS = (1 << 20, 1 << 21)
+
+
+def dadd_latency_ns():
+    """One dependent f64 add's latency on the card, in ns: one thread's
+    chains of dependent adds (ops/exact_pool.dadd_chain) at two lengths,
+    CUDA-event medians of 21."""
+    import torch
+    from garlic_tpu_torch.ops import exact_pool
+    x = torch.tensor([1e-3, 2e-3, 0.5], dtype=torch.float64, device="cuda")
+    t = [_median_ms(lambda n=n: exact_pool.dadd_chain(x, n))
+         for n in DADD_ROUNDS]
+    return (t[1] - t[0]) * 1e6 / (2 * (DADD_ROUNDS[1] - DADD_ROUNDS[0]))
+
+
+def pool_step():
+    """gt_exact_pool on the card (the module docstring, phase 2): returns
+    its kernels-line entry."""
+    import torch
+    from garlic_tpu_torch import pipeline
+    from garlic_tpu_torch.ops import cuda_lod, exact_pool, lod
+    from tests.test_torch_pool import MAX_GAP as GAP, pool_chrom
+    dev = torch.device("cuda")
+    with open(EXAMPLE_CONFIG) as f:
+        cfg = json.load(f)
+    I, snps = cfg["individuals"], cfg["snps"]
+    rows = np.sort(np.random.default_rng(20).choice(I, POOL_ROWS, False))
+
+    def chroms():  # fresh: the host pass compacts a chromosome once
+        made = [pool_chrom(I, L, 100 + i, "two", "deferred", f"chr{i + 1}")
+                for i, L in enumerate(snps)]
+        return [c for c, _ in made], made[0][1]
+
+    cs, centro = chroms()
+    items = []
+    for c in cs:
+        miss = lod.window_missing_mask(c.positions, POOL_W, GAP,
+                                       centro.start(c.chrom),
+                                       centro.end(c.chrom))
+        items.append((cuda_lod.packed_device(c, dev),
+                      torch.from_numpy(rows.astype(np.int32)).to(dev),
+                      torch.from_numpy(np.ascontiguousarray(
+                          lod.lod_table(c.freq, ERROR)[:3])).to(dev),
+                      torch.from_numpy(miss.astype(np.uint8)).to(dev)))
+    got = exact_pool.exact_pool(items, POOL_W, POOL_W)
+    torch.cuda.synchronize()
+    cpu_items = [tuple(t.cpu() for t in it) for it in items]
+    t0 = time.perf_counter()
+    plain = exact_pool.exact_pool_plain(cpu_items, POOL_W, POOL_W)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    route = exact_pool.thinned_samples(cs, centro, POOL_W, ERROR, GAP,
+                                       POOL_W, [rows] * len(cs), dev)
+    hs, _ = chroms()
+    host = [pipeline._exact_thinned_samples([c], centro, POOL_W, ERROR, GAP,
+                                            False, POOL_W, rows) for c in hs]
+    g, p = got.cpu().numpy(), plain.numpy()
+    checks = {
+        "plain equal": bool(np.array_equal(np.isnan(g), np.isnan(p)) and
+                            np.array_equal(g[~np.isnan(g)].view(np.uint64),
+                                           p[~np.isnan(p)].view(np.uint64))),
+        "host pass equal": all(np.array_equal(a.view(np.uint64),
+                                              b.view(np.uint64))
+                               for a, b in zip(route, host)),
+        "compaction deferred": all(cuda_lod.deferred(c) for c in cs)}
+    nsamp = sum(a.size for a in route)
+    say(f"  exact_pool at the example's pool, {POOL_ROWS} of {I} rows x "
+        f"{len(snps)} chromosomes ({sum(snps)} loci), W {POOL_W}, step "
+        f"{POOL_W}: {nsamp} samples; " + ", ".join(
+            f"{k} {v}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"gt_exact_pool differs: {checks}")
+    card = _card()
+    nwin = max(snps) - POOL_W + 1
+    lat = dadd_latency_ns()
+    chain = 2 * (nwin - 1) * lat / 1e6
+    nbytes = sum(POOL_ROWS * ((L + 3) // 4) + 3 * 8 * L + (L - POOL_W + 1)
+                 + 4 * POOL_ROWS + 8 * POOL_ROWS * -(-L // POOL_W)
+                 for L in snps)
+    b = nbytes / card[2] * 1e3
+    kern = lambda: exact_pool.exact_pool(items, POOL_W, POOL_W)  # noqa: E731
+    t = {"ms": _median_ms(kern), "plain_ms": plain_ms,
+         "bound_ms": max(b, chain),
+         "bound_by": "serial chain" if chain >= b else "bytes",
+         "library_ms": None}
+    dev_ms = sum((_device_ms(kern, ("exact_pool_kernel",)) or {}).values())
+    t["device_ms"] = dev_ms or None
+
+    def dev_route():
+        exact_pool.thinned_samples(cs, centro, POOL_W, ERROR, GAP, POOL_W,
+                                   [rows] * len(cs), dev)
+
+    fresh = [chroms()[0] for _ in range(6)]
+
+    def host_route():
+        pipeline_cs = fresh.pop()
+        for c in pipeline_cs:
+            pipeline._exact_thinned_samples([c], centro, POOL_W, ERROR, GAP,
+                                            False, POOL_W, rows)
+
+    say(f"  exact_pool: kernel {t['ms']:.4f} ms (CUDA events around one "
+        f"launch, median of 21), device time {dev_ms:.4f} ms "
+        f"(torch.profiler, 10 launches); bounds: its bytes "
+        f"{nbytes / 1e6:.2f} MB at 3.35 TB/s {b:.4f} ms, its serial chain "
+        f"2 x {nwin - 1} window steps x {lat:.3f} ns a dependent f64 add "
+        f"{chain:.4f} ms (gt_dadd_chain, {DADD_ROUNDS} rounds); share of "
+        f"the chain {chain / t['ms']:.1%}; plain {plain_ms:.1f} ms (CPU "
+        f"tensors, host clock, one call); library none; the route "
+        f"(uploads, compactions, launch, copy back, filter) "
+        f"{_median_wall_ms(dev_route, 5):.2f} ms against the host pass "
+        f"(compaction, decode, table, mask, native thin pass) "
+        f"{_median_wall_ms(host_route, 5):.2f} ms (host clock, median of 5)")
+    return t
+
+
 def phase_tie_band(chrom, centro):
     import torch
     from garlic_tpu_torch import pipeline
@@ -1025,7 +1155,8 @@ class _MainPath:
     def __init__(self):
         self.walls = {}
         self.stderr = {}
-        self.launches = dict.fromkeys([*KERNELS, "compact_2bit"], 0)
+        self.launches = dict.fromkeys([*KERNELS, "compact_2bit",
+                                       "exact_pool"], 0)
 
     def run(self, argv, label, kernel=None, at_least=0, absent=None,
             device=None):
@@ -1733,15 +1864,22 @@ def phase_auto_path(mp, bench_files, small_files, nchrom):
                                      ("auto_exact", "exact", 0)):
             n0 = len(pools)
             # the fast runs: K2 for every chromosome, one K7 (one shard)
-            # and one K8 fit (5,530 ROH, above the device EM's gate)
-            mp.run(base + ["--tpu-engine", engine], label,
-                   {"covered": nchrom, "gauss_sums": 1, "gmm_em": 1}
-                   if engine == "fast" else None, absent="lod_windows")
+            # and one K8 fit (5,530 ROH, above the device EM's gate); the
+            # cold one pools on the card (one exact_pool launch)
+            least = {"covered": nchrom, "gauss_sums": 1, "gmm_em": 1,
+                     "exact_pool": calls} if engine == "fast" else None
+            mp.run(base + ["--tpu-engine", engine], label, least,
+                   absent="lod_windows")
             say(f"    exact sampler calls: {len(pools) - n0}")
             if len(pools) - n0 != calls:
                 raise AssertionError(f"{label}: the exact sampler ran "
                                      f"{len(pools) - n0} times, expected "
                                      f"{calls}")
+            pool = profile_counters(mp.stderr[label])[-1]["pool"]
+            say(f"    pool counters: {pool}")
+            if calls and not (pool["device"] > 0 and pool["host"] == 0):
+                raise AssertionError(f"{label}: the pool ran on the host "
+                                     f"({pool}), expected the card")
             sec = split.take()
             prof = dict(re.findall(r"^\[profile\]\s+(\S+)\s+([0-9.]+)s",
                                    mp.stderr[label], flags=re.M))
@@ -3264,6 +3402,7 @@ def main() -> int:
         centro = _Centro(*HG18_CHR1_CENTROMERE)
         err, times = phase_kernels(chrom, centro)
         times["compact_2bit"] = compact_step()
+        times["exact_pool"] = pool_step()
         mark("phase 2")
         phase_tie_band(chrom, centro)
         del chrom
@@ -3346,6 +3485,12 @@ def main() -> int:
                     "garlic_tpu_torch/native/garlic_native.cpp:217",
                     "launches": launches["compact_2bit"], "max_abs_err": 0.0,
                     **times["compact_2bit"]})
+    kernels.append({"name": "exact_pool", "route": "cuda",
+                    "source": "garlic_tpu_torch/csrc/exact_pool.cu",
+                    "replaces": "no Pallas kernel: the host pass "
+                    "garlic_tpu_torch/native/garlic_native.cpp:1433",
+                    "launches": launches["exact_pool"], "max_abs_err": 0.0,
+                    **times["exact_pool"]})
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,6 +144,10 @@ def library() -> ctypes.CDLL:
         lib.gt_gmm_em.restype = i
         lib.gt_compact_2bit.argtypes = [i, p, ll, ll, p, p, p, i, i, i, p]
         lib.gt_compact_2bit.restype = i
+        lib.gt_exact_pool.argtypes = [i, p, i, i, i, i, d, p, p]
+        lib.gt_exact_pool.restype = i
+        lib.gt_dadd_chain.argtypes = [i, p, ll, p, p]
+        lib.gt_dadd_chain.restype = i
         _lib = lib
         return lib
 

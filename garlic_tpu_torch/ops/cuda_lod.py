@@ -41,10 +41,12 @@ from .lod import window_missing_mask
 # position to the library); K5 and K6, the weighted path's kernels, are
 # launched by ops/device_wlod.py, K7 (the Gauss transform) by ops/kde.py
 # and K8 (the GMM-EM) by ops/gmm.py; compact_2bit is the codes'
-# compaction (compact_2bit, here)
+# compaction (compact_2bit, here), exact_pool Phase II's exact f64 pool
+# (ops/exact_pool.py)
 LAUNCHES = {"lod_windows": 0, "covered": 0, "window_sums": 0,
             "covered_terms": 0, "pair_counts": 0, "wlod_windows": 0,
-            "gauss_sums": 0, "gmm_em": 0, "compact_2bit": 0}
+            "gauss_sums": 0, "gmm_em": 0, "compact_2bit": 0,
+            "exact_pool": 0}
 
 
 def decode_2bit(packed: torch.Tensor, nloci: int) -> torch.Tensor:

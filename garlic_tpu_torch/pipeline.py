@@ -592,7 +592,7 @@ def _run_impl(args: ParsedArgs, argv: List[str], prog: str, log: RunLog,
         st.exact_sampler = \
             lambda wq, step, rows: _exact_thinned_samples_sharded(
                 ds.chroms, centro, wq, error, max_gap, use_gl, step, rows,
-                row_group)
+                row_group, mesh)
         # never across processes: a hit on one and a miss on another
         # would split their exchanges (pipeline.py:621-629)
         if group.size == 1 and ds.panel_cache_file is not None \
@@ -1107,28 +1107,41 @@ def _owned_row_patrol(ds, group, cover_local, window_local):
 
 def _exact_thinned_samples_sharded(chroms, centro, winsize: int,
                                    error: float, max_gap: int, use_gl: bool,
-                                   step: int, rows, group) -> np.ndarray:
-    """The Phase-II sampler of the fast engine's unweighted runs:
-    _exact_thinned_samples over the rows split among `group` (one
-    process when it holds them all): each process pools the exact f64
-    thinned samples of the requested rows it holds, then the
+                                   step: int, rows, group,
+                                   mesh) -> np.ndarray:
+    """The Phase-II sampler of the fast engine's unweighted runs: the
+    exact f64 thinned samples of the requested rows that each process of
+    `group` holds (one process when it holds them all), then the
     per-chromosome pools concatenate across ranks — rank r holds global
     rows [r*per, (r+1)*per), so rank-order concatenation reproduces the
     reference's exact chrom-major/row-major pooling order.  The pools'
     lengths differ per process: a variable-length gather, f64 kept.
 
+    Where a scalar error and a one-device mesh hold the rows, one launch
+    on that device pools every chromosome (ops/exact_pool, pool.device);
+    else (TGLS, or a mesh of several devices) _exact_thinned_samples
+    pools each on the host (pool.host).  Both give the same bits.
+
     Adapted from garlic_tpu/pipeline.py:1620: the Group's exchange in
-    place of process_allgather."""
-    out = []
+    place of process_allgather, and the device route."""
+    local = []
     for c in chroms:
-        r0, nown = c.row0, c.nind
         if rows is None:
-            local_rows = None  # all locally-held rows, in order
+            local.append(None)  # all locally-held rows, in order
         else:
             rr = np.asarray(rows, dtype=np.int64)
-            local_rows = rr[(rr >= r0) & (rr < r0 + nown)] - r0
-        part = _exact_thinned_samples([c], centro, winsize, error,
-                                      max_gap, use_gl, step, local_rows)
+            local.append(rr[(rr >= c.row0) & (rr < c.row0 + c.nind)]
+                         - c.row0)
+    if not use_gl and mesh.size == 1:
+        from .ops.exact_pool import thinned_samples
+        parts = thinned_samples(chroms, centro, winsize, error, max_gap,
+                                step, local, mesh.first)
+    else:
+        parts = (_exact_thinned_samples([c], centro, winsize, error,
+                                        max_gap, use_gl, step, r)
+                 for c, r in zip(chroms, local))
+    out = []
+    for part in parts:
         out += group.allgather_varlen(part.astype(np.float64), "samples")
     return np.concatenate(out) if out else np.zeros(0)
 
@@ -1143,10 +1156,12 @@ def _exact_thinned_samples(chroms, centro, winsize: int, error: float,
     thinned by `step` and MISSING-filtered exactly like
     convertWinData2DoubleData (src/garlic-data.cpp:2026-2150).  Row
     chunks of 64 bound the [k, L] f64 temporaries; without TGLS the
-    native thinned kernel never builds the full window matrix."""
+    native thinned kernel never builds the full window matrix.  Counted
+    in pool.host, one a chromosome."""
     from .native import lod_windows_exact_thin_native
     parts = []
     for c in chroms:
+        count("pool.host")
         r = np.arange(c.nind) if rows is None \
             else np.asarray(rows, dtype=np.int64)
         if not use_gl:

@@ -170,10 +170,12 @@ class PhaseProfiler:
       * `[profile] counters {json}`: this call's kernel launches
         (ops/cuda_lod.LAUNCHES and ops/device_wlod.CALLS since start()),
         h2d_bytes and d2h_bytes (to_device, to_host), the pool's pooled
-        and replayed, the sidecar's and the .freq.gz blob's hit and
-        miss, the tie patrol's suspects and flip_rows, and the 2-bit
-        codes' column compactions on a device (pack.device, one a shard)
-        and on the host (pack.host, one a chromosome), and the densities
+        and replayed and the chromosomes it pooled on a device
+        (pool.device) and on the host (pool.host), the sidecar's and the
+        .freq.gz blob's hit and miss, the tie patrol's suspects and
+        flip_rows, and the 2-bit codes' column compactions on a device
+        (pack.device, one a shard) and on the host (pack.host, one a
+        chromosome), and the densities
         the cutoff search scanned (cutoff.scans: 42 per cutoff selected,
         the selection and its rivals' probe);
       * on a fast run its device budget on the mesh's first device (its
@@ -273,7 +275,7 @@ class PhaseProfiler:
             "h2d_bytes": c.get("h2d_bytes", 0),
             "d2h_bytes": c.get("d2h_bytes", 0),
             "pool": {k: c.get(f"pool.{k}", 0)
-                     for k in ("pooled", "replayed")},
+                     for k in ("pooled", "replayed", "device", "host")},
             "sidecar": {k: c.get(f"sidecar.{k}", 0) for k in ("hit", "miss")},
             "freq_blob": {k: c.get(f"freq_blob.{k}", 0)
                           for k in ("hit", "miss")},

@@ -452,20 +452,22 @@ def _profiled(wd, args, out):
 
 # pinned: Phase I compacts on the device; tie: the patrol flips a row and
 # decodes the suspects and that row from the parent payload; auto: the
-# automatic cutoff's pool (20 rows, pooled again every call) fires the
-# host compaction before Phase III's K2; auto-replay: the pool cache
-# replays the whole panel's pool, so Phase III's K2 compacts on the device
+# automatic cutoff's pool (20 rows, pooled again every call) compacts on
+# the device, and Phase III's K2 compacts there again; auto-replay: the
+# pool cache replays the whole panel's pool, so Phase III's K2 compacts
+# on the device
 @pytest.mark.parametrize("case,pack", [
     ("pinned", {"device": 2, "host": 0}),
     ("tie", {"device": 2, "host": 0}),
-    ("auto", {"device": 0, "host": 2}),
+    ("auto", {"device": 4, "host": 0}),
     ("auto-replay", {"device": 2, "host": 0}),
 ])
 def test_device_compaction_gives_the_host_routes_bed(mono_dir, monkeypatch,
                                                      case, pack):
     """A warm sidecar call whose chromosomes' compaction is deferred: the
     route the call takes is the counters' (pack.device, one a chromosome
-    on the 1x1 mesh; pack.host, one a fired compaction), and its BED is
+    on the 1x1 mesh and again for the automatic pool's; pack.host, one a
+    fired compaction), and its BED is
     the host route's (the compaction forced onto the host) and the exact
     engine's, byte for byte."""
     wd = mono_dir
@@ -484,7 +486,8 @@ def test_device_compaction_gives_the_host_routes_bed(mono_dir, monkeypatch,
     if case == "tie":
         assert c["patrol"]["flip_rows"] > 0
     if case == "auto-replay":
-        assert c["pool"] == {"pooled": 0, "replayed": 1}
+        assert c["pool"] == {"pooled": 0, "replayed": 1, "device": 0,
+                             "host": 0}
     with monkeypatch.context() as m:
         m.setattr(cuda_lod, "deferred", lambda chrom: False)
         host = _profiled(wd, args, f"{case}_host")
